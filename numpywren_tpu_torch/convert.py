@@ -1,0 +1,56 @@
+"""Carrying state between the JAX package and the port.
+
+This system has no model weights: its state is matrices. `from_reference`
+turns a numpywren_tpu store object into the port's counterpart, reading it
+through ``np.asarray`` only, so the port never imports jax. `to_numpy` is
+the other direction: the logical matrix as an ndarray, which the JAX
+package takes in (``TrapezoidMatrix.from_array``, ``shard_matrix``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from numpywren_tpu_torch.ops.common import to_numpy as _tensor_to_numpy
+from numpywren_tpu_torch.tiled import TiledMatrix, _TiledBase
+from numpywren_tpu_torch.trapezoid import TiledTrapezoidMatrix, TrapezoidMatrix
+
+
+def _tensor(x, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(x)).to(device)  # np.array copies: owned buffer
+
+
+def from_reference(obj, device=None):
+    """The port's counterpart of a numpywren_tpu TrapezoidMatrix,
+    TiledTrapezoidMatrix or TiledMatrix, on `device` (default: the CPU).
+
+    Stored state carries over exactly, including what a factorization has
+    left behind: the stale strict upper of diagonal blocks and the
+    computed-block mask."""
+    device = torch.device(device) if device is not None else torch.device("cpu")
+    kind = type(obj).__name__
+    if kind == "TrapezoidMatrix":
+        return TrapezoidMatrix([_tensor(c, device) for c in obj.cols], obj.n, obj.panel)
+    if kind == "TiledTrapezoidMatrix":
+        out = TiledTrapezoidMatrix(from_reference(obj.trap, device), key=obj.key,
+                                   tile=obj.tile[0], symmetric=obj.symmetric)
+        out._written = np.array(obj._written)
+        return out
+    if kind in ("TiledMatrix", "TiledSymmetricMatrix"):  # the latter as its dense mirror
+        if obj.storage != "hbm":
+            obj = obj.to_hbm()
+        out = TiledMatrix(key=obj.key, shape=obj.shape, tile=obj.tile,
+                          dtype=np.dtype(obj.dtype), fill=obj._fill, device=device)
+        out.replace_array(_tensor(obj.array, device), mark_written=False)
+        out._written = np.array(obj._written)
+        out._cached = np.array(obj._cached)
+        return out
+    raise TypeError(f"no port counterpart for {type(obj).__module__}.{kind}")
+
+
+def to_numpy(obj) -> np.ndarray:
+    """The logical matrix of a port store object (or a tensor) as an ndarray."""
+    if isinstance(obj, (TrapezoidMatrix, _TiledBase)):
+        return obj.numpy()
+    return _tensor_to_numpy(obj)

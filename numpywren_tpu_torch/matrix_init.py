@@ -1,0 +1,54 @@
+"""Creating TiledMatrices from local data (counterpart of
+numpywren_tpu/matrix_init.py; the reference's matrix_init.shard_matrix puts
+each block to S3, here the device tier is one padded transfer)."""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from numpywren_tpu_torch.ops.common import as_tensor
+from numpywren_tpu_torch.tiled import TiledMatrix
+
+
+def shard_matrix(
+    arr,
+    tile: Tuple[int, int] = (512, 512),
+    key: Optional[str] = None,
+    storage: str = "hbm",
+    symmetric: bool = False,
+    dtype=None,
+    device=None,
+) -> TiledMatrix:
+    """A TiledMatrix holding `arr` (an ndarray or a tensor), zero-padded to
+    whole tiles. `device=None` keeps a tensor where it is and puts an
+    ndarray on the current CUDA device, or the CPU without one."""
+    if symmetric:
+        raise NotImplementedError(
+            "the mirrored TiledSymmetricMatrix is not ported; bind SPD operands "
+            "with storage='trapezoid' (the half-memory symmetric tier)")
+    t = as_tensor(arr, device=device, dtype=dtype)
+    out = TiledMatrix(key=key, shape=tuple(t.shape), tile=tile, dtype=t.dtype,
+                      storage=storage, fill=None, device=t.device)
+    pm, pn = out.padded_shape
+    if tuple(t.shape) != (pm, pn):
+        pad = torch.zeros((pm, pn), dtype=t.dtype, device=t.device)
+        pad[: t.shape[0], : t.shape[1]] = t
+        t = pad
+    elif t is arr or (isinstance(arr, np.ndarray) and t.device.type == "cpu"):
+        t = t.clone()  # the store owns its buffer: fused runs overwrite it
+    out.replace_array(t)
+    return out
+
+
+def random_spd(n: int, seed: int = 0, dtype=np.float32, jitter: float = None) -> np.ndarray:
+    """A well-conditioned random SPD matrix for tests (numpy, fp64 product).
+
+    Mirrors the reference tests' pattern (A = X Xᵀ/n + 2I on random X). It is
+    O(n³) on the host: build large operands on the device instead."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, n)).astype(np.float64)
+    a = x @ x.T / n + np.eye(n) * (jitter if jitter is not None else 2.0)
+    return a.astype(dtype)

@@ -1,0 +1,108 @@
+"""The CUDA kernels against their plain PyTorch versions on the card, at
+small and awkward shapes: ragged edges, K not a multiple of 8, K = 0, one
+row or column, transposed and strided operands, bf16, and out aliasing c.
+
+These need an NVIDIA GPU (sm_90a) and nvcc; without one every test skips.
+Run on the card: python -m pytest tests/test_torch_cuda.py -q
+
+Tolerance: relative Frobenius error 1e-5, both sides doing the same fp32
+(or bf16x3) arithmetic in another summation order.
+"""
+
+import pytest
+import torch
+
+from numpywren_tpu_torch.ops import gemm, gemm3
+
+BAR = 1e-5
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _rand(gen, *shape, dtype=torch.float32):
+    return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+
+def _close(got, want):
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    den = torch.linalg.norm(want.float())
+    err = torch.linalg.norm((got - want).float())
+    assert err <= BAR * den if den > 0 else err == 0
+
+
+SHAPES = [(1, 1, 1), (1, 130, 7), (129, 1, 3), (130, 70, 9), (200, 257, 0), (256, 128, 128),
+          (1000, 777, 300)]
+
+
+@pytest.mark.parametrize("with_c", [False, True])
+@pytest.mark.parametrize("tb", [False, True])
+@pytest.mark.parametrize("m,n,k", SHAPES)
+def test_matmul3_kernel(gen, m, n, k, tb, with_c):
+    a = _rand(gen, m, k)
+    b = _rand(gen, n, k) if tb else _rand(gen, k, n)
+    c = _rand(gen, m, n) if with_c else None
+    before = gemm3.LAUNCHES
+    got = gemm3.matmul3(a, b, c, tb=tb)
+    assert gemm3.LAUNCHES == before + 1
+    _close(got, gemm3.matmul3_ref(a, b, c, tb=tb))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ta,tb", [(False, False), (False, True), (True, False), (True, True)])
+@pytest.mark.parametrize("m,n,k", SHAPES)
+def test_matmul_kernel(gen, m, n, k, ta, tb, dtype):
+    a = _rand(gen, *((k, m) if ta else (m, k)), dtype=dtype)
+    b = _rand(gen, *((n, k) if tb else (k, n)), dtype=dtype)
+    c = _rand(gen, m, n)
+    kw = dict(ta=ta, tb=tb, alpha=0.5, beta=-2.0, out_dtype=torch.float32)
+    before = gemm.LAUNCHES
+    got = gemm.matmul(a, b, c, precision="highest", **kw)
+    assert gemm.LAUNCHES == before + 1
+    _close(got, gemm.matmul_ref(a, b, c, **kw))
+
+
+def test_bf16_output_and_c_of_another_dtype(gen):
+    a, b = _rand(gen, 300, 200, dtype=torch.bfloat16), _rand(gen, 200, 100, dtype=torch.bfloat16)
+    c = _rand(gen, 300, 100)
+    got = gemm.matmul(a, b, c, precision="default")  # bf16 out, fp32 c
+    assert got.dtype == torch.bfloat16
+    want = gemm.matmul_ref(a, b, c)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)  # bf16 rounding
+
+
+@pytest.mark.parametrize("kernel", ["matmul", "matmul3"])
+def test_strided_views_in_place(gen, kernel):
+    """The trailing update's form: row-strided column views of one buffer,
+    the result written into c where it lies; nothing else changes."""
+    buf = _rand(gen, 700, 3 * 128)  # every view below has leading dimension 384
+    a, b, c = buf[:, :128], buf[:128, 128:256], buf[:, 256:]
+    want = gemm3.matmul3_ref(a, b, c, tb=True) if kernel == "matmul3" else c - a @ b.T
+    keep = buf[:, :256].clone()
+    if kernel == "matmul3":
+        out = gemm3.matmul3(a, b, c, tb=True, out=c)
+    else:
+        out = gemm.matmul(a, b, c, tb=True, alpha=-1.0, beta=1.0, precision="highest", out=c)
+    assert out.data_ptr() == c.data_ptr()
+    _close(c, want)
+    assert torch.equal(buf[:, :256], keep)
+
+
+def test_non_unit_column_stride_is_copied(gen):
+    a = _rand(gen, 64, 96)[:, ::2]  # column stride 2: the wrapper makes it contiguous
+    b = _rand(gen, 40, 48)
+    _close(gemm3.matmul3(a, b, tb=True), gemm3.matmul3_ref(a, b, tb=True))
+    _close(gemm.matmul(a, b, tb=True, precision="highest"), gemm.matmul_ref(a, b, tb=True))
+
+
+def test_wrong_dtype_raises(gen):
+    a = _rand(gen, 8, 8).double()
+    with pytest.raises(TypeError):
+        gemm3.matmul3(a, a)
+    with pytest.raises(TypeError):
+        gemm.matmul(a, a, precision="highest")

@@ -1,0 +1,116 @@
+"""The port's user entry points against the JAX package's, on the CPU:
+cholesky(X, storage=...) + run_program (the DSL path through lower_fused),
+cholesky_solve, and carrying matrices across with convert.
+
+Same numpy inputs through both packages; tolerance rtol 1e-4, atol 1e-5 on
+factors (as tests/test_trapezoid.py), 1e-4 relative on solutions.
+"""
+
+import numpy as np
+import pytest
+
+import numpywren_tpu as jnpw
+import numpywren_tpu_torch as npw
+from numpywren_tpu import config
+from numpywren_tpu.matrix_init import random_spd
+from numpywren_tpu.matrix_init import shard_matrix as jshard
+from numpywren_tpu.runtime.program import NS, PS
+from numpywren_tpu_torch import convert
+
+RTOL, ATOL = 1e-4, 1e-5
+
+
+@pytest.fixture(params=[False, True], ids=["high", "compensated"])
+def compensated(request, monkeypatch):
+    monkeypatch.setattr(config, "_default", config.NpwConfig(compensated=request.param))
+    return request.param
+
+
+def _both(a, **kw):
+    """(port O, port meta, JAX O, JAX meta) after binding and running."""
+    prog, o, meta = npw.cholesky(a, device="cpu", **kw)
+    assert npw.run_program(prog) == PS.SUCCESS
+    assert prog.program_status == PS.SUCCESS
+    assert prog._finished_count == prog.num_nodes
+    assert prog.get_node_status(prog.num_nodes - 1) == NS.FINISHED
+    jprog, jo, jmeta = jnpw.cholesky(a, **kw)
+    jnpw.run_program(jprog)
+    return o, meta, jo, jmeta
+
+
+@pytest.mark.parametrize("storage,n,kw", [
+    ("hbm", 300, dict(tile=(64, 64))),                  # padded edge tiles
+    ("hbm", 256, dict(tile=(32, 32))),                  # inner blocking 128
+    ("trapezoid", 256, dict(tile=(32, 32), panel=64)),
+    ("trapezoid", 200, dict(tile=(64, 64), panel=128)),  # padded trapezoid
+])
+def test_cholesky_run_program_matches_jax(compensated, storage, n, kw):
+    a = random_spd(n, seed=n)
+    o, _, jo, _ = _both(a, storage=storage, **kw)
+    assert o.storage == jo.storage
+    got = o.numpy()
+    np.testing.assert_allclose(got, jo.numpy(), rtol=RTOL, atol=ATOL)
+    assert np.linalg.norm(a - got @ got.T) / np.linalg.norm(a) < 1e-5
+    assert o.block_idxs_exist == jo.block_idxs_exist
+
+
+@pytest.mark.parametrize("storage,kw", [
+    ("hbm", dict(tile=(32, 32), truncate=3)),
+    ("trapezoid", dict(tile=(32, 32), panel=64, truncate=4)),
+])
+def test_truncate_prefix_run_matches_jax(compensated, storage, kw):
+    """A prefix run: the factored columns in O, the Schur complement where
+    each tier keeps it (S on the flat tier, O's own buffers on the
+    trapezoid tier), and the same computed-block mask."""
+    a = random_spd(256, seed=41)
+    o, meta, jo, jmeta = _both(a, storage=storage, **kw)
+    if storage == "hbm":
+        np.testing.assert_allclose(o.numpy(), jo.numpy(), rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(meta["scratch"].numpy(), jmeta["scratch"].numpy(),
+                                   rtol=RTOL, atol=ATOL)
+    else:
+        np.testing.assert_allclose(o.trap.numpy(), np.asarray(jo.trap.to_array()),
+                                   rtol=RTOL, atol=ATOL)
+    assert o.block_idxs_exist == jo.block_idxs_exist
+
+
+def test_cholesky_solve_matches_jax():
+    rng = np.random.default_rng(3)
+    a = random_spd(200, seed=5)
+    b = rng.standard_normal((200, 3)).astype(np.float32)
+    o, _, jo, _ = _both(a, tile=(64, 64))
+    x = npw.cholesky_solve(o, b)
+    np.testing.assert_allclose(x, jnpw.cholesky_solve(jo, b), rtol=1e-4, atol=1e-5)
+    x1 = npw.cholesky_solve(o, b[:, 0])
+    assert x1.shape == (200,)
+    assert np.linalg.norm(a @ x1 - b[:, 0]) / np.linalg.norm(b[:, 0]) < 1e-4
+
+
+def test_convert_round_trip():
+    """Stores carried from the JAX package hold the same state, and the
+    port factors them as JAX does."""
+    a = random_spd(192, seed=6)
+    jm = jshard(a, tile=(64, 64))
+    m = convert.from_reference(jm)
+    np.testing.assert_array_equal(convert.to_numpy(m), jm.numpy())
+    assert m.block_idxs_exist == jm.block_idxs_exist
+    o, _, jo, _ = _both(a, storage="trapezoid", tile=(64, 64), panel=64)
+    np.testing.assert_array_equal(convert.to_numpy(convert.from_reference(jo)), jo.numpy())
+    # the same state into both packages' factorizations
+    prog, o2, _ = npw.cholesky(m)
+    npw.run_program(prog)
+    np.testing.assert_allclose(convert.to_numpy(o2), jo.numpy(), rtol=RTOL, atol=ATOL)
+    with pytest.raises(TypeError):
+        convert.from_reference(object())
+
+
+def test_unported_paths_raise():
+    a = random_spd(64, seed=7)
+    with pytest.raises(NotImplementedError, match="host tier"):
+        npw.cholesky(a, storage="host")
+    prog, _, _ = npw.cholesky(a, tile=(32, 32), device="cpu")
+    for ex in ("jax", "local", "spill"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            npw.run_program(prog, executor=ex)
+    with pytest.raises(ValueError, match="unknown executor"):
+        npw.run_program(prog, executor="bogus")
