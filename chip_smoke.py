@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's blocked-Cholesky main path once on one GPU.
+"""Drive the PyTorch/CUDA port's main paths once on one GPU.
 
     python3 chip_smoke.py            # from the root of a checkout
 
 Builds the port's CUDA kernels from numpywren_tpu_torch/csrc, checks each
-against its plain PyTorch version at the main path's shapes, then factors an
-N=32768 fp32 SPD matrix (made on the card from a seeded generator) through
-the user entry points in the main path's configurations:
+against its plain PyTorch version at its path's shapes, then drives the
+user entry points (operands made on the card from seeded generators):
+blocked Cholesky at N=32768 (P2-P5), the factor ops (P6), TSQR at
+BASELINE config 3's 1,048,576 x 512 and beside it (P8-P11), and GEMM at
+8192 (P12):
 
   P0  the card, its power limit, the kernel build
   P1  each kernel vs its plain version: relative Frobenius error <= 1e-5
@@ -19,18 +21,40 @@ the user entry points in the main path's configurations:
       reference, and ||L_P2 - L_P4|| / ||L_P4|| <= 1e-4
   P5  the flat entry point cholesky(shard_matrix(A)) + run_program at
       N=16384, compensated
+  P6  potrf, potrf_inv, trtri, trsm kernels vs their plain versions at
+      n = 128..1024 (rel Frobenius <= 1e-5, ||L W - I||_max <= 1e-4,
+      strict upper exactly 0), ms of kernel, plain and torch.linalg in
+      turns; an off-envelope n=1000 call launches nothing; then the ops
+      entry points potrf_pallas + trsm_pallas on the first Cholesky panel
+      (1024 diagonal block, 31744 x 1024 below it)
+  P7  the CholeskyQR2 chain kernel vs its plain version at 1,048,576 x 256
+      (columns) and 256 x 1,048,576 (rows), kappa 10: max|q - q_plain|
+      <= 3e-5, total rel <= 1e-5, the same conv flag, dev2 rel <= 1e-4
+  P8  tsqr(X 1,048,576 x 512, tile_rows=4096, "cholqr3s", compute_q) +
+      run_program with NPW_PALLAS_FACTOR=1 (potrf_inv kernel), then the
+      library route (both flags off)
+  P9  the same at 1,048,576 x 256 with NPW_PALLAS_CHAIN=1 (chain kernel)
+  P10 kappa = 1e6 at 65,536 x 256 with both flags on (chain and potrf_inv)
+  P11 methods "cholqr2" and "tree" at 65,536 x 256 (library only)
+  P12 gemm(A, B) + run_program at 8192^2 fp32, tile 512: the default route
+      (torch.matmul) and the compensated one (matmul3), vs an fp64 product
+      on the card, rel <= 1e-5
 
 Residuals ||A - L Lᵀ||_F / ||A||_F are computed on the card in fp64 and
-must be <= 1e-4. Each phase prints one JSON line; then the kernels' line,
-the card's name and power limit, and last {"ok": true, "device": ...}.
-Any failure exits non-zero without that last line; so does a host without
-a CUDA device, or a directory without the port beside this script.
+must be <= 1e-4. TSQR phases hold ||QᵀQ - I||_F/sqrt(b) <= 1e-4,
+||QR - X||_F/||X||_F <= 1e-5 (fp64 on the card) and the kernel route's R
+within 3e-5 (rel Frobenius, signs fixed by diag(R)) of the library's.
+Each phase prints JSON lines; then the kernels' line, the card's name and
+power limit, and last {"ok": true, "device": ...}. Any failure exits
+non-zero without that last line; so does a host without a CUDA device, or
+a directory without the port beside this script.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -38,6 +62,18 @@ import time
 PANEL = 1024
 RESID_BAR = 1e-4
 KERNEL_BAR = 1e-5
+INV_BAR = 1e-4     # ||L W - I||_max of a factor kernel
+CHAIN_Q_BAR = 3e-5  # max |q - q_plain| of the chain (tests/test_pallas_factor.py:180)
+DEV2_BAR = 1e-4    # dev2 of kernel and plain: two summation orders of one product
+ORTHO_BAR = 1e-4
+QR_RESID_BAR = 1e-5
+R_AGREE_BAR = 3e-5
+FLAGS = ("NPW_PALLAS_FACTOR", "NPW_PALLAS_CHAIN")
+
+# H100 SXM5 published peaks (NVIDIA H100 datasheet)
+PEAK_FP32 = 67e12     # FP32 FFMA, FLOP/s
+PEAK_BF16 = 989e12    # dense bf16 tensor cores, FLOP/s
+PEAK_HBM = 3.35e12    # bytes/s
 
 
 def emit(obj) -> None:
@@ -71,17 +107,31 @@ def cuda_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def in_turns(torch, kernel, plain, iters: int = 10):
-    """Mean ms of `iters` warm launches each, plain-kernel-kernel-plain."""
-    for fn in (kernel, plain):
+def in_turns(torch, *fns, iters: int = 10):
+    """Mean ms of `iters` warm calls of each fn, timed in turns: forward,
+    then backward (kernel, plain, ..., plain, kernel)."""
+    for fn in fns:
         fn()
         fn()
     torch.cuda.synchronize()
-    p1 = cuda_ms(torch, plain, iters)
-    k1 = cuda_ms(torch, kernel, iters)
-    k2 = cuda_ms(torch, kernel, iters)
-    p2 = cuda_ms(torch, plain, iters)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    fwd = [cuda_ms(torch, fn, iters) for fn in fns]
+    bwd = [cuda_ms(torch, fn, iters) for fn in reversed(fns)][::-1]
+    return [(a + b) / 2 for a, b in zip(fwd, bwd)]
+
+
+def bound(flops: float, nbytes: float, peak: float):
+    """(ms, "operations" | "bytes"): the least time the card could take."""
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / PEAK_HBM * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def rel_err(torch, got, want) -> float:
+    return float(torch.linalg.norm((got - want).double()) / torch.linalg.norm(want.double()))
+
+
+def set_flags(on=()) -> None:
+    for name in FLAGS:
+        os.environ[name] = "1" if name in on else "0"
 
 
 # ---------------------------------------------------------------------------
@@ -109,6 +159,7 @@ def p1_kernels(torch, gen):
         lib = (lambda: torch.addmm(c, a, b.T, alpha=-1.0)) if with_c else (lambda: a @ b.T)
         lib(), torch.cuda.synchronize()
         torch_ms = cuda_ms(torch, lib, 10)
+        flops, nbytes = 2 * m * n * k, 4 * (m * k + n * k + (2 if with_c else 1) * m * n)
         for kern in ("matmul3", "matmul"):
             if kern == "matmul3":
                 run = lambda: gemm3.matmul3(a, b, c, tb=True)  # noqa: E731
@@ -117,8 +168,10 @@ def p1_kernels(torch, gen):
                 kw = dict(tb=True, alpha=-1.0, beta=1.0) if with_c else dict(tb=True)
                 run = lambda: gemm.matmul(a, b, c, precision="highest", **kw)  # noqa: E731
                 plain = lambda: gemm.matmul_ref(a, b, c, **kw)  # noqa: E731
+            b_ms, b_by = (bound(3 * flops, nbytes, PEAK_BF16) if kern == "matmul3"
+                          else bound(flops, nbytes, PEAK_FP32))
             results[kern].append(_compare(torch, f"{kern}:{name}", m, k, n, run, plain,
-                                          torch_ms=torch_ms))
+                                          torch_ms=torch_ms, bound_ms=b_ms, bound_by=b_by))
 
     # in place, as the trailing update runs: out aliases c
     m, k, n = r, 1024, 1024
@@ -329,10 +382,308 @@ def main_path(torch, npw, n: int, n_flat: int, seed: int):
     return launches, (p2_row, p3_row, p4_row)
 
 
+# ---------------------------------------------------------------------------
+# P6-P7: the factorization kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def spd(torch, gen, n):
+    x = torch.randn(n, n, generator=gen, device="cuda")
+    return x @ x.T / n + torch.eye(n, device="cuda")
+
+
+def p6_factor(torch, gen):
+    """The four factor wrappers at n = 128..1024: kernel vs plain vs library."""
+    from numpywren_tpu_torch.ops import gemm
+    from numpywren_tpu_torch.ops import pallas_factor as pf
+
+    rows = {}
+    for n in (128, 256, 512, 1024):
+        a = spd(torch, gen, n)
+        eye = torch.eye(n, device="cuda")
+        x = torch.randn(2048, n, generator=gen, device="cuda")
+        def chol():
+            return torch.linalg.cholesky_ex(a)[0]
+
+        def chol_inv():
+            lo = chol()
+            return lo, torch.linalg.solve_triangular(lo, eye, upper=False)
+
+        l = chol()
+        cases = {  # name -> (kernel, plain, library, flops, bytes)
+            "potrf": (lambda: pf.potrf_pallas(a), lambda: pf.potrf_ref(a), chol,
+                      n ** 3 / 3, 8 * n * n),
+            "potrf_inv": (lambda: pf.potrf_inv_pallas(a), lambda: pf.potrf_inv_ref(a),
+                          chol_inv, 2 * n ** 3 / 3, 12 * n * n),
+            "trtri": (lambda: pf.trtri_pallas(l), lambda: pf.trtri_ref(l),
+                      lambda: torch.linalg.solve_triangular(l, eye, upper=False),
+                      n ** 3 / 3, 8 * n * n),
+            "trsm": (lambda: pf.trsm_pallas(x, l, precision="highest"),
+                     lambda: gemm.matmul_ref(x, pf.trtri_ref(l), tb=True),
+                     lambda: torch.linalg.solve_triangular(l.T, x, upper=True, left=False),
+                     n ** 3 / 3 + 2 * 2048 * n * n, 4 * (n * n + 2 * 2048 * n)),
+        }
+        for name, (kern, plain, lib, flops, nbytes) in cases.items():
+            got, want = kern(), plain()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            torch.cuda.synchronize()
+            errs = [rel_err(torch, g, w) for g, w in zip(got, want)]
+            mx = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            for g in got:
+                require(bool(torch.isfinite(g).all()), f"P6 {name} n={n}: non-finite output")
+            require(max(errs) <= KERNEL_BAR, f"P6 {name} n={n}: rel error {errs} > {KERNEL_BAR}")
+            row = {"phase": "P6", "case": f"{name}:{n}", "n": n, "rel_err": max(errs),
+                   "max_abs_err": mx}
+            if name != "trsm":
+                w = got[-1]
+                lw = (got[0] @ w) if name == "potrf_inv" else (l @ w if name == "trtri" else None)
+                for t in got:
+                    require(int(torch.count_nonzero(torch.triu(t, 1))) == 0,
+                            f"P6 {name} n={n}: strict upper triangle not 0")
+                if lw is not None:
+                    inv_err = float((lw - eye).abs().max())
+                    require(inv_err <= INV_BAR, f"P6 {name} n={n}: ||LW - I|| {inv_err}")
+                    row["inv_err"] = inv_err
+            ms, plain_ms, lib_ms = in_turns(torch, kern, plain, lib, iters=5)
+            b_ms, b_by = bound(flops, nbytes, PEAK_FP32)
+            row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+            emit(row)
+            rows[(name, n)] = row
+
+    # outside the envelope: torch.linalg, no launch
+    before = dict(pf.LAUNCHES)
+    a = spd(torch, gen, 1000)
+    l, w = pf.potrf_inv_pallas(a)
+    pf.potrf_pallas(a)
+    pf.trtri_pallas(l)
+    torch.cuda.synchronize()
+    require(pf.LAUNCHES == before, f"P6 off-envelope n=1000 launched {pf.LAUNCHES} vs {before}")
+    emit({"phase": "P6", "case": "off_envelope:1000", "launches_unchanged": True,
+          "inv_err": float((l @ w - torch.eye(1000, device="cuda")).abs().max())})
+    return rows
+
+
+def p6_ops_path(torch, gen, n_rows: int = 31744, n: int = PANEL):
+    """The ops entry points on the first panel of an N=32768 Cholesky:
+    potrf_pallas of the 1024 diagonal block, trsm_pallas of the 31744 x
+    1024 block below it (kernels.potrf / kernels.trsm semantics)."""
+    from numpywren_tpu_torch import ops
+    from numpywren_tpu_torch.ops import gemm
+    from numpywren_tpu_torch.ops import pallas_factor as pf
+
+    a = spd(torch, gen, n)
+    b = torch.randn(n_rows, n, generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    pf.reset_launches()
+    gemm.LAUNCHES = 0
+
+    def drive():
+        lo = ops.potrf_pallas(a)
+        return lo, ops.trsm_pallas(b, lo, precision="highest")
+
+    (l, x), host_s, dev_s = run_entry(torch, drive)
+    counts = {**pf.LAUNCHES, "matmul": gemm.LAUNCHES}
+    require(counts["potrf"] == 1 and counts["trtri"] == 1, f"P6 ops path launches {counts}")
+    resid = rel_err(torch, l @ l.T, a)
+    solve = rel_err(torch, x @ l.T, b)
+    emit({"phase": "P6", "case": "ops_path", "shape": [n_rows, n], "seconds": dev_s,
+          "host_seconds": host_s, "launches": counts, "potrf_residual": resid,
+          "trsm_residual": solve})
+    require(resid <= KERNEL_BAR and solve <= KERNEL_BAR,
+            f"P6 ops path residuals {resid}, {solve} > {KERNEL_BAR}")
+    return counts
+
+
+def kappa_panel(torch, gen, m, b, kappa):
+    """An (m, b) panel with singular values logspaced from 1 to 1/kappa."""
+    u, _ = torch.linalg.qr(torch.randn(m, b, generator=gen, device="cuda"))
+    v, _ = torch.linalg.qr(torch.randn(b, b, generator=gen, device="cuda"))
+    s = torch.logspace(0, -float(torch.log10(torch.tensor(kappa))), b, device="cuda")
+    return (u * s) @ v.T
+
+
+def p7_chain(torch, gen, m: int, b: int = 256):
+    from numpywren_tpu_torch.compiler import lower
+    from numpywren_tpu_torch.ops import pallas_factor as pf
+
+    out = {}
+    base = kappa_panel(torch, gen, m, b, 10.0)
+    for rows in (False, True):
+        p = base.T.contiguous() if rows else base
+        g = p @ p.T if rows else p.T @ p
+        kw = dict(rows=rows, shift_c=4.0 * float(torch.finfo(torch.float32).eps) * (m * b) ** 0.5,
+                  conv_gate=min(2.0 * 1e-4 ** 0.5, 1e-1))
+        q, total, conv, dev2 = pf.cholqr2_chain_pallas(g, p, **kw)
+        qr_, tr, convr, dev2r = pf.cholqr2_chain_ref(g, p, **kw)
+        torch.cuda.synchronize()
+        qerr = float((q - qr_).abs().max())
+        terr = rel_err(torch, total, tr)
+        derr = abs(float(dev2) - float(dev2r)) / float(dev2r)
+        case = f"chain:{'rows' if rows else 'cols'}"
+        require(qerr <= CHAIN_Q_BAR, f"P7 {case}: max|q - q_plain| {qerr} > {CHAIN_Q_BAR}")
+        require(terr <= KERNEL_BAR, f"P7 {case}: total rel {terr} > {KERNEL_BAR}")
+        require(bool(conv) == bool(convr), f"P7 {case}: conv {bool(conv)} vs {bool(convr)}")
+        require(derr <= DEV2_BAR, f"P7 {case}: dev2 {float(dev2)} vs {float(dev2r)}")
+        set_flags()
+        ms, plain_ms, lib_ms, chained_ms = in_turns(
+            torch,
+            lambda: pf.cholqr2_chain_pallas(g, p, **kw),
+            lambda: pf.cholqr2_chain_ref(g, p, **kw),
+            lambda: lower._cholqr_adaptive(p, rows=rows, max_passes=2),
+            lambda: lower._cholqr_adaptive(p, rows=rows, max_passes=2, pallas_chain=True),
+            iters=5)
+        small = (2 * b ** 3 / 3 + 2 * b ** 3 * (7 if float(dev2) < 0.1 else 3))
+        b_ms, b_by = bound(2 * m * b * b + small, 4 * (2 * m * b + 2 * b * b + 2), PEAK_FP32)
+        row = {"phase": "P7", "case": case, "shape": list(p.shape), "kappa": 10.0,
+               "max_abs_err": qerr, "total_rel_err": terr, "dev2": float(dev2),
+               "dev2_plain": float(dev2r), "conv": bool(conv), "ms": ms, "plain_ms": plain_ms,
+               "library_passes12_ms": lib_ms, "chain_passes12_ms": chained_ms,
+               "bound_ms": b_ms, "bound_by": b_by}
+        emit(row)
+        out[rows] = row
+        del p, g, q, qr_
+    return out
+
+
+# ---------------------------------------------------------------------------
+# P8-P11: TSQR through tsqr + run_program
+# ---------------------------------------------------------------------------
+
+def qr_quality(torch, x, q, r, chunk: int = 1 << 17):
+    """(||QᵀQ - I||_F / sqrt(b), ||QR - X||_F / ||X||_F) in fp64 on the card."""
+    b = r.shape[0]
+    r64 = r.double()
+    gram = torch.zeros(b, b, dtype=torch.float64, device="cuda")
+    num = den = 0.0
+    for i0 in range(0, x.shape[0], chunk):
+        qc = q[i0:i0 + chunk].double()
+        xc = x[i0:i0 + chunk].double()
+        gram += qc.T @ qc
+        d = qc @ r64 - xc
+        num += float((d * d).sum())
+        den += float((xc * xc).sum())
+    ortho = float(torch.linalg.norm(gram - torch.eye(b, dtype=torch.float64, device="cuda")))
+    return ortho / b ** 0.5, (num / den) ** 0.5
+
+
+def sign_fixed(r):
+    s = r.diagonal().sign()
+    s[s == 0] = 1
+    return s[:, None] * r
+
+
+def tsqr_phase(torch, npw, phase, x, method, flags, tile_rows=4096, r_ref=None, extra=None,
+               repeat: int = 3):
+    """tsqr(x) + run_program with the opt-in `flags` on, `repeat` times (the
+    first pays this shape's first allocations); checks the last run's
+    output and emits one line with every run's seconds; returns (R, the
+    last run's kernel launch counts)."""
+    from numpywren_tpu_torch.ops import gemm, gemm3
+    from numpywren_tpu_torch.ops import pallas_factor as pf
+
+    m, b = x.shape
+    set_flags(flags)
+    runs = []
+    for _ in range(repeat):
+        out = None  # the previous run's outputs go before this one allocates
+        pf.reset_launches()
+        gemm.LAUNCHES = gemm3.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prog, out, _ = npw.tsqr(x, tile_rows=tile_rows, method=method, compute_q=True)
+        bind_s = time.perf_counter() - t0
+        _, host_s, dev_s = run_entry(torch, lambda: npw.run_program(prog))
+        runs.append((dev_s, host_s, bind_s))
+    counts = {**pf.LAUNCHES, "matmul": gemm.LAUNCHES, "matmul3": gemm3.LAUNCHES}
+    set_flags()
+    q = out["Q"].array[:m, :b]
+    r = out["R"].get_block(*out["R_block"])
+    ortho, resid = qr_quality(torch, x, q, r)
+    dev_s, host_s, bind_s = runs[-1]
+    row = {"phase": phase, "shape": [m, b], "tile_rows": tile_rows, "method": method,
+           "flags": list(flags), "seconds": dev_s, "host_seconds": host_s,
+           "bind_seconds": bind_s, "seconds_runs": [r_[0] for r_ in runs],
+           "tflops": (2 * m * b * b - 2 * b ** 3 / 3) / dev_s / 1e12,
+           "ortho": ortho, "residual": resid, "launches": counts, **(extra or {})}
+    if r_ref is not None:
+        row["r_rel_diff"] = rel_err(torch, sign_fixed(r), sign_fixed(r_ref))
+    emit(row)
+    require(ortho <= ORTHO_BAR, f"{phase} {method} {flags}: ortho {ortho} > {ORTHO_BAR}")
+    require(resid <= QR_RESID_BAR, f"{phase} {method} {flags}: residual {resid}")
+    if r_ref is not None:
+        require(row["r_rel_diff"] <= R_AGREE_BAR,
+                f"{phase} {method} {flags}: R differs {row['r_rel_diff']} > {R_AGREE_BAR}")
+    return r.clone(), counts
+
+
+def tsqr_phases(torch, npw, gen, m: int, m_small: int):
+    launches = {"potrf_inv": 0, "cholqr2_chain": 0}
+    def routes(phase, x, kernel_flag, need):
+        r_lib, _ = tsqr_phase(torch, npw, phase, x, "cholqr3s", ())
+        r_k, c = tsqr_phase(torch, npw, phase, x, "cholqr3s", (kernel_flag,), r_ref=r_lib)
+        require(c[need] > 0, f"{phase}: {need} launches {c}")
+        launches[need] += c[need]
+        return r_lib
+
+    x = torch.randn(m, 512, generator=gen, device="cuda")
+    routes("P8", x, "NPW_PALLAS_FACTOR", "potrf_inv")
+    del x
+    x = torch.randn(m, 256, generator=gen, device="cuda")
+    routes("P9", x, "NPW_PALLAS_CHAIN", "cholqr2_chain")
+    del x
+
+    x = kappa_panel(torch, gen, m_small, 256, 1e6)
+    r_lib, _ = tsqr_phase(torch, npw, "P10", x, "cholqr3s", (), extra={"kappa": 1e6})
+    _, c = tsqr_phase(torch, npw, "P10", x, "cholqr3s", FLAGS, r_ref=r_lib,
+                      extra={"kappa": 1e6})
+    require(c["cholqr2_chain"] > 0 and c["potrf_inv"] > 0, f"P10 launches {c}")
+    for k in launches:
+        launches[k] += c[k]
+
+    x = torch.randn(m_small, 256, generator=gen, device="cuda")
+    r_lib, _ = tsqr_phase(torch, npw, "P11", x, "cholqr3s", ())
+    for method in ("cholqr2", "tree"):
+        tsqr_phase(torch, npw, "P11", x, method, (), r_ref=r_lib)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# P12: GEMM through gemm + run_program
+# ---------------------------------------------------------------------------
+
+def p12_gemm(torch, npw, gen, n: int):
+    from numpywren_tpu_torch.ops import gemm, gemm3
+
+    cfg = npw.default_config()
+    a = torch.randn(n, n, generator=gen, device="cuda")
+    b = torch.randn(n, n, generator=gen, device="cuda")
+    exact = a.double() @ b.double()
+    matmul3_launches = 0
+    for i, comp in enumerate((False, True, False, True)):  # warm, then measured
+        cfg.compensated = comp
+        gemm.LAUNCHES = gemm3.LAUNCHES = 0
+        prog, c, _ = npw.gemm(a, b, tile=(512, 512))
+        _, host_s, dev_s = run_entry(torch, lambda: npw.run_program(prog))
+        counts = {"matmul": gemm.LAUNCHES, "matmul3": gemm3.LAUNCHES}
+        err = rel_err(torch, c.array[:n, :n], exact)
+        require(err <= KERNEL_BAR, f"P12 compensated={comp}: rel error {err} > {KERNEL_BAR}")
+        require((counts["matmul3"] > 0) == comp, f"P12 compensated={comp}: launches {counts}")
+        emit({"phase": "P12", "n": n, "tile": 512, "config": "compensated" if comp else "default",
+              "seconds": dev_s, "host_seconds": host_s, "tflops": 2 * n ** 3 / dev_s / 1e12,
+              "rel_err_vs_fp64": err, "launches": counts, "warmup": i < 2})
+        matmul3_launches = counts["matmul3"]
+        del prog, c
+    cfg.compensated = False
+    return matmul3_launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=32768, help="trapezoid phases' size")
     ap.add_argument("--n-flat", type=int, default=16384, help="P5's size")
+    ap.add_argument("--m", type=int, default=1 << 20, help="P7-P9's TSQR rows")
+    ap.add_argument("--m-small", type=int, default=65536, help="P10-P11's TSQR rows")
+    ap.add_argument("--n-gemm", type=int, default=8192, help="P12's size")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.n % PANEL:
@@ -365,8 +716,16 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     p1 = p1_kernels(torch, gen)
     launches, _ = main_path(torch, npw, args.n, args.n_flat, args.seed)
+    p6 = p6_factor(torch, gen)
+    ops_counts = p6_ops_path(torch, gen)
+    p7 = p7_chain(torch, gen, args.m)
+    tsqr_counts = tsqr_phases(torch, npw, gen, args.m, args.m_small)
+    launches["matmul3"] += p12_gemm(torch, npw, gen, args.n_gemm)
+    launches["matmul"] += ops_counts["matmul"]
+    launches.update(potrf=ops_counts["potrf"], trtri=ops_counts["trtri"], **tsqr_counts)
 
     require("jax" not in sys.modules, "jax was imported")
+    require("numpywren_tpu" not in sys.modules, "the JAX package was imported")
     kernels = []
     for name, src, replaces in (
         ("matmul", "numpywren_tpu_torch/csrc/gemm.cu", "numpywren_tpu/ops/gemm.py:145"),
@@ -376,7 +735,32 @@ def main(argv=None) -> int:
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches[name],
                         "max_abs_err": max(r["max_abs_err"] for r in p1[name]),
-                        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"]})
+                        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+                        "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
+                        "library_ms": main_case["torch_ms"]})
+    factor_src = "numpywren_tpu_torch/csrc/factor.cu"
+    for name, n, replaces in (("potrf", 1024, "numpywren_tpu/ops/pallas_factor.py:180"),
+                              ("potrf_inv", 512, "numpywren_tpu/ops/pallas_factor.py:189"),
+                              ("trtri", 1024, "numpywren_tpu/ops/pallas_factor.py:199")):
+        row = p6[(name, n)]
+        kernels.append({"name": name, "route": "cuda", "source": factor_src,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": max(r["max_abs_err"] for (k, _), r in p6.items()
+                                           if k == name),
+                        "ms": row["ms"], "plain_ms": row["plain_ms"],
+                        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                        "library_ms": row["library_ms"]})
+    chain = p7[False]  # the columns form at 1,048,576 x 256 (P9's shape)
+    kernels.append({"name": "cholqr2_chain", "route": "cuda",
+                    "source": "numpywren_tpu_torch/csrc/cholqr_chain.cu",
+                    "replaces": "numpywren_tpu/ops/pallas_factor.py:544",
+                    "launches": launches["cholqr2_chain"],
+                    "max_abs_err": max(r["max_abs_err"] for r in p7.values()),
+                    "ms": chain["ms"], "plain_ms": chain["plain_ms"],
+                    "bound_ms": chain["bound_ms"], "bound_by": chain["bound_by"],
+                    "library_ms": None})
+    for k in kernels:
+        require(k["launches"] > 0, f"kernel {k['name']} was not launched on its path")
     emit({"kernels": kernels})
     print(gpu_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

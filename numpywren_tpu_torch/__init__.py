@@ -1,19 +1,25 @@
 """numpywren_tpu_torch: the PyTorch/CUDA port of numpywren_tpu.
 
 The JAX package (numpywren_tpu) stays the reference; this package mirrors
-its module paths. Plain tensor code is eager PyTorch, and the TPU's Pallas
-kernels on the ported path are hand-written CUDA C++ for Hopper
-(``csrc/``, built at first use). The layers without jax in them (the DSL
-frontend, algs, the schedule compiler, the program state machine, config,
-exceptions, utils) are imported from numpywren_tpu, not copied.
+its module paths and imports nothing of it. Plain tensor code is eager
+PyTorch, and the TPU's Pallas kernels on the ported paths are hand-written
+CUDA C++ for Hopper (``csrc/``, built at first use). The backend-neutral
+layers (the DSL frontend, algs, the schedule compiler and its native core,
+the program state machine, config, exceptions, utils, the numpy reference
+kernels) are the port's own copies.
 
-Ported so far: the blocked-Cholesky main path, from ``cholesky`` /
-``run_program`` and ``cholesky_trapezoid`` down to the two GEMM kernels
-(``ops.gemm.matmul``, ``ops.gemm3.matmul3``). See ROADMAP.md for the rest.
+Entry points run on the current CUDA device; a host without one raises
+unless the caller passes ``device="cpu"`` (or CPU tensors), which runs the
+kernels' plain PyTorch versions.
+
+Ported so far: ``cholesky`` / ``cholesky_trapezoid`` / ``cholesky_solve``,
+``gemm`` and ``tsqr`` through ``run_program``, down to the GEMM kernels
+(``ops.gemm``, ``ops.gemm3``) and the factorization kernels
+(``ops.pallas_factor``). See ROADMAP.md for the rest.
 """
 
-from numpywren_tpu.config import NpwConfig, default_config
-from numpywren_tpu_torch.alg_wrappers import cholesky, cholesky_solve
+from numpywren_tpu_torch.config import NpwConfig, default_config
+from numpywren_tpu_torch.alg_wrappers import cholesky, cholesky_solve, gemm, tsqr, tsqr_r_factor
 from numpywren_tpu_torch.runtime.executor import run_program
 from numpywren_tpu_torch.tiled import TiledMatrix
 from numpywren_tpu_torch.trapezoid import (
@@ -29,6 +35,9 @@ __all__ = [
     "cholesky_trapezoid",
     "cholesky",
     "cholesky_solve",
+    "gemm",
+    "tsqr",
+    "tsqr_r_factor",
     "run_program",
     "NpwConfig",
     "default_config",

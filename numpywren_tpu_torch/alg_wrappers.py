@@ -2,26 +2,28 @@
 numpywren_tpu/alg_wrappers.py; the reference's numpywren/alg_wrappers.py).
 
 Each wrapper allocates output and scratch matrices, compiles the DSL
-program (the shared numpywren_tpu.frontend), binds the tile-grid sizes, and
-returns (program, output, meta). `run_program` executes it. Only cholesky
-and cholesky_solve are ported so far.
+program (the port's own numpywren_tpu_torch.frontend), binds the tile-grid
+sizes, and returns (program, output(s), meta). `run_program` executes it.
+Ported: cholesky, cholesky_solve, gemm, tsqr (and tsqr_r_factor), on the
+device tier ("hbm"); bdfac and the host tier are not yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from numpywren_tpu import algs
-from numpywren_tpu.exceptions import ShapeError
-from numpywren_tpu.frontend import lpcompile
-from numpywren_tpu.frontend.ir import BoundArg
+from numpywren_tpu_torch import algs
+from numpywren_tpu_torch.exceptions import ShapeError
+from numpywren_tpu_torch.frontend import lpcompile
+from numpywren_tpu_torch.frontend.ir import BoundArg
 from numpywren_tpu_torch.matrix_init import shard_matrix
 from numpywren_tpu_torch.ops.common import as_tensor, to_numpy
 from numpywren_tpu_torch.runtime.executor import run_program  # noqa: F401  (re-export)
 from numpywren_tpu_torch.tiled import TiledMatrix, _TiledBase
+from numpywren_tpu_torch.utils import cdiv
 from numpywren_tpu_torch.trapezoid import TiledTrapezoidMatrix, TrapezoidMatrix
 
 MatLike = Union[np.ndarray, torch.Tensor, _TiledBase, TrapezoidMatrix]
@@ -37,6 +39,17 @@ def _template(name: str):
 
 def _is_array(x) -> bool:
     return isinstance(x, (np.ndarray, torch.Tensor))
+
+
+def _check_storage(storage: str) -> None:
+    if storage != "hbm":
+        raise NotImplementedError(
+            f"storage={storage!r}: the host tier is not ported yet "
+            f"(ROADMAP Queue 1: host tier and spill)")
+
+
+def _as_tiled(x: MatLike, tile, device) -> _TiledBase:
+    return shard_matrix(x, tile=tile, device=device) if _is_array(x) else x
 
 
 def _default_tile(x: MatLike, tile) -> Tuple[int, int]:
@@ -65,17 +78,15 @@ def cholesky(X: MatLike, tile=None, storage: str = "hbm", truncate: int = 0,
     the column buffers; `panel` is the physical column-block width. Binding
     an existing TrapezoidMatrix hands its buffers to the factorization,
     which overwrites them. `device=None` keeps a tensor where it is and puts
-    an ndarray on the current CUDA device (CPU without one)."""
+    an ndarray on the current CUDA device (a host without one raises: pass
+    device="cpu")."""
     if storage == "trapezoid":
         return _cholesky_trapezoid_bind(X, tile, truncate, panel, device)
-    if storage != "hbm":
-        raise NotImplementedError(
-            f"storage={storage!r}: the host tier is not ported yet "
-            f"(ROADMAP Queue 1: host tier and spill)")
+    _check_storage(storage)
     tile = _default_tile(X, tile)
     if tile[0] != tile[1]:
         raise ShapeError("cholesky requires square tiles")
-    x_t = shard_matrix(X, tile=tile, device=device) if _is_array(X) else X
+    x_t = _as_tiled(X, tile, device)
     if x_t.shape[0] != x_t.shape[1]:
         raise ShapeError(f"cholesky requires a square matrix, got {x_t.shape}")
     g = x_t.grid[0]
@@ -170,3 +181,136 @@ def cholesky_solve(l: _TiledBase, b):
     x = torch.linalg.solve_triangular(l_n.T, y, upper=True)
     x = x[:, 0] if squeeze else x
     return to_numpy(x) if want_numpy else x
+
+
+# ---------------------------------------------------------------------------
+# GEMM
+# ---------------------------------------------------------------------------
+
+def gemm(A: MatLike, B: MatLike, tile=None, storage: str = "hbm",
+         k_chunk: Optional[int] = None, device=None):
+    """Blocked GEMM: returns (program, C_matrix, meta) with C = A @ B.
+
+    k_chunk: tiles accumulated serially per chunk before the log-depth
+    chunk-reduce tree of the DSL program (reference binops.py's chunking).
+    Default bounds scratch at <= 8 partials per output tile
+    (k_chunk = cdiv(K, 8)). The fused lowering runs one product and never
+    allocates that scratch. `device` as in cholesky."""
+    _check_storage(storage)
+    tile = _default_tile(A, tile)
+    a_t = _as_tiled(A, tile, device)
+    b_t = _as_tiled(B, tile, device)
+    if a_t.shape[1] != b_t.shape[0]:
+        raise ShapeError(f"gemm shape mismatch: {a_t.shape} @ {b_t.shape}")
+    if a_t.tile[1] != b_t.tile[0]:
+        raise ShapeError("gemm requires matching inner tile sizes")
+    if a_t.device != b_t.device:
+        raise ShapeError(f"gemm operands on {a_t.device} and {b_t.device}")
+    m, k = a_t.grid
+    _, n = b_t.grid
+    c_tile = (a_t.tile[0], b_t.tile[1])
+    if k_chunk is None:
+        k_chunk = max(1, cdiv(k, 8))
+    q = max(1, min(int(k_chunk), k))
+    nc = cdiv(k, q)
+    depth, live = 0, nc
+    while live > 1:
+        live = cdiv(live, 2)
+        depth += 1
+
+    c = TiledMatrix(key="gemm_C", shape=(a_t.shape[0], b_t.shape[1]), tile=c_tile,
+                    dtype=a_t.dtype, fill=0.0, device=a_t.device)
+    # lazy (fill=None): the fused runner never touches the partials
+    p = TiledMatrix(key="gemm_P", shape=(m * n * c_tile[0], nc * c_tile[1]), tile=c_tile,
+                    dtype=a_t.dtype, fill=None, device=a_t.device)
+    program = _template("gemm").bind(
+        A=a_t, B=b_t, C=c, P=BoundArg(name="P", matrix=p, versioned=True),
+        M=m, N=n, K=k, NC=nc, Q=q, L=depth,
+    )
+    return program, c, {"tile": tile, "grid": (m, n, k),
+                        "k_chunk": q, "chunks": nc, "tree_depth": depth}
+
+
+# ---------------------------------------------------------------------------
+# TSQR
+# ---------------------------------------------------------------------------
+
+def _template_tsqr_kary(b_fac: int):
+    """Generated k-ary TSQR template (R path): the `reducer` construct with
+    branching factor b_fac > 2, generated per b_fac because the reducer
+    expansion is static."""
+    name = f"tsqr_b{b_fac}"
+    if name not in _templates:
+        src = (
+            f"def {name}(A, Q0, R, N, L):\n"
+            f"    for i in range(0, N):\n"
+            f"        Q0[i, 0], R[i, 0] = qr_leaf(A[i, 0])\n"
+            f"    reducer(R, qr_combine_r, copy, N, L, b_fac={b_fac})\n"
+        )
+        _templates[name] = lpcompile(src)
+    return _templates[name]
+
+
+def tsqr(X: MatLike, tile_rows: int = 4096, storage: str = "hbm",
+         compute_q: bool = False, method: str = "tree", b_fac: int = 2, device=None):
+    """Tall-skinny QR via tree reduction (reference alg_wrappers.tsqr).
+
+    X: (m, b) with m >> b; row blocks of `tile_rows` rows form the leaves.
+    Returns (program, outputs, meta): outputs["R"] holds the final (b, b) R
+    at block outputs["R_block"], outputs["Q"] (if compute_q) the thin Q.
+    method: "tree" (Householder combine tree), "cholqr2" or "cholqr3s"
+    (see compiler.lower.fused_tsqr). b_fac is the combine tree's branching
+    factor; compute_q needs b_fac=2 (the DSL template's Q sweep is binary).
+    `device` as in cholesky."""
+    _check_storage(storage)
+    if _is_array(X):
+        m, b = X.shape
+        tile_rows = min(tile_rows, m)
+        a_t = shard_matrix(X, tile=(tile_rows, b), device=device)
+    else:
+        a_t = X
+        m, b = a_t.shape
+        tile_rows = a_t.tile[0]
+    if a_t.grid[1] != 1:
+        raise ShapeError("tsqr expects a single tile column (m x b, b == tile width)")
+    if b_fac < 2:
+        raise ValueError(f"b_fac must be >= 2, got {b_fac}")
+    if b_fac != 2 and compute_q:
+        raise ShapeError("compute_q requires b_fac=2 on the DSL path")
+    n_leaves = a_t.grid[0]
+    depth, m_live = 0, n_leaves
+    while m_live > 1:  # depth = ceil(log_b n_leaves), exactly
+        m_live = cdiv(m_live, b_fac)
+        depth += 1
+
+    def new(key, shape, tile):
+        # allocated at first use: the fused lowering writes only R (and Q)
+        return TiledMatrix(key=key, shape=shape, tile=tile, dtype=a_t.dtype, fill=0.0,
+                           device=a_t.device)
+
+    q0 = new("tsqr_Q0", (n_leaves * tile_rows, b), (tile_rows, b))
+    r = new("tsqr_R", (n_leaves * b, (depth + 1) * b), (b, b))
+    outputs = {"R": r, "R_block": (0, depth), "Q0": q0}
+    half = (max(1, cdiv(n_leaves, 2)) * b, max(1, depth) * b)
+    if b_fac != 2:
+        program = _template_tsqr_kary(b_fac).bind(A=a_t, Q0=q0, R=r, N=n_leaves, L=depth)
+    elif compute_q:
+        qt, qb = new("tsqr_QT", half, (b, b)), new("tsqr_QB", half, (b, b))
+        z = new("tsqr_Z", (n_leaves * b, (depth + 1) * b), (b, b))
+        q = new("tsqr_Q", (n_leaves * tile_rows, b), (tile_rows, b))
+        program = _template("tsqr_q").bind(
+            A=a_t, Q0=q0, R=r, QT=qt, QB=qb, Z=z, Q=q, N=n_leaves, L=depth)
+        outputs["Q"] = q
+    else:
+        qt, qb = new("tsqr_QT", half, (b, b)), new("tsqr_QB", half, (b, b))
+        program = _template("tsqr").bind(A=a_t, Q0=q0, R=r, QT=qt, QB=qb, N=n_leaves, L=depth)
+    program.fused_options = {"tsqr_method": method, "b_fac": b_fac}
+    meta = {"n_leaves": n_leaves, "depth": depth, "tile_rows": tile_rows, "b": b,
+            "logical_m": m, "b_fac": b_fac}
+    return program, outputs, meta
+
+
+def tsqr_r_factor(outputs) -> np.ndarray:
+    """The final R as numpy (upper-triangular b x b)."""
+    i, l = outputs["R_block"]
+    return to_numpy(outputs["R"].get_block(i, l))

@@ -1,21 +1,31 @@
-"""Region-fused lowering of the Cholesky program, on PyTorch tensors.
+"""Region-fused lowering of DSL programs, on PyTorch tensors.
 
-Counterpart of numpywren_tpu/compiler/lower.py (Cholesky only). The store
-keeps a matrix as ONE padded tensor, so a panel or a trailing region is a
-strided view, and the right-looking schedule lowers to a handful of large
-GEMMs per column super-panel:
+Counterpart of numpywren_tpu/compiler/lower.py for Cholesky, GEMM and TSQR.
+The store keeps a matrix as ONE padded tensor, so a panel or a trailing
+region is a strided view:
 
-1. the W x W diagonal block factors with one library potrf
-   (``torch.linalg.cholesky_ex``, which reads only the lower triangle: the
-   diagonal blocks' strict upper may hold stale values);
-2. the below-panel solve B := B L⁻ᵀ is a recursive GEMM-rich trsm
-   (`_rtrsm`) whose tile-sized leaves multiply by an explicit inverse;
-3. one trailing update ``c - a·bᵀ`` per later column block.
+- Cholesky lowers to a handful of large GEMMs per column super-panel:
+  1. the W x W diagonal block factors with one library potrf
+     (``torch.linalg.cholesky_ex``, which reads only the lower triangle: the
+     diagonal blocks' strict upper may hold stale values);
+  2. the below-panel solve B := B L⁻ᵀ is a recursive GEMM-rich trsm
+     (`_rtrsm`) whose tile-sized leaves multiply by an explicit inverse;
+  3. one trailing update ``c - a·bᵀ`` per later column block.
+- GEMM is one matmul over the flat tensors (`fused_gemm`).
+- TSQR is a batched Householder combine tree (`fused_tsqr_fn`), CholeskyQR2
+  (`fused_cholqr2_fn`) or the adaptive shifted CholeskyQR chain
+  (`_cholqr_adaptive`), whose factor and pass-1-2 chain may run the
+  factorization kernels of ops/pallas_factor.py (opt-in: NPW_PALLAS_FACTOR,
+  NPW_PALLAS_CHAIN).
 
-Every GEMM goes through `_matmul` / `_sub_matmul`, which pick the kernel by
-precision and NpwConfig.compensated (see ops/common.py). PyTorch runs
-eagerly: there is no jit, and what JAX expresses as buffer donation is an
-in-place write here. The factorization overwrites the buffers it is given.
+Cholesky's and GEMM's products go through `_matmul` / `_sub_matmul`, which
+pick the kernel by precision and NpwConfig.compensated (see ops/common.py).
+TSQR's products outside the factorization kernels are ``torch.matmul`` in
+true FP32, as the JAX package's are ``jnp.matmul``. PyTorch runs eagerly:
+there is no jit, what JAX expresses as buffer donation is an in-place write
+here, and the TSQR chain's ``lax.cond`` / ``while_loop`` read their
+predicate on the host (one read per factoring decision). The Cholesky
+factorization overwrites the buffers it is given.
 
 The tuning constants (panel_tiles=8, syrk_depth=3, leaf_rows=4096, the
 inner tile of 128) were measured on a TPU and are kept until measured on
@@ -24,14 +34,21 @@ the GPU.
 
 from __future__ import annotations
 
+import os
 from typing import Callable, List, Optional
 
 import torch
 
-from numpywren_tpu.config import default_config
+from numpywren_tpu_torch.config import default_config
 from numpywren_tpu_torch.ops.common import cdiv, check_precision, default_precision
 from numpywren_tpu_torch.ops.gemm import matmul as kernel_matmul
 from numpywren_tpu_torch.ops.gemm3 import matmul3
+from numpywren_tpu_torch.ops.pallas_factor import (
+    chain_supported,
+    cholqr2_chain_pallas,
+    neumann_fold,
+    potrf_inv_pallas,
+)
 
 _SPILL = "out-of-core spill is not ported yet (ROADMAP Queue 1: host tier and spill)"
 
@@ -236,15 +253,260 @@ def fused_cholesky(a: torch.Tensor, tile: int, *, truncate: int = 0,
 
 
 # ---------------------------------------------------------------------------
+# TSQR: the adaptive shifted CholeskyQR chain
+# ---------------------------------------------------------------------------
+
+def _flag(name: str) -> bool:
+    """An opt-in read at each call: NPW_PALLAS_FACTOR, NPW_PALLAS_CHAIN,
+    NPW_GEMM_INV (the JAX package's names and default, off)."""
+    return os.environ.get(name, "0") == "1"
+
+
+def _trtri_gemm(l: torch.Tensor) -> torch.Tensor:
+    """Exact lower-triangular inverse by nilpotent Neumann doubling, GEMMs
+    only. L = D (I + N), N strictly lower (nilpotent of index b):
+    (I + N)⁻¹ = Σ_{k<b} (-N)^k by ceil(log2 b) doubling steps
+    S <- S + P S, P <- P², then one Newton polish X <- X + X (I - L X)."""
+    b = l.shape[0]
+    eye = torch.eye(b, dtype=l.dtype, device=l.device)
+    dinv = 1.0 / torch.diagonal(l)
+    n_ = l * dinv[:, None] - eye          # strictly lower, nilpotent
+    s = eye - n_                           # Σ_{k<2}
+    p = n_ @ n_                            # (-N)²
+    for _ in range(max((b - 1).bit_length() - 1, 0)):  # 2^(1+steps) >= b
+        s = s + p @ s
+        p = p @ p
+    linv = s * dinv[None, :]               # (I+N)⁻¹ D⁻¹
+    return linv + linv @ (eye - l @ linv)
+
+
+def _cholqr_adaptive(p: torch.Tensor, rows: bool = False, max_passes: int = 16,
+                     pallas_chain: Optional[bool] = None):
+    """Adaptive CholeskyQR chain: thin QR (rows=False: p = q r, r upper
+    b x b) or thin LQ (rows=True: p = l q, l lower b x b) of p by repeated
+    Gram-Cholesky passes with shift-on-breakdown.
+
+    Passes 1-2 are CholeskyQR2 with ONE big Gram and ONE big apply: pass 1
+    factors G + 4 u sqrt(m b) ||G||_inf I (positive definite by
+    construction, no pivot test), pass 2's Gram comes analytically from
+    pass 1's (G2 = L1⁻¹ G L1⁻ᵀ), and pass 2 is the first-order Neumann
+    cleanup when max|G2 - I| < 0.1, else a shifted factor. The two inverses
+    fold into one b x b transform applied to p. Then up to max_passes - 2
+    real-Gram passes run until CONVERGED (a pass whose input deviation is
+    below conv_gate = 2 sqrt(1e-4) lands under 1e-4).
+
+    Opt-ins, read at each call: NPW_PALLAS_FACTOR=1 factors each shifted
+    pass with the potrf_inv kernel (its input 0.5 (Gs + Gsᵀ)); on a CPU
+    tensor the wrapper runs its plain version. NPW_PALLAS_CHAIN=1 (or
+    pallas_chain=True) runs passes 1-2 as the one-launch chain kernel
+    inside its envelope (its input G1 unsymmetrized); NPW_GEMM_INV=1 swaps
+    the library triangular solve for _trtri_gemm.
+
+    Host reads: the library route reads dev2 once (the fold and the
+    convergence flag); the chain reads its conv flag once; each extras
+    pass reads its Gram's deviation once."""
+    b = p.shape[0] if rows else p.shape[1]
+    m = p.shape[1] if rows else p.shape[0]
+    eye = torch.eye(b, dtype=p.dtype, device=p.device)
+    u = torch.finfo(torch.float32).eps
+    shift_c = 4.0 * u * (m * b) ** 0.5
+    conv_gate = 2.0 * 1e-4 ** 0.5
+    if pallas_chain is None:
+        pallas_chain = _flag("NPW_PALLAS_CHAIN")
+
+    def gram_dev(x):
+        g = x @ x.T if rows else x.T @ x
+        e = g - eye
+        return g, e, torch.max(torch.abs(e))
+
+    def shifted_linv(g, extra_floor=0.0):
+        """Always-shifted factor and its explicit b x b inverse."""
+        floor = shift_c * torch.max(torch.sum(torch.abs(g), dim=1)) + extra_floor
+        gs = g + floor * eye
+        sym = 0.5 * (gs + gs.T)
+        if _flag("NPW_PALLAS_FACTOR"):
+            return potrf_inv_pallas(sym)
+        l = torch.linalg.cholesky_ex(sym)[0]
+        if _flag("NPW_GEMM_INV"):
+            return l, _trtri_gemm(l)
+        return l, torch.linalg.solve_triangular(l, eye, upper=False)
+
+    def apply_linv(x, linv):
+        return linv @ x if rows else x @ linv.T
+
+    def iterate_pass(x):
+        """Extras pass: cleanup in the near-orthonormal regime, a full
+        shifted factor otherwise; one host read of the deviation."""
+        g, e, dev = gram_dev(x)
+        dev = float(dev)
+        l, linv = neumann_fold(e) if dev < 1e-1 else shifted_linv(g)
+        return apply_linv(x, linv), l, dev < conv_gate
+
+    # incremental composition of R: rows form p = L1 L2 ... q folds on the
+    # right; column form p = q (Lkᵀ ... L1ᵀ) folds on the left
+    if rows:
+        def fold(total, li):
+            return total @ li
+    else:
+        def fold(total, li):
+            return li.T @ total
+
+    g1, _, _ = gram_dev(p)
+    if pallas_chain and chain_supported(m, b, p.dtype):
+        q, total, conv, _ = cholqr2_chain_pallas(
+            g1, p, rows=rows, shift_c=float(shift_c), conv_gate=float(conv_gate))
+    else:
+        l1, linv1 = shifted_linv(g1)
+        g2 = (linv1 @ g1) @ linv1.T
+        e2 = g2 - eye
+        dev2 = torch.max(torch.abs(e2))
+        # the analytic G2 is not a real Gram: its roundoff can push a
+        # near-singular G2 indefinite, so a shifted pass 2 shifts past it
+        rb1 = torch.max(torch.sum(torch.abs(linv1), dim=1))
+        err2 = 3.0 * u * rb1 * rb1 * torch.max(torch.sum(torch.abs(g1), dim=1))
+        dev2 = float(dev2)
+        l2, linv2 = neumann_fold(e2) if dev2 < 1e-1 else shifted_linv(g2, err2)
+        # converged only via the cleanup branch (a shifted pass 2 carries
+        # the err2-inflated shift; the extras correct it)
+        conv = dev2 < conv_gate
+        q = apply_linv(p, linv2 @ linv1)
+        total = fold(l1, l2) if rows else fold(l1.T, l2)
+
+    for _ in range(max(max_passes - 2, 0)):
+        if bool(conv):
+            break
+        q, li, conv = iterate_pass(q)
+        total = fold(total, li)
+    return q, total
+
+
+# ---------------------------------------------------------------------------
+# GEMM
+# ---------------------------------------------------------------------------
+
+def fused_gemm(a: torch.Tensor, b: torch.Tensor, *,
+               precision: Optional[str] = None) -> torch.Tensor:
+    """a @ b in one product, routed by precision and config (`_matmul`)."""
+    return _matmul(a, b, precision=check_precision(precision or default_precision(a.dtype)))
+
+
+# ---------------------------------------------------------------------------
+# TSQR
+# ---------------------------------------------------------------------------
+
+def fused_cholqr2_fn(compute_q: bool = False) -> Callable:
+    """CholeskyQR2: two Gram + Cholesky + apply passes; needs kappa(A) well
+    below 1/sqrt(eps). fn(a) -> R (or (Q, R)) for a tall (m, b) tensor."""
+
+    def one_pass(x):
+        g = x.T @ x
+        l = torch.linalg.cholesky_ex(g)[0]  # the lower triangle only
+        eye = torch.eye(l.shape[0], dtype=x.dtype, device=x.device)
+        w = torch.linalg.solve_triangular(l, eye, upper=False)
+        return x @ w.T, l                   # X L⁻ᵀ
+
+    def f(a):
+        q1, l1 = one_pass(a)
+        q2, l2 = one_pass(q1)
+        r = l2.T @ l1.T                     # R = R2 R1
+        return (q2, r) if compute_q else r
+
+    return f
+
+
+def fused_cholqr3s_fn(compute_q: bool = False) -> Callable:
+    """Shifted CholeskyQR3 (Fukaya et al., SISC 2020) through
+    _cholqr_adaptive: the fast robust tall-skinny QR."""
+
+    def f(a):
+        q, r = _cholqr_adaptive(a, rows=False)
+        return (q, r) if compute_q else r
+
+    return f
+
+
+def fused_tsqr_fn(n_leaves: int, tile_rows: int, b: int, *, b_fac: int = 2,
+                  compute_q: bool = False) -> Callable:
+    """TSQR over the (n_leaves*tile_rows, b) flat tensor: batched leaf QRs,
+    then a b_fac-ary combine tree whose levels are batched QRs of stacked
+    R groups (the DSL `reducer` tree). A lone tail block passes through; a
+    ragged tail group is zero-padded (QR of [Rs; 0] has the same R).
+    fn(a) -> R, or (Q, R) with Q rebuilt by the downward sweep."""
+    if b_fac < 2:
+        raise ValueError(f"b_fac must be >= 2, got {b_fac}")
+
+    def tsqr(a):
+        stack = a.reshape(n_leaves, tile_rows, b)
+        q0, r = torch.linalg.qr(stack, mode="reduced")  # batched leaf QR
+        levels = []  # (q, m_in, tail) per level for the downward sweep
+        m = n_leaves
+        while m > 1:
+            full = m // b_fac
+            rem = m - full * b_fac
+            if rem == 1:
+                body, tail = r[: full * b_fac], 1
+            elif rem == 0:
+                body, tail = r, 0
+            else:  # ragged group: zero-pad to a full stack
+                pad = torch.zeros((b_fac - rem, b, b), dtype=r.dtype, device=r.device)
+                body, tail = torch.cat([r, pad], dim=0), 0
+            g = body.shape[0] // b_fac
+            q, r2 = torch.linalg.qr(body.reshape(g, b_fac * b, b), mode="reduced")
+            if tail:
+                r2 = torch.cat([r2, r[full * b_fac:]], dim=0)
+            levels.append((q, m, tail))
+            r = r2
+            m = g + tail
+        r_final = r[0]
+        if not compute_q:
+            return r_final
+        # Z maps each leaf's local basis to the global one
+        z = torch.eye(b, dtype=a.dtype, device=a.device)[None]
+        for q, m_in, tail in reversed(levels):
+            g = q.shape[0]
+            z_child = (q @ z[:g]).reshape(g * b_fac, b, b)[: m_in - tail]
+            z = torch.cat([z_child, z[g:]], dim=0) if tail else z_child
+        return (q0 @ z).reshape(n_leaves * tile_rows, b), r_final
+
+    return tsqr
+
+
+def fused_tsqr(a: torch.Tensor, tile_rows: int, *, compute_q: bool = False,
+               method: str = "tree", b_fac: int = 2):
+    """Tall-skinny QR: method "cholqr2" (two GEMM passes, moderate kappa),
+    "cholqr3s" (the adaptive shifted chain, kappa up to ~1/eps) or "tree"
+    (the Householder combine tree, unconditionally stable). b_fac is the
+    tree's branching factor."""
+    m, b = a.shape
+    if m % tile_rows != 0:
+        raise ValueError(f"rows {m} not a multiple of tile_rows {tile_rows}")
+    if method == "cholqr2":
+        fn = fused_cholqr2_fn(compute_q=compute_q)
+    elif method == "cholqr3s":
+        fn = fused_cholqr3s_fn(compute_q=compute_q)
+    elif method == "tree":
+        fn = fused_tsqr_fn(m // tile_rows, tile_rows, b, b_fac=b_fac, compute_q=compute_q)
+    else:
+        raise ValueError(f"unknown tsqr method {method!r}")
+    return fn(a)
+
+
+# ---------------------------------------------------------------------------
 # Program-level dispatch
 # ---------------------------------------------------------------------------
 
 def lower_fused(program) -> Optional[Callable[[], None]]:
     """A no-arg callable running `program` through its fused lowering and
     committing the results into its bound matrices; None when the program's
-    template has no fused specialization in the port (only cholesky has)."""
-    if program.dag.template.name == "cholesky":
+    template has no fused specialization in the port (cholesky, gemm and
+    the tsqr family have)."""
+    name = program.dag.template.name
+    if name == "cholesky":
         return lambda: _run_fused_cholesky(program)
+    if name == "gemm":
+        return lambda: _run_fused_gemm(program)
+    if name in ("tsqr", "tsqr_q") or name.startswith("tsqr_b"):
+        return lambda: _run_fused_tsqr(program, compute_q=(name == "tsqr_q"))
     return None
 
 
@@ -317,3 +579,36 @@ def _run_fused_cholesky(program):
     o.replace_array(o_arr)
     l[:, :n_done] = 0
     s.replace_array(l)
+
+
+def _run_fused_gemm(program):
+    a = _hbm(program, "A")
+    b = _hbm(program, "B")
+    c = _hbm(program, "C")
+    c.replace_array(fused_gemm(a.array, b.array).to(c.dtype))
+    # the chunk-partials scratch exists for the generic executor only
+    p = program.matrices.get("P")
+    if p is not None:
+        p.matrix.free()
+
+
+def _run_fused_tsqr(program, compute_q: bool):
+    a = _hbm(program, "A")
+    r_mat = _hbm(program, "R")
+    n_leaves = program.consts["N"]
+    depth = program.consts["L"]
+    tile_rows, b = a.tile
+    opts = getattr(program, "fused_options", {})
+    arr = a.array[: n_leaves * tile_rows, :b]
+    out = fused_tsqr(arr, tile_rows, compute_q=compute_q,
+                     method=opts.get("tsqr_method", "tree"), b_fac=opts.get("b_fac", 2))
+    if compute_q:
+        q_arr, r_final = out
+        q_mat = _hbm(program, "Q")
+        pad = torch.zeros(q_mat.padded_shape, dtype=q_mat.dtype, device=q_arr.device)
+        pad[: q_arr.shape[0], : q_arr.shape[1]] = q_arr
+        q_mat.replace_array(pad)
+    else:
+        r_final = out
+    # the final R lives at block (0, depth) of R (algs.tsqr layout)
+    r_mat.put_block(r_final.to(r_mat.dtype), 0, depth)

@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from numpywren_tpu_torch.ops.common import default_device
 from numpywren_tpu_torch.ops.common import to_numpy as _tensor_to_numpy
 from numpywren_tpu_torch.tiled import TiledMatrix, _TiledBase
 from numpywren_tpu_torch.trapezoid import TiledTrapezoidMatrix, TrapezoidMatrix
@@ -23,12 +24,13 @@ def _tensor(x, device) -> torch.Tensor:
 
 def from_reference(obj, device=None):
     """The port's counterpart of a numpywren_tpu TrapezoidMatrix,
-    TiledTrapezoidMatrix or TiledMatrix, on `device` (default: the CPU).
+    TiledTrapezoidMatrix or TiledMatrix, on `device` (default: the current
+    CUDA device; a host without one raises, so pass device="cpu").
 
     Stored state carries over exactly, including what a factorization has
     left behind: the stale strict upper of diagonal blocks and the
     computed-block mask."""
-    device = torch.device(device) if device is not None else torch.device("cpu")
+    device = torch.device(device) if device is not None else default_device()
     kind = type(obj).__name__
     if kind == "TrapezoidMatrix":
         return TrapezoidMatrix([_tensor(c, device) for c in obj.cols], obj.n, obj.panel)

@@ -24,7 +24,8 @@ def shard_matrix(
 ) -> TiledMatrix:
     """A TiledMatrix holding `arr` (an ndarray or a tensor), zero-padded to
     whole tiles. `device=None` keeps a tensor where it is and puts an
-    ndarray on the current CUDA device, or the CPU without one."""
+    ndarray on the current CUDA device (a host without one raises: pass
+    device="cpu")."""
     if symmetric:
         raise NotImplementedError(
             "the mirrored TiledSymmetricMatrix is not ported; bind SPD operands "

@@ -1,10 +1,12 @@
 """Build the CUDA sources under ``numpywren_tpu_torch/csrc`` at first use.
 
-All ``csrc/*.cu`` files compile, in one ``nvcc`` call, into one shared
-library with a plain C interface, loaded with ``ctypes``:
+Each ``csrc/*.cu`` file compiles to an object in its own ``nvcc`` process,
+all started together, and one more ``nvcc`` links the objects into one
+shared library with a plain C interface, loaded with ``ctypes``:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o _build/libnpw_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas -v -c -o _build/<hash>/<file>.o csrc/<file>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o _build/libnpw_<hash>.so *.o
 
 The library's name carries a hash of the sources and flags, so an edited
 kernel rebuilds and an unchanged one loads at once. The output goes to
@@ -28,12 +30,12 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                      "-Xptxas", "-v"]
+FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LINK_FLAGS = ARCH_FLAGS + ["-shared"]
 
 _lock = threading.Lock()
 _lib = None
-BUILD_SECONDS = None  # wall time of this process's nvcc call (None: loaded as built)
+BUILD_SECONDS = None  # wall time of this process's nvcc calls (None: loaded as built)
 
 
 def _sources():
@@ -41,7 +43,7 @@ def _sources():
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(FLAGS).encode())
+    h = hashlib.sha256(" ".join(FLAGS + LINK_FLAGS).encode())
     cu, cuh = _sources()
     for p in cu + cuh:
         h.update(p.name.encode())
@@ -65,7 +67,8 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the hashed library unless it exists already."""
+    """Compile csrc/*.cu into the hashed library unless it exists already:
+    one nvcc per source, in parallel, then one link."""
     global BUILD_SECONDS
     so = library_path()
     if so.exists():
@@ -73,18 +76,35 @@ def build() -> Path:
     cu, _ = _sources()
     if not cu:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *FLAGS, "-o", str(tmp), *map(str, cu)]
+    objdir = BUILD_DIR / f"{so.stem}.{os.getpid()}.obj"
+    objdir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in cu:
+        cmd = [nvcc, *FLAGS, "-c", "-o", str(objdir / f"{src.stem}.o"), str(src)]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out[-8000:]}")
+    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+    if not failed:
+        cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp), *(str(objdir / f"{s.stem}.o") for s in cu)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
+                          f"{proc.stderr[-8000:]}")
     BUILD_SECONDS = time.perf_counter() - t0
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    shutil.rmtree(objdir, ignore_errors=True)
+    so.with_suffix(".log").write_text("".join(log))
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr[-8000:]}"
-        )
+        raise RuntimeError("\n".join(failed))
     os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
     return so
 

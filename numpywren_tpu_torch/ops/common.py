@@ -21,7 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from numpywren_tpu.utils import cdiv  # noqa: F401  (re-exported for the kernel layer)
+from numpywren_tpu_torch.utils import cdiv  # noqa: F401  (re-exported for the kernel layer)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -48,8 +48,13 @@ def check_precision(precision: str) -> str:
 
 def default_device() -> torch.device:
     """Where numpy inputs go when no device is named: the current CUDA
-    device if there is one, else the CPU."""
-    return torch.device("cuda") if torch.cuda.is_available() else torch.device("cpu")
+    device. A host without one raises: the port runs on the CPU only when
+    the caller asks for it."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' (or CPU tensors) to run the port's "
+            "plain PyTorch versions on the CPU")
+    return torch.device("cuda")
 
 
 def torch_dtype(d) -> torch.dtype:

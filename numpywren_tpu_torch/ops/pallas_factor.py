@@ -1,0 +1,346 @@
+"""Factorization tile kernels: potrf, (potrf, its inverse), trtri, trsm and
+the one-launch CholeskyQR2 chain.
+
+Counterpart of numpywren_tpu/ops/pallas_factor.py. Module and function
+names are the JAX package's, so callers and tests read alike; the kernels
+are hand-written CUDA C++ for Hopper:
+
+- ``csrc/factor.cu``: ``potrf``, ``potrf_inv`` and ``trtri`` of an (n, n)
+  fp32 tile, one CTA each. The 128-wide diagonal block is factored in
+  shared memory by the column loop of the reference's
+  ``_factor_block_with_inverse`` (its inverse built row by row in the same
+  loop); the below-panel solve, the trailing update and the off-diagonal
+  inverse blocks are FP32 products the CTA runs over L2-resident buffers.
+- ``csrc/cholqr_chain.cu``: CholeskyQR2 passes 1-2 of
+  ``compiler.lower._cholqr_adaptive`` (shifted factor and inverse, the
+  analytic pass-2 Gram, the Neumann or identity fold chosen on the device,
+  the folded inverse and R) in one launch, then the apply of the folded
+  inverse to the tall operand in true FP32 by the matmul kernel.
+
+Routing, the same for every wrapper: a CUDA tensor inside the envelope
+launches the kernel or raises; a CPU tensor takes the plain PyTorch
+version (``potrf_ref``, ``potrf_inv_ref``, ``trtri_ref``,
+``cholqr2_chain_ref``), a blocked step-by-step transcription of the kernel,
+so the two differ only in summation order. Outside the envelope (fp32,
+128 | n, n <= 1024, the TPU's VMEM limits kept for parity) a shape check
+routes the factor wrappers to ``torch.linalg``, the reference's own library
+fallback; the chain raises ValueError there, as the reference does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from numpywren_tpu_torch.ops import _build
+from numpywren_tpu_torch.ops.common import on_cuda
+from numpywren_tpu_torch.ops.gemm import matmul
+
+_B = 128  # the diagonal block one CTA factors in shared memory
+
+LAUNCHES = {"potrf": 0, "potrf_inv": 0, "trtri": 0, "cholqr2_chain": 0}
+"""Kernel launches in this process, by kernel (plain versions do not count)."""
+
+_MODES = {"potrf": 0, "potrf_inv": 1, "trtri": 2}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def _factor_block_ref(d: torch.Tensor):
+    """(l, w) of the (B, B) SPD block d: l lᵀ = d, w = l⁻¹, by the column
+    loop of _factor_block_with_inverse: pivot, scaled column, the inverse's
+    row j = (e_j - L[j, :j] W) / piv, then the rank-1 trailing update."""
+    b = d.shape[0]
+    d = d.clone()
+    l = torch.zeros_like(d)
+    w = torch.zeros_like(d)
+    for j in range(b):
+        piv = torch.sqrt(d[j, j])
+        col = d[:, j] / piv
+        col[:j] = 0
+        wrow = -(l[j] @ w)
+        wrow[j] += 1
+        w[j] = wrow / piv
+        l[:, j] = col
+        d -= torch.outer(col, col)
+    return l, w
+
+
+def _invert_block_ref(lb: torch.Tensor) -> torch.Tensor:
+    """w = lb⁻¹ for a lower-triangular block by row-wise forward
+    substitution (_trtri_kernel's invert_block); reads the lower triangle."""
+    b = lb.shape[0]
+    w = torch.zeros_like(lb)
+    for j in range(b):
+        wrow = -(lb[j, :j] @ w[:j])
+        wrow[j] += 1
+        w[j] = wrow / lb[j, j]
+    return w
+
+
+def _offdiag_inverse_ref(l: torch.Tensor, w: torch.Tensor) -> None:
+    """W[i, j] = -W[i, i] Σ_k L[i, k] W[k, j] for the strictly lower blocks,
+    in place; W's diagonal blocks must be set."""
+    nb = l.shape[0] // _B
+
+    def blk(m, i, j):
+        return m[i * _B:(i + 1) * _B, j * _B:(j + 1) * _B]
+
+    for j in range(nb):
+        for i in range(j + 1, nb):
+            acc = sum(blk(l, i, k) @ blk(w, k, j) for k in range(j, i))
+            blk(w, i, j).copy_(-(blk(w, i, i) @ acc))
+
+
+def _blocked_factor_ref(a: torch.Tensor, with_inverse: bool):
+    """Blocked (L, L⁻¹) of _potrf_inv_into: per 128-block the column loop,
+    the below-panel solve X = A21 W11ᵀ and the trailing update A22 -= X Xᵀ;
+    then the off-diagonal inverse blocks. W is None when not asked for."""
+    n = a.shape[0]
+    l = a.clone()
+    w = torch.zeros_like(a)
+    for j0 in range(0, n, _B):
+        j1 = j0 + _B
+        lb, wb = _factor_block_ref(l[j0:j1, j0:j1])
+        l[j0:j1, j0:j1] = lb
+        w[j0:j1, j0:j1] = wb
+        if j1 < n:
+            x = l[j1:, j0:j1] @ wb.T
+            l[j1:, j0:j1] = x
+            l[j1:, j1:] -= x @ x.T
+    l = torch.tril(l)
+    if not with_inverse:
+        return l, None
+    _offdiag_inverse_ref(l, w)
+    return l, w
+
+
+def potrf_ref(a: torch.Tensor) -> torch.Tensor:
+    """Plain version of the potrf kernel: the lower factor, strict upper 0."""
+    return _blocked_factor_ref(a, with_inverse=False)[0]
+
+
+def potrf_inv_ref(a: torch.Tensor):
+    """Plain version of the potrf_inv kernel: (L, L⁻¹)."""
+    return _blocked_factor_ref(a, with_inverse=True)
+
+
+def trtri_ref(l: torch.Tensor) -> torch.Tensor:
+    """Plain version of the trtri kernel: L⁻¹ of a lower-triangular tile
+    (its strict upper is not read)."""
+    n = l.shape[0]
+    w = torch.zeros_like(l)
+    for i0 in range(0, n, _B):
+        w[i0:i0 + _B, i0:i0 + _B] = _invert_block_ref(l[i0:i0 + _B, i0:i0 + _B])
+    _offdiag_inverse_ref(l, w)
+    return w
+
+
+# ---------------------------------------------------------------------------
+# Envelopes
+# ---------------------------------------------------------------------------
+
+def _supported(n: int, dtype) -> bool:
+    return n % _B == 0 and n <= 1024 and dtype == torch.float32
+
+
+def _chain_tm(m: int, n: int) -> int:
+    """The reference's stream-tile rows (VMEM-sized); kept for the
+    envelope's parity: the CUDA apply streams any m."""
+    for tm in (2048, 1024, 512, 256, 128):
+        if m % tm == 0 and tm * n * 4 <= (1 << 18):
+            return tm
+    return 0
+
+
+def _chain_supported(m: int, n: int, dtype) -> bool:
+    return (n % _B == 0 and n <= 256 and m >= n and dtype == torch.float32
+            and _chain_tm(m, n) > 0)
+
+
+def chain_supported(m: int, n: int, dtype) -> bool:
+    """Public envelope check for cholqr2_chain_pallas."""
+    return _chain_supported(m, n, dtype)
+
+
+def _square(x: torch.Tensor, what: str) -> int:
+    if x.dim() != 2 or x.shape[0] != x.shape[1]:
+        raise ValueError(f"{what}: need a square tile, got {tuple(x.shape)}")
+    return x.shape[0]
+
+
+# ---------------------------------------------------------------------------
+# Kernel launches
+# ---------------------------------------------------------------------------
+
+def _lib():
+    lib = _build.library()
+    if not getattr(lib, "_npw_factor_typed", False):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.npw_factor.argtypes = [i, i, p, p, p, p, p]
+        lib.npw_factor.restype = i
+        lib.npw_cholqr2_chain.argtypes = [i, i, i, p, p, p, p, p, p, f, f, p]
+        lib.npw_cholqr2_chain.restype = i
+        lib._npw_factor_typed = True
+    return lib
+
+
+def _contiguous_on(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    if x.device != dev:
+        raise ValueError(f"operand on {x.device}, expected {dev}")
+    return x.contiguous()
+
+
+def _launch_factor(kind: str, a: torch.Tensor):
+    """One launch of the factor kernel in `kind` mode: (l, w) with l None
+    for trtri."""
+    n = a.shape[0]
+    a = a.contiguous()
+    l = torch.empty_like(a) if kind != "trtri" else None
+    w = torch.empty_like(a)
+    scratch = torch.empty((n, n), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _lib().npw_factor(_MODES[kind], n, a.data_ptr(),
+                               l.data_ptr() if l is not None else None,
+                               w.data_ptr(), scratch.data_ptr(), stream)
+    LAUNCHES[kind] += 1
+    _build.check(rc, f"{kind} kernel")
+    return l, w
+
+
+def _cholesky_lib(a: torch.Tensor) -> torch.Tensor:
+    # lax.linalg.cholesky(symmetrize_input=False): the lower triangle only
+    return torch.linalg.cholesky_ex(a)[0]
+
+
+def _trtri_lib(l: torch.Tensor) -> torch.Tensor:
+    eye = torch.eye(l.shape[0], dtype=l.dtype, device=l.device)
+    return torch.linalg.solve_triangular(l, eye, upper=False)
+
+
+def potrf_pallas(a: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of an SPD tile (fp32, 128 | n <= 1024): the
+    potrf kernel on the card, potrf_ref on the CPU, torch.linalg outside
+    the envelope. The strict upper triangle is exactly 0."""
+    n = _square(a, "potrf_pallas")
+    if not _supported(n, a.dtype):
+        return _cholesky_lib(a)
+    if not on_cuda(a):
+        return potrf_ref(a)
+    return _launch_factor("potrf", a)[0]
+
+
+def potrf_inv_pallas(a: torch.Tensor):
+    """(L, L⁻¹) of an SPD tile in one kernel (same envelope); cholesky +
+    triangular solve outside it."""
+    n = _square(a, "potrf_inv_pallas")
+    if not _supported(n, a.dtype):
+        l = _cholesky_lib(a)
+        return l, _trtri_lib(l)
+    if not on_cuda(a):
+        return potrf_inv_ref(a)
+    return _launch_factor("potrf_inv", a)
+
+
+def trtri_pallas(l: torch.Tensor) -> torch.Tensor:
+    """Inverse of a lower-triangular tile (same envelope)."""
+    n = _square(l, "trtri_pallas")
+    if not _supported(n, l.dtype):
+        return _trtri_lib(l)
+    if not on_cuda(l):
+        return trtri_ref(l)
+    return _launch_factor("trtri", l)[1]
+
+
+def trsm_pallas(a: torch.Tensor, l: torch.Tensor, *,
+                precision: Optional[str] = None) -> torch.Tensor:
+    """Solve X Lᵀ = A (kernels.trsm semantics) by the explicit tile inverse
+    and one GEMM at `precision` (ops.gemm.matmul's routing)."""
+    return matmul(a, trtri_pallas(l), tb=True, precision=precision)
+
+
+# ---------------------------------------------------------------------------
+# The CholeskyQR2 chain
+# ---------------------------------------------------------------------------
+
+def neumann_fold(e2: torch.Tensor):
+    """(l2, li2) of the first-order cleanup: M = tril(E, -1) + diag(E)/2,
+    li2 = (I + M²)(I - M), l2 = (I + M⁴)(I + M)."""
+    eye = torch.eye(e2.shape[0], dtype=e2.dtype, device=e2.device)
+    m_ = torch.tril(e2, -1) + torch.diag(0.5 * torch.diagonal(e2))
+    m2 = m_ @ m_
+    ip2 = eye + m2
+    li2 = ip2 - ip2 @ m_
+    m4 = m2 @ m2
+    return (eye + m4) @ (eye + m_), li2
+
+
+def cholqr2_chain_ref(g: torch.Tensor, p: torch.Tensor, *, rows: bool,
+                      shift_c: float, conv_gate: float):
+    """Plain version of the chain kernel: (q, total, conv, dev2) with conv
+    and dev2 0-d tensors. The fold is chosen with torch.where, on the
+    tensors' device, as the kernel chooses it: no host read."""
+    b = g.shape[0]
+    eye = torch.eye(b, dtype=g.dtype, device=g.device)
+    rs_g = torch.max(torch.sum(torch.abs(g), dim=1))
+    floor = shift_c * rs_g
+    l1, w1 = potrf_inv_ref(g + floor * eye)
+    e2 = (-floor) * (w1 @ w1.T)
+    dev2 = torch.max(torch.abs(e2))
+    l2, li2 = neumann_fold(e2)
+    cleanup = dev2 < 1e-1
+    l2 = torch.where(cleanup, l2, eye)
+    li2 = torch.where(cleanup, li2, eye)
+    linv = li2 @ w1
+    total = l1 @ l2 if rows else l2.T @ l1.T
+    q = linv @ p if rows else p @ linv.T
+    return q, total, dev2 < conv_gate, dev2
+
+
+def cholqr2_chain_pallas(g: torch.Tensor, p: torch.Tensor, *, rows: bool,
+                         shift_c: float, conv_gate: float,
+                         precision: Optional[str] = None):
+    """One-launch CholeskyQR2 pass-1-2 chain: (q, total, conv, dev2) with
+    p = q @ total (rows=False) or p = total @ q (rows=True), the fold-path
+    semantics of compiler.lower._cholqr_adaptive; the extras loop stays
+    with the caller. conv and dev2 are 0-d tensors on p's device.
+
+    `precision` is accepted for the reference's signature: the apply is
+    always true FP32 (the reference coerces HIGH to HIGHEST). Raises
+    ValueError outside the envelope (fp32, 128 | b <= 256, the reference's
+    stream tile dividing m >= b); callers gate on chain_supported()."""
+    del precision
+    b = p.shape[0] if rows else p.shape[1]
+    m = p.shape[1] if rows else p.shape[0]
+    if not _chain_supported(m, b, p.dtype) or tuple(g.shape) != (b, b):
+        raise ValueError(f"cholqr2_chain_pallas: unsupported shapes "
+                         f"m={m} b={b} dtype={p.dtype}")
+    if not on_cuda(p):
+        return cholqr2_chain_ref(g, p, rows=rows, shift_c=shift_c, conv_gate=conv_gate)
+    dev = p.device
+    g = _contiguous_on(g, dev)
+    p = _contiguous_on(p, dev)
+    if g.dtype != torch.float32:
+        raise TypeError(f"cholqr2_chain_pallas: g must be fp32, got {g.dtype}")
+    q = torch.empty_like(p)
+    total = torch.empty((b, b), dtype=torch.float32, device=dev)
+    stat = torch.empty(2, dtype=torch.float32, device=dev)
+    scratch = torch.empty(12 * b * b, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _lib().npw_cholqr2_chain(
+            int(rows), m, b, g.data_ptr(), p.data_ptr(), q.data_ptr(), total.data_ptr(),
+            stat.data_ptr(), scratch.data_ptr(), float(shift_c), float(conv_gate), stream)
+    LAUNCHES["cholqr2_chain"] += 1
+    _build.check(rc, "cholqr2_chain kernel")
+    return q, total, stat[1] > 0.5, stat[0]

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-from numpywren_tpu.runtime.program import NS, PS, TiledProgram
+from numpywren_tpu_torch.runtime.program import NS, PS, TiledProgram
 
 _NOT_PORTED = {
     "jax": "the generic static-schedule executor (ROADMAP Queue 1: generic executor)",
@@ -48,9 +48,9 @@ def run_program(
     """One-call execution (the alg_wrappers run helper).
 
     executor:
-      - "fused" / "auto": the region-fused lowering (compiler.lower), the
-        program as a handful of large GEMMs. Only cholesky has one in the
-        port; another program raises.
+      - "fused" / "auto": the region-fused lowering (compiler.lower).
+        cholesky, gemm and the tsqr family have one in the port; another
+        program (bdfac) raises.
       - "jax", "local", "spill": not ported yet (NotImplementedError).
     """
     if executor in _NOT_PORTED:

@@ -27,8 +27,8 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from numpywren_tpu.exceptions import BlockNotFoundError, ShapeError
-from numpywren_tpu.utils import cdiv, hash_key
+from numpywren_tpu_torch.exceptions import BlockNotFoundError, ShapeError
+from numpywren_tpu_torch.utils import cdiv, hash_key
 from numpywren_tpu_torch.ops.common import as_tensor, default_device, np_dtype, to_numpy, torch_dtype
 
 Idx = Tuple[int, int]

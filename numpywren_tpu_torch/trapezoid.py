@@ -18,11 +18,12 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from numpywren_tpu.exceptions import ShapeError
-from numpywren_tpu.utils import cdiv
+from numpywren_tpu_torch.exceptions import ShapeError
+from numpywren_tpu_torch.utils import cdiv
 from numpywren_tpu_torch.ops.common import (
     as_tensor,
     check_precision,
+    default_device,
     default_precision,
     to_numpy,
     torch_dtype,
@@ -141,7 +142,7 @@ class TiledTrapezoidMatrix(_TiledBase):
                 raise ShapeError("need either a TrapezoidMatrix or n")
             nb = cdiv(int(n), panel)
             n_pad = nb * panel
-            dev = torch.device(device) if device is not None else None
+            dev = torch.device(device) if device is not None else default_device()
             cols = [torch.zeros((n_pad - c * panel, min(panel, n_pad - c * panel)),
                                 dtype=torch_dtype(dtype), device=dev)
                     for c in range(nb)]

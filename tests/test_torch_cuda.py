@@ -1,12 +1,15 @@
-"""The CUDA kernels against their plain PyTorch versions on the card, at
-small and awkward shapes: ragged edges, K not a multiple of 8, K = 0, one
-row or column, transposed and strided operands, bf16, and out aliasing c.
+"""The CUDA kernels against their plain PyTorch versions on the card. GEMM
+kernels at small and awkward shapes: ragged edges, K not a multiple of 8,
+K = 0, one row or column, transposed and strided operands, bf16, and out
+aliasing c. Factor kernels at n = 128..1024 and outside their envelope;
+the CholeskyQR2 chain in both forms at κ up to 1e6.
 
 These need an NVIDIA GPU (sm_90a) and nvcc; without one every test skips.
 Run on the card: python -m pytest tests/test_torch_cuda.py -q
 
 Tolerance: relative Frobenius error 1e-5, both sides doing the same fp32
-(or bf16x3) arithmetic in another summation order.
+(or bf16x3) arithmetic in another summation order; the chain's own bars
+are in its test.
 """
 
 import pytest
@@ -106,3 +109,86 @@ def test_wrong_dtype_raises(gen):
         gemm3.matmul3(a, a)
     with pytest.raises(TypeError):
         gemm.matmul(a, a, precision="highest")
+
+
+# ---------------------------------------------------------------------------
+# The factor kernels and the CholeskyQR2 chain (ops/pallas_factor.py)
+# ---------------------------------------------------------------------------
+
+def _spd(gen, n):
+    x = _rand(gen, n, n)
+    return x @ x.T / n + torch.eye(n, device="cuda")
+
+
+@pytest.mark.parametrize("n", [128, 256, 384, 1024])
+def test_factor_kernels(gen, n):
+    """potrf, potrf_inv, trtri, trsm against their plain versions: the same
+    fp32 algorithm in another summation order (rel 1e-5); strict upper
+    triangles exactly 0; L W = I to 1e-4."""
+    from numpywren_tpu_torch.ops import pallas_factor as pf
+
+    a = _spd(gen, n)
+    before = dict(pf.LAUNCHES)
+    l = pf.potrf_pallas(a)
+    l2, w = pf.potrf_inv_pallas(a)
+    wi = pf.trtri_pallas(l)
+    x = _rand(gen, 300, n)
+    s = pf.trsm_pallas(x, l, precision="highest")
+    assert pf.LAUNCHES["potrf"] == before["potrf"] + 1
+    assert pf.LAUNCHES["potrf_inv"] == before["potrf_inv"] + 1
+    assert pf.LAUNCHES["trtri"] == before["trtri"] + 2
+    lr, wr = pf.potrf_inv_ref(a)
+    _close(l, pf.potrf_ref(a))
+    _close(l2, lr)
+    _close(w, wr)
+    _close(wi, pf.trtri_ref(l))
+    _close(s, x @ pf.trtri_ref(l).T)
+    eye = torch.eye(n, device="cuda")
+    for m in (l, l2, w, wi):
+        assert torch.count_nonzero(torch.triu(m, 1)) == 0
+    assert float((l2 @ w - eye).abs().max()) <= 1e-4
+    assert float((l @ wi - eye).abs().max()) <= 1e-4
+
+
+def test_factor_envelope_fallback_does_not_launch(gen):
+    from numpywren_tpu_torch.ops import pallas_factor as pf
+
+    a = _spd(gen, 200)
+    before = dict(pf.LAUNCHES)
+    l, w = pf.potrf_inv_pallas(a)
+    pf.potrf_pallas(a)
+    pf.trtri_pallas(l)
+    assert pf.LAUNCHES == before
+    assert float((l @ w - torch.eye(200, device="cuda")).abs().max()) <= 1e-4
+
+
+def _panel(gen, m, b, kappa):
+    u, _ = torch.linalg.qr(_rand(gen, m, b))
+    v, _ = torch.linalg.qr(_rand(gen, b, b))
+    s = torch.logspace(0, -torch.log10(torch.tensor(kappa)).item(), b, device="cuda")
+    return (u * s) @ v.T
+
+
+@pytest.mark.parametrize("rows", [False, True])
+@pytest.mark.parametrize("b,kappa", [(128, 10.0), (256, 10.0), (256, 1e4), (256, 1e6)])
+def test_cholqr2_chain_kernel(gen, b, kappa, rows):
+    """The chain against its plain version: q to 3e-5 (max abs), total to
+    rel 1e-5, the same conv flag, dev2 to rel 1e-4 (two summation orders)."""
+    from numpywren_tpu_torch.ops import pallas_factor as pf
+
+    p = _panel(gen, 4096, b, kappa)
+    if rows:
+        p = p.T.contiguous()
+    g = p @ p.T if rows else p.T @ p
+    kw = dict(rows=rows, shift_c=4.0 * 1.1920929e-07 * (4096 * b) ** 0.5, conv_gate=0.02)
+    before = pf.LAUNCHES["cholqr2_chain"]
+    q, total, conv, dev2 = pf.cholqr2_chain_pallas(g, p, **kw)
+    assert pf.LAUNCHES["cholqr2_chain"] == before + 1
+    qr, tr, convr, dev2r = pf.cholqr2_chain_ref(g, p, **kw)
+    torch.cuda.synchronize()
+    assert float((q - qr).abs().max()) <= 3e-5
+    _close(total, tr)
+    assert bool(conv) == bool(convr)
+    assert abs(float(dev2) - float(dev2r)) <= 1e-4 * float(dev2r)
+    with pytest.raises(ValueError):
+        pf.cholqr2_chain_pallas(g, p[:, :100] if rows else p[:100], **kw)

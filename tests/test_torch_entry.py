@@ -1,6 +1,6 @@
 """The port's user entry points against the JAX package's, on the CPU:
-cholesky(X, storage=...) + run_program (the DSL path through lower_fused),
-cholesky_solve, and carrying matrices across with convert.
+cholesky(X, storage=...) and gemm(A, B) + run_program (the DSL path through
+lower_fused), cholesky_solve, and carrying matrices across with convert.
 
 Same numpy inputs through both packages; tolerance rtol 1e-4, atol 1e-5 on
 factors (as tests/test_trapezoid.py), 1e-4 relative on solutions.
@@ -14,15 +14,18 @@ import numpywren_tpu_torch as npw
 from numpywren_tpu import config
 from numpywren_tpu.matrix_init import random_spd
 from numpywren_tpu.matrix_init import shard_matrix as jshard
-from numpywren_tpu.runtime.program import NS, PS
+from numpywren_tpu_torch import config as pconfig
 from numpywren_tpu_torch import convert
+from numpywren_tpu_torch.exceptions import ShapeError
+from numpywren_tpu_torch.runtime.program import NS, PS
 
 RTOL, ATOL = 1e-4, 1e-5
 
 
 @pytest.fixture(params=[False, True], ids=["high", "compensated"])
-def compensated(request, monkeypatch):
+def compensated(request, monkeypatch):  # each package has its own config: set both
     monkeypatch.setattr(config, "_default", config.NpwConfig(compensated=request.param))
+    monkeypatch.setattr(pconfig, "_default", pconfig.NpwConfig(compensated=request.param))
     return request.param
 
 
@@ -91,17 +94,18 @@ def test_convert_round_trip():
     port factors them as JAX does."""
     a = random_spd(192, seed=6)
     jm = jshard(a, tile=(64, 64))
-    m = convert.from_reference(jm)
+    m = convert.from_reference(jm, device="cpu")
     np.testing.assert_array_equal(convert.to_numpy(m), jm.numpy())
     assert m.block_idxs_exist == jm.block_idxs_exist
     o, _, jo, _ = _both(a, storage="trapezoid", tile=(64, 64), panel=64)
-    np.testing.assert_array_equal(convert.to_numpy(convert.from_reference(jo)), jo.numpy())
+    np.testing.assert_array_equal(convert.to_numpy(convert.from_reference(jo, device="cpu")),
+                                  jo.numpy())
     # the same state into both packages' factorizations
     prog, o2, _ = npw.cholesky(m)
     npw.run_program(prog)
     np.testing.assert_allclose(convert.to_numpy(o2), jo.numpy(), rtol=RTOL, atol=ATOL)
     with pytest.raises(TypeError):
-        convert.from_reference(object())
+        convert.from_reference(object(), device="cpu")
 
 
 def test_unported_paths_raise():
@@ -114,3 +118,37 @@ def test_unported_paths_raise():
             npw.run_program(prog, executor=ex)
     with pytest.raises(ValueError, match="unknown executor"):
         npw.run_program(prog, executor="bogus")
+
+
+@pytest.mark.parametrize("m,k,n,tile,k_chunk", [
+    (300, 200, 150, 64, None),   # padded edge tiles, default chunking
+    (256, 512, 128, 64, 1),      # the full log-depth reduce tree
+    (128, 128, 128, 128, None),  # one tile
+])
+def test_gemm_run_program_matches_jax(compensated, m, k, n, tile, k_chunk):
+    """gemm(A, B) + run_program through the fused lowering: "high" is
+    torch.matmul in true FP32, compensated the bf16x3 route (its plain
+    version here, ~4e-6 relative to the exact product where JAX's CPU path
+    is plain fp32). Tolerance: relative Frobenius 1e-5."""
+    rng = np.random.default_rng(m + k + n)
+    a = rng.standard_normal((m, k)).astype(np.float32)
+    b = rng.standard_normal((k, n)).astype(np.float32)
+    kw = dict(tile=(tile, tile), k_chunk=k_chunk)
+    prog, c, meta = npw.gemm(a, b, device="cpu", **kw)
+    assert npw.run_program(prog) == PS.SUCCESS
+    jprog, jc, jmeta = jnpw.gemm(a, b, **kw)
+    jnpw.run_program(jprog)
+    assert meta == jmeta
+    assert prog.matrices["P"].matrix._data is None  # the partials stay unallocated
+    exact = a.astype(np.float64) @ b
+    for want in (jc.numpy(), exact):
+        assert np.linalg.norm(c.numpy() - want) <= 1e-5 * np.linalg.norm(want)
+    assert c.block_idxs_exist == jc.block_idxs_exist
+
+
+def test_gemm_checks():
+    a = np.ones((64, 32), np.float32)
+    with pytest.raises(ShapeError, match="mismatch"):
+        npw.gemm(a, a, tile=(32, 32), device="cpu")
+    with pytest.raises(NotImplementedError, match="host tier"):
+        npw.gemm(a, a.T, storage="host", device="cpu")

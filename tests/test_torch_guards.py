@@ -1,6 +1,7 @@
-"""Guards for the PyTorch/CUDA port: it never imports jax, it has no silent
-fallback around its kernels, and chip_smoke.py refuses to report a result
-from a host without a CUDA device or without the port beside it."""
+"""Guards for the PyTorch/CUDA port: it never imports jax or the JAX
+package, it has no silent fallback around its kernels or to the CPU, and
+chip_smoke.py refuses to report a result from a host without a CUDA device
+or without the port beside it."""
 
 import ast
 import json
@@ -53,10 +54,73 @@ def test_no_jax_import_in_port_sources():
             assert mod.split(".")[0] not in ("jax", "jaxlib"), f"{path}: imports {mod}"
 
 
+def test_no_jax_package_import_in_port_sources():
+    """The port keeps its own copies of the backend-neutral modules: no
+    import whose top-level name is numpywren_tpu, in the package or in
+    chip_smoke.py."""
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for path in files:
+        for mod in _imports(path):
+            assert mod.split(".")[0] != "numpywren_tpu", f"{path}: imports {mod}"
+
+
+def test_port_runs_with_the_jax_package_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['numpywren_tpu'] = None\n"
+        "import numpy as np\n"
+        "import numpywren_tpu_torch as npw\n"
+        "from numpywren_tpu_torch.matrix_init import random_spd\n"
+        "a = random_spd(96, seed=1)\n"
+        "prog, o, _ = npw.cholesky(a, tile=(32, 32), device='cpu')\n"
+        "npw.run_program(prog)\n"
+        "l = o.numpy()\n"
+        "assert np.linalg.norm(a - l @ l.T) / np.linalg.norm(a) < 1e-5\n"
+        "x = np.random.default_rng(0).standard_normal((256, 16)).astype(np.float32)\n"
+        "prog, out, _ = npw.tsqr(x, tile_rows=64, compute_q=True, device='cpu')\n"
+        "npw.run_program(prog)\n"
+        "q, r = out['Q'].numpy(), npw.tsqr_r_factor(out)\n"
+        "assert np.abs(q @ r - x).max() < 1e-4\n"
+        "prog, c, _ = npw.gemm(x.T, x, tile=(16, 16), device='cpu')\n"
+        "npw.run_program(prog)\n"
+        "assert np.abs(c.numpy() - x.T @ x).max() < 1e-3\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'numpywren_tpu')"
+        " and sys.modules[m] is not None))\n"
+    )
+    proc = _run(["-c", code], cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+def test_no_cpu_fallback_without_a_device(monkeypatch):
+    """On a host without CUDA, an entry point given an ndarray and no
+    device= raises; it does not run on the CPU."""
+    import numpy as np
+    import pytest
+    import torch
+
+    import numpywren_tpu_torch as npw
+    from numpywren_tpu_torch.matrix_init import random_spd, shard_matrix
+    from numpywren_tpu_torch.ops.common import default_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    a = random_spd(64, seed=2)
+    x = np.ones((128, 8), np.float32)
+    for call in (default_device,
+                 lambda: shard_matrix(a),
+                 lambda: npw.cholesky(a, tile=(32, 32)),
+                 lambda: npw.cholesky(a, storage="trapezoid", panel=32),
+                 lambda: npw.TrapezoidMatrix.from_array(a, panel=32),
+                 lambda: npw.tsqr(x, tile_rows=64),
+                 lambda: npw.gemm(a, a, tile=(32, 32))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
 def test_no_try_around_kernel_launches():
     """A CUDA tensor launches the kernel or raises: the ops and the
     lowering hold no try/except that could fall back to another GEMM."""
-    for rel in ("ops/gemm.py", "ops/gemm3.py", "compiler/lower.py"):
+    for rel in ("ops/gemm.py", "ops/gemm3.py", "ops/pallas_factor.py", "compiler/lower.py"):
         tree = ast.parse((PKG / rel).read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), rel
 

@@ -14,6 +14,7 @@ import torch
 from numpywren_tpu import config
 from numpywren_tpu.compiler import lower as jlower
 from numpywren_tpu.matrix_init import random_spd
+from numpywren_tpu_torch import config as pconfig
 from numpywren_tpu_torch.compiler import lower
 from numpywren_tpu_torch.ops.gemm3 import matmul3_ref
 
@@ -21,8 +22,9 @@ RTOL, ATOL = 1e-4, 1e-5
 
 
 @pytest.fixture(params=[False, True], ids=["high", "compensated"])
-def compensated(request, monkeypatch):
+def compensated(request, monkeypatch):  # each package has its own config: set both
     monkeypatch.setattr(config, "_default", config.NpwConfig(compensated=request.param))
+    monkeypatch.setattr(pconfig, "_default", pconfig.NpwConfig(compensated=request.param))
     return request.param
 
 

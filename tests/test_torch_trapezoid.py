@@ -17,6 +17,7 @@ import torch
 from numpywren_tpu import config
 from numpywren_tpu import trapezoid as jtrap
 from numpywren_tpu.matrix_init import random_spd
+from numpywren_tpu_torch import config as pconfig
 from numpywren_tpu_torch import convert
 from numpywren_tpu_torch.trapezoid import TrapezoidMatrix, cholesky_trapezoid
 
@@ -31,8 +32,9 @@ CONFIGS = {  # name -> (compensated, port precision, JAX precision)
 
 @pytest.fixture
 def set_config(monkeypatch):
-    def apply(compensated):
+    def apply(compensated):  # each package has its own config: set both
         monkeypatch.setattr(config, "_default", config.NpwConfig(compensated=compensated))
+        monkeypatch.setattr(pconfig, "_default", pconfig.NpwConfig(compensated=compensated))
     return apply
 
 
@@ -90,8 +92,8 @@ def test_stale_upper_in_diagonal_blocks_is_ignored():
         c[:w][np.triu_indices(w, 1)] = 7.0
         dirty_cols.append(c)
     dirty = jtrap.TrapezoidMatrix(dirty_cols, n, panel)
-    got_dirty = cholesky_trapezoid(convert.from_reference(dirty)).numpy()
-    got_clean = cholesky_trapezoid(convert.from_reference(clean)).numpy()
+    got_dirty = cholesky_trapezoid(convert.from_reference(dirty, device="cpu")).numpy()
+    got_clean = cholesky_trapezoid(convert.from_reference(clean, device="cpu")).numpy()
     want = jtrap.cholesky_trapezoid(dirty).numpy()  # consumes `dirty`: last
     np.testing.assert_array_equal(got_dirty, got_clean)
     np.testing.assert_allclose(got_dirty, want, rtol=RTOL, atol=ATOL)
