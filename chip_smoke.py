@@ -7,8 +7,9 @@ Builds the port's CUDA kernels from numpywren_tpu_torch/csrc, checks each
 against its plain PyTorch version at its path's shapes, then drives the
 user entry points (operands made on the card from seeded generators):
 blocked Cholesky at N=32768 (P2-P5), the factor ops (P6), TSQR at
-BASELINE config 3's 1,048,576 x 512 and beside it (P8-P11), and GEMM at
-8192 (P12):
+BASELINE config 3's 1,048,576 x 512 and beside it (P8-P11), GEMM at 8192
+(P12), the QR kernel and ops.qr_leaf (P13-P14), and the generic DSL
+executors on both storage tiers (P15-P16):
 
   P0  the card, its power limit, the kernel build
   P1  each kernel vs its plain version: relative Frobenius error <= 1e-5
@@ -39,6 +40,24 @@ BASELINE config 3's 1,048,576 x 512 and beside it (P8-P11), and GEMM at
   P12 gemm(A, B) + run_program at 8192^2 fp32, tile 512: the default route
       (torch.matmul) and the compensated one (matmul3), vs an fp64 product
       on the card, rel <= 1e-5
+  P13 the qr kernel vs its plain version at 128², 256 x 128, 512²,
+      1024 x 256, 2048 x 128 (rel Frobenius of Q and R <= 1e-5,
+      ||QᵀQ - I||_max <= 2e-5, R exactly upper), a zero column (the same,
+      finite) and kappa = 1e7 at 512 x 128 (ortho <= 5e-5, reconstruction
+      <= 1e-5 max|A|); ms of kernel, plain and torch.linalg.qr in turns;
+      an off-envelope 100 x 60 call launches nothing
+  P14 ops.qr_leaf on the 128 leaves (2048 x 128) of a 262,144 x 128
+      operand with NPW_PALLAS_QR=1 (one kernel launch each), and with it
+      off (the library); R agreement as P8's
+  P15 TorchTaskExecutor (executor="jax") at the JAX package's own
+      generic-executor configurations: DSL cholesky 16384/1024 (trsm_inv
+      on and off), gemm 8192²/1024 (rel <= 1e-5 vs fp64), tsqr_q
+      65,536 x 256/4096 (bars as P8, R against the cholqr3s route), bdfac
+      8192/1024 (off-bidiagonal blocks <= 1e-4 ||X||_F, singular values
+      within 1e-4 sigma_max of fp64 svdvals(X)); device seconds and groups
+  P16 SpillTaskExecutor (executor="spill") on a host-tier cholesky
+      16384/1024 (device seconds, host<->device bytes), and LocalExecutor
+      (executor="local") at 2048/256 with fault_rate = duplicate_rate = 0.1
 
 Residuals ||A - L Lᵀ||_F / ||A||_F are computed on the card in fp64 and
 must be <= 1e-4. TSQR phases hold ||QᵀQ - I||_F/sqrt(b) <= 1e-4,
@@ -53,6 +72,7 @@ a directory without the port beside this script.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import os
 import subprocess
@@ -94,6 +114,12 @@ def gpu_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def gemm_module():
+    """numpywren_tpu_torch.ops.gemm, the module (the package exports its
+    function `gemm` under the same name)."""
+    return importlib.import_module("numpywren_tpu_torch.ops.gemm")
 
 
 def cuda_ms(torch, fn, iters: int) -> float:
@@ -139,7 +165,9 @@ def set_flags(on=()) -> None:
 # ---------------------------------------------------------------------------
 
 def p1_kernels(torch, gen):
-    from numpywren_tpu_torch.ops import gemm, gemm3
+    from numpywren_tpu_torch.ops import gemm3
+
+    gemm = gemm_module()
 
     def rand(*shape, dtype=torch.float32):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
@@ -274,7 +302,9 @@ def run_entry(torch, drive):
 
 def main_path(torch, npw, n: int, n_flat: int, seed: int):
     from numpywren_tpu_torch.matrix_init import shard_matrix
-    from numpywren_tpu_torch.ops import gemm, gemm3
+    from numpywren_tpu_torch.ops import gemm3
+
+    gemm = gemm_module()
 
     cfg = npw.default_config()
     launches = {"matmul": 0, "matmul3": 0}
@@ -393,7 +423,7 @@ def spd(torch, gen, n):
 
 def p6_factor(torch, gen):
     """The four factor wrappers at n = 128..1024: kernel vs plain vs library."""
-    from numpywren_tpu_torch.ops import gemm
+    gemm = gemm_module()
     from numpywren_tpu_torch.ops import pallas_factor as pf
 
     rows = {}
@@ -468,7 +498,7 @@ def p6_ops_path(torch, gen, n_rows: int = 31744, n: int = PANEL):
     potrf_pallas of the 1024 diagonal block, trsm_pallas of the 31744 x
     1024 block below it (kernels.potrf / kernels.trsm semantics)."""
     from numpywren_tpu_torch import ops
-    from numpywren_tpu_torch.ops import gemm
+    gemm = gemm_module()
     from numpywren_tpu_torch.ops import pallas_factor as pf
 
     a = spd(torch, gen, n)
@@ -578,7 +608,9 @@ def tsqr_phase(torch, npw, phase, x, method, flags, tile_rows=4096, r_ref=None, 
     first pays this shape's first allocations); checks the last run's
     output and emits one line with every run's seconds; returns (R, the
     last run's kernel launch counts)."""
-    from numpywren_tpu_torch.ops import gemm, gemm3
+    from numpywren_tpu_torch.ops import gemm3
+
+    gemm = gemm_module()
     from numpywren_tpu_torch.ops import pallas_factor as pf
 
     m, b = x.shape
@@ -652,7 +684,9 @@ def tsqr_phases(torch, npw, gen, m: int, m_small: int):
 # ---------------------------------------------------------------------------
 
 def p12_gemm(torch, npw, gen, n: int):
-    from numpywren_tpu_torch.ops import gemm, gemm3
+    from numpywren_tpu_torch.ops import gemm3
+
+    gemm = gemm_module()
 
     cfg = npw.default_config()
     a = torch.randn(n, n, generator=gen, device="cuda")
@@ -677,6 +711,244 @@ def p12_gemm(torch, npw, gen, n: int):
     return matmul3_launches
 
 
+# ---------------------------------------------------------------------------
+# P13-P14: the qr kernel and ops.qr_leaf
+# ---------------------------------------------------------------------------
+
+QR_SHAPES = ((128, 128), (256, 128), (512, 512), (1024, 256), (2048, 128))
+QR_ORTHO_BAR = 2e-5   # ||QᵀQ - I||_max of the kernel (tests/test_pallas_factor.py:92)
+QR_KAPPA_ORTHO_BAR = 5e-5  # the same at kappa = 1e7 (tests/test_pallas_factor.py:108)
+
+
+def qr_bound(m, n):
+    """Geqrf plus the Q rebuild, 4mn² - 4n³/3 flops; A read, Q and R written."""
+    return bound(4 * m * n * n - 4 * n ** 3 / 3, 4 * (2 * m * n + n * n), PEAK_FP32)
+
+
+def p13_qr(torch, gen):
+    """The qr kernel against qr_ref at the reference tests' shapes, a zero
+    column and kappa = 1e7 at 512 x 128; ms of kernel, plain and
+    torch.linalg.qr in turns; an off-envelope call launches nothing."""
+    from numpywren_tpu_torch.ops import pallas_factor as pf
+
+    rows = {}
+    cases = [(f"{m}x{n}", torch.randn(m, n, generator=gen, device="cuda")) for m, n in QR_SHAPES]
+    zero = torch.randn(512, 128, generator=gen, device="cuda")
+    zero[:, 5] = 0.0
+    cases.append(("zero_column:512x128", zero))
+    cases.append(("kappa_1e7:512x128", kappa_panel(torch, gen, 512, 128, 1e7)))
+    for case, a in cases:
+        m, n = a.shape
+        before = pf.LAUNCHES["qr"]
+        q, r = pf.qr_pallas(a)
+        require(pf.LAUNCHES["qr"] == before + 1, f"P13 {case}: the kernel did not launch")
+        qp, rp = pf.qr_ref(a)
+        torch.cuda.synchronize()
+        for t in (q, r):
+            require(bool(torch.isfinite(t).all()), f"P13 {case}: non-finite output")
+        require(bool(torch.equal(torch.triu(r), r)), f"P13 {case}: R not exactly upper")
+        eye = torch.eye(n, device="cuda", dtype=torch.float64)
+        ortho = float((q.double().T @ q.double() - eye).abs().max())
+        recon = float((q.double() @ r.double() - a.double()).abs().max() / a.abs().max())
+        q_err, r_err = rel_err(torch, q, qp), rel_err(torch, r, rp)
+        mx = max(float((q - qp).abs().max()), float((r - rp).abs().max()))
+        row = {"phase": "P13", "case": case, "shape": [m, n], "q_rel_err": q_err,
+               "r_rel_err": r_err, "max_abs_err": mx, "ortho": ortho, "recon": recon}
+        if case.startswith("kappa"):
+            # Q's last columns are determined only to eps·kappa: held by
+            # orthogonality and reconstruction (tests/test_pallas_factor.py)
+            require(ortho <= QR_KAPPA_ORTHO_BAR, f"P13 {case}: ortho {ortho}")
+            require(recon <= 1e-5, f"P13 {case}: reconstruction {recon}")
+        else:
+            require(max(q_err, r_err) <= KERNEL_BAR,
+                    f"P13 {case}: rel error q {q_err} r {r_err} > {KERNEL_BAR}")
+            require(ortho <= QR_ORTHO_BAR, f"P13 {case}: ortho {ortho} > {QR_ORTHO_BAR}")
+        if case in ("2048x128", "512x512"):
+            ms, plain_ms, lib_ms = in_turns(
+                torch, lambda: pf.qr_pallas(a), lambda: pf.qr_ref(a),
+                lambda: torch.linalg.qr(a, mode="reduced"), iters=5)
+            b_ms, b_by = qr_bound(m, n)
+            row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        emit(row)
+        rows[case] = row
+    before = dict(pf.LAUNCHES)
+    a = torch.randn(100, 60, generator=gen, device="cuda")
+    q, r = pf.qr_pallas(a)
+    torch.cuda.synchronize()
+    require(pf.LAUNCHES == before, f"P13 off-envelope 100x60 launched {pf.LAUNCHES}")
+    emit({"phase": "P13", "case": "off_envelope:100x60", "launches_unchanged": True,
+          "recon": float((q @ r - a).abs().max())})
+    return rows
+
+
+def p14_qr_leaf(torch, gen, m: int, leaf: int = 2048, b: int = 128):
+    """ops.qr_leaf with NPW_PALLAS_QR=1 on every leaf x b row block of an
+    m x b operand (the qr kernel), then with the flag off (the library)."""
+    from numpywren_tpu_torch import ops
+    from numpywren_tpu_torch.ops import pallas_factor as pf
+
+    x = torch.randn(m, b, generator=gen, device="cuda")
+    blocks = [x[i:i + leaf] for i in range(0, m, leaf)]
+    out = {}
+    for route in ("library", "kernel", "kernel", "library"):  # in turns; the second of each is kept
+        os.environ["NPW_PALLAS_QR"] = "1" if route == "kernel" else "0"
+        pf.reset_launches()
+        res, host_s, dev_s = run_entry(torch, lambda: [ops.qr_leaf(blk) for blk in blocks])
+        out[route] = (res, host_s, dev_s, pf.LAUNCHES["qr"])
+    os.environ["NPW_PALLAS_QR"] = "0"
+    launches = out["kernel"][3]
+    require(launches == len(blocks), f"P14: {launches} qr launches for {len(blocks)} leaves")
+    require(out["library"][3] == 0, "P14: the library route launched the kernel")
+    ortho = resid = r_diff = 0.0
+    for blk, (q, r), (_, r_lib) in zip(blocks, out["kernel"][0], out["library"][0]):
+        o, e = qr_quality(torch, blk, q, r)
+        ortho, resid = max(ortho, o), max(resid, e)
+        r_diff = max(r_diff, rel_err(torch, sign_fixed(r), sign_fixed(r_lib)))
+    row = {"phase": "P14", "shape": [m, b], "leaf": [leaf, b], "leaves": len(blocks),
+           "launches": launches, "kernel_seconds": out["kernel"][2],
+           "kernel_host_seconds": out["kernel"][1], "library_seconds": out["library"][2],
+           "worst_ortho": ortho, "worst_residual": resid, "worst_r_rel_diff": r_diff}
+    emit(row)
+    require(ortho <= ORTHO_BAR, f"P14: ortho {ortho} > {ORTHO_BAR}")
+    require(resid <= QR_RESID_BAR, f"P14: residual {resid} > {QR_RESID_BAR}")
+    require(r_diff <= R_AGREE_BAR, f"P14: R differs {r_diff} > {R_AGREE_BAR}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# P15-P16: the generic executors
+# ---------------------------------------------------------------------------
+
+def spd_flat(torch, gen, n):
+    x = torch.randn(n, n, generator=gen, device="cuda")
+    a = x @ x.T / n
+    a.diagonal().add_(2.0)
+    return symmetric_from_lower(a.tril())
+
+
+def dsl_run(torch, npw, prog, **kw):
+    """run_program(prog, **kw): (status, host s, device s)."""
+    return run_entry(torch, lambda: npw.run_program(prog, **kw))
+
+
+def p15_generic(torch, npw, gen, n: int, n_gemm: int, m_tsqr: int, n_bdfac: int,
+                tile_bdfac: int):
+    """executor="jax" (TorchTaskExecutor) on the JAX package's own generic-
+    executor configurations (BENCH.md's DSL cholesky, gemm, tsqr, bdfac)."""
+    from numpywren_tpu_torch.matrix_init import shard_matrix
+    from numpywren_tpu_torch.runtime.executor import TorchTaskExecutor
+
+    def jax_exec(prog, **kw):
+        ex = TorchTaskExecutor(prog, **kw)
+        _, host_s, dev_s = run_entry(torch, ex.run)
+        return ex.groups_run, host_s, dev_s
+
+    a = spd_flat(torch, gen, n)
+    for trsm_inv in (True, False):
+        prog, o, _ = npw.cholesky(shard_matrix(a, tile=(1024, 1024)))
+        groups, host_s, dev_s = jax_exec(prog, trsm_inv=trsm_inv)
+        resid = residual(torch, a, o.array[:n, :n])
+        emit({"phase": "P15", "program": "cholesky", "n": n, "tile": 1024,
+              "nodes": prog.num_nodes, "trsm_inv": trsm_inv, "groups": groups,
+              "seconds": dev_s, "host_seconds": host_s, "residual": resid})
+        require(resid <= RESID_BAR, f"P15 cholesky trsm_inv={trsm_inv}: residual {resid}")
+        del prog, o
+    del a
+    torch.cuda.empty_cache()
+
+    a = torch.randn(n_gemm, n_gemm, generator=gen, device="cuda")
+    b = torch.randn(n_gemm, n_gemm, generator=gen, device="cuda")
+    prog, c, meta = npw.gemm(a, b, tile=(1024, 1024))
+    groups, host_s, dev_s = jax_exec(prog)
+    err = rel_err(torch, c.array[:n_gemm, :n_gemm], a.double() @ b.double())
+    emit({"phase": "P15", "program": "gemm", "n": n_gemm, "tile": 1024,
+          "nodes": prog.num_nodes, "groups": groups, "seconds": dev_s,
+          "host_seconds": host_s, "rel_err_vs_fp64": err, "k_chunk": meta["k_chunk"]})
+    require(err <= KERNEL_BAR, f"P15 gemm: rel error {err} > {KERNEL_BAR}")
+    del a, b, prog, c
+    torch.cuda.empty_cache()
+
+    x = torch.randn(m_tsqr, 256, generator=gen, device="cuda")
+    # the R to agree with: another algorithm, the fused cholqr3s library route
+    prog, out, _ = npw.tsqr(x, tile_rows=4096, method="cholqr3s")
+    npw.run_program(prog)
+    r_ref = out["R"].get_block(*out["R_block"]).clone()
+    prog, out, _ = npw.tsqr(x, tile_rows=4096, compute_q=True)
+    groups, host_s, dev_s = jax_exec(prog)
+    q = out["Q"].array[:m_tsqr, :256]
+    r = out["R"].get_block(*out["R_block"])
+    ortho, resid = qr_quality(torch, x, q, r)
+    r_diff = rel_err(torch, sign_fixed(r), sign_fixed(r_ref))
+    emit({"phase": "P15", "program": "tsqr_q", "shape": [m_tsqr, 256], "tile_rows": 4096,
+          "nodes": prog.num_nodes, "groups": groups, "seconds": dev_s,
+          "host_seconds": host_s, "ortho": ortho, "residual": resid, "r_rel_diff": r_diff})
+    require(ortho <= ORTHO_BAR and resid <= QR_RESID_BAR and r_diff <= R_AGREE_BAR,
+            f"P15 tsqr: ortho {ortho}, residual {resid}, R differs {r_diff}")
+    del x, prog, out, q
+    torch.cuda.empty_cache()
+
+    x = torch.randn(n_bdfac, n_bdfac, generator=gen, device="cuda")
+    prog, bmat, _ = npw.bdfac(x, tile=(tile_bdfac, tile_bdfac))
+    groups, host_s, dev_s = jax_exec(prog)
+    bd = bmat.array[:n_bdfac, :n_bdfac]
+    t, g = tile_bdfac, n_bdfac // tile_bdfac
+    band = torch.zeros(g, g, dtype=torch.bool)
+    for i in range(g):
+        band[i, i] = True
+        if i + 1 < g:
+            band[i, i + 1] = True
+    mask = band.repeat_interleave(t, 0).repeat_interleave(t, 1).to("cuda")
+    x_f = float(torch.linalg.norm(x.double()))
+    off = float(bd.masked_fill(mask, 0.0).abs().max())
+    t0 = time.perf_counter()
+    sv = torch.linalg.svdvals(bd.double())
+    sv_ref = torch.linalg.svdvals(x.double())
+    sv_err = float((sv - sv_ref).abs().max())
+    sv_s = time.perf_counter() - t0
+    emit({"phase": "P15", "program": "bdfac", "n": n_bdfac, "tile": tile_bdfac,
+          "nodes": prog.num_nodes, "groups": groups, "seconds": dev_s, "host_seconds": host_s,
+          "off_bidiagonal_max_over_fro": off / x_f, "sv_err_over_max": sv_err / float(sv_ref[0]),
+          "svdvals_seconds": sv_s})
+    require(off <= 1e-4 * x_f, f"P15 bdfac: off-bidiagonal {off} > 1e-4 * {x_f}")
+    require(sv_err <= 1e-4 * float(sv_ref[0]), f"P15 bdfac: singular values off by {sv_err}")
+    del x, prog, bmat, bd, mask
+    torch.cuda.empty_cache()
+
+
+def p16_host_tier(torch, npw, gen, n: int, n_local: int):
+    """executor="spill" on a host-tier cholesky; executor="local" with
+    faults and duplicate deliveries."""
+    from numpywren_tpu_torch.matrix_init import shard_matrix
+    from numpywren_tpu_torch.runtime.executor import LocalExecutor, SpillTaskExecutor
+
+    a = spd_flat(torch, gen, n)
+    x_host = shard_matrix(a, tile=(1024, 1024), storage="host")
+    prog, o, _ = npw.cholesky(x_host, storage="host")
+    ex = SpillTaskExecutor(prog)
+    _, host_s, dev_s = run_entry(torch, ex.run)
+    l = o.to_hbm().array[:n, :n]
+    resid = residual(torch, a, l)
+    emit({"phase": "P16", "program": "cholesky", "executor": "spill", "n": n, "tile": 1024,
+          "nodes": prog.num_nodes, "seconds": dev_s, "host_seconds": host_s,
+          "h2d_bytes": ex.h2d_bytes, "d2h_bytes": ex.d2h_bytes, "residual": resid})
+    require(resid <= RESID_BAR, f"P16 spill cholesky: residual {resid}")
+    del a, x_host, prog, o, l
+    torch.cuda.empty_cache()
+
+    a = spd_flat(torch, gen, n_local)
+    prog, o, _ = npw.cholesky(shard_matrix(a, tile=(256, 256), storage="host"), storage="host")
+    ex = LocalExecutor(prog, fault_rate=0.1, duplicate_rate=0.1, seed=0)
+    t0 = time.perf_counter()
+    status = ex.run(timeout=300)
+    host_s = time.perf_counter() - t0
+    resid = residual(torch, a, o.to_hbm().array[:n_local, :n_local])
+    emit({"phase": "P16", "program": "cholesky", "executor": "local", "n": n_local, "tile": 256,
+          "nodes": prog.num_nodes, "fault_rate": 0.1, "duplicate_rate": 0.1,
+          "status": status.name, "host_seconds": host_s, "residual": resid})
+    require(status.name == "SUCCESS", f"P16 local: status {status.name}")
+    require(resid <= RESID_BAR, f"P16 local cholesky: residual {resid}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=32768, help="trapezoid phases' size")
@@ -684,6 +956,13 @@ def main(argv=None) -> int:
     ap.add_argument("--m", type=int, default=1 << 20, help="P7-P9's TSQR rows")
     ap.add_argument("--m-small", type=int, default=65536, help="P10-P11's TSQR rows")
     ap.add_argument("--n-gemm", type=int, default=8192, help="P12's size")
+    ap.add_argument("--m-qr", type=int, default=1 << 18, help="P14's operand rows")
+    ap.add_argument("--n-dsl", type=int, default=16384, help="P15-P16's DSL cholesky size")
+    ap.add_argument("--n-gemm-dsl", type=int, default=8192, help="P15's DSL gemm size")
+    ap.add_argument("--m-tsqr-dsl", type=int, default=65536, help="P15's DSL tsqr rows")
+    ap.add_argument("--n-bdfac", type=int, default=8192, help="P15's DSL bdfac size")
+    ap.add_argument("--tile-bdfac", type=int, default=1024, help="P15's DSL bdfac tile")
+    ap.add_argument("--n-local", type=int, default=2048, help="P16's local-executor size")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.n % PANEL:
@@ -721,6 +1000,11 @@ def main(argv=None) -> int:
     p7 = p7_chain(torch, gen, args.m)
     tsqr_counts = tsqr_phases(torch, npw, gen, args.m, args.m_small)
     launches["matmul3"] += p12_gemm(torch, npw, gen, args.n_gemm)
+    p13 = p13_qr(torch, gen)
+    launches["qr"] = p14_qr_leaf(torch, gen, args.m_qr)
+    p15_generic(torch, npw, gen, args.n_dsl, args.n_gemm_dsl, args.m_tsqr_dsl, args.n_bdfac,
+                args.tile_bdfac)
+    p16_host_tier(torch, npw, gen, args.n_dsl, args.n_local)
     launches["matmul"] += ops_counts["matmul"]
     launches.update(potrf=ops_counts["potrf"], trtri=ops_counts["trtri"], **tsqr_counts)
 
@@ -759,6 +1043,15 @@ def main(argv=None) -> int:
                     "ms": chain["ms"], "plain_ms": chain["plain_ms"],
                     "bound_ms": chain["bound_ms"], "bound_by": chain["bound_by"],
                     "library_ms": None})
+    qr_main = p13["2048x128"]  # P14's leaf
+    kernels.append({"name": "qr", "route": "cuda", "source": "numpywren_tpu_torch/csrc/qr.cu",
+                    "replaces": "numpywren_tpu/ops/pallas_factor.py:389",
+                    "launches": launches["qr"],
+                    "max_abs_err": max(r["max_abs_err"] for c, r in p13.items()
+                                       if not c.startswith("kappa")),
+                    "ms": qr_main["ms"], "plain_ms": qr_main["plain_ms"],
+                    "bound_ms": qr_main["bound_ms"], "bound_by": qr_main["bound_by"],
+                    "library_ms": qr_main["library_ms"]})
     for k in kernels:
         require(k["launches"] > 0, f"kernel {k['name']} was not launched on its path")
     emit({"kernels": kernels})

@@ -13,15 +13,25 @@ unless the caller passes ``device="cpu"`` (or CPU tensors), which runs the
 kernels' plain PyTorch versions.
 
 Ported so far: ``cholesky`` / ``cholesky_trapezoid`` / ``cholesky_solve``,
-``gemm`` and ``tsqr`` through ``run_program``, down to the GEMM kernels
-(``ops.gemm``, ``ops.gemm3``) and the factorization kernels
+``gemm``, ``tsqr`` and ``bdfac`` through ``run_program`` with the fused
+lowering (not for bdfac yet) and the generic executors ("jax", "local",
+"spill"), on the device tier and the host tier; the DSL ops
+(``ops.TORCH_KERNELS``), ``binops`` and ``checkpoint``; down to the GEMM
+kernels (``ops.gemm``, ``ops.gemm3``) and the factorization kernels
 (``ops.pallas_factor``). See ROADMAP.md for the rest.
 """
 
 from numpywren_tpu_torch.config import NpwConfig, default_config
-from numpywren_tpu_torch.alg_wrappers import cholesky, cholesky_solve, gemm, tsqr, tsqr_r_factor
+from numpywren_tpu_torch.alg_wrappers import (
+    bdfac,
+    cholesky,
+    cholesky_solve,
+    gemm,
+    tsqr,
+    tsqr_r_factor,
+)
 from numpywren_tpu_torch.runtime.executor import run_program
-from numpywren_tpu_torch.tiled import TiledMatrix
+from numpywren_tpu_torch.tiled import TiledMatrix, TiledSymmetricMatrix
 from numpywren_tpu_torch.trapezoid import (
     TiledTrapezoidMatrix,
     TrapezoidMatrix,
@@ -30,11 +40,13 @@ from numpywren_tpu_torch.trapezoid import (
 
 __all__ = [
     "TiledMatrix",
+    "TiledSymmetricMatrix",
     "TrapezoidMatrix",
     "TiledTrapezoidMatrix",
     "cholesky_trapezoid",
     "cholesky",
     "cholesky_solve",
+    "bdfac",
     "gemm",
     "tsqr",
     "tsqr_r_factor",

@@ -4,8 +4,13 @@ numpywren_tpu/alg_wrappers.py; the reference's numpywren/alg_wrappers.py).
 Each wrapper allocates output and scratch matrices, compiles the DSL
 program (the port's own numpywren_tpu_torch.frontend), binds the tile-grid
 sizes, and returns (program, output(s), meta). `run_program` executes it.
-Ported: cholesky, cholesky_solve, gemm, tsqr (and tsqr_r_factor), on the
-device tier ("hbm"); bdfac and the host tier are not yet.
+
+As in the reference, the device tier ("hbm") materializes version 0 of a
+scratch matrix as a copy of the input, while the host tier ("host") keeps
+the lazy parent_fn aliasing of the scratch onto the input (matrix.py
+parent_fn). `device=None` keeps a tensor where it is and puts an ndarray on
+the current CUDA device (a host without one raises: pass device="cpu"); on
+the host tier it names the device the tiles are computed on.
 """
 
 from __future__ import annotations
@@ -41,15 +46,24 @@ def _is_array(x) -> bool:
     return isinstance(x, (np.ndarray, torch.Tensor))
 
 
-def _check_storage(storage: str) -> None:
-    if storage != "hbm":
-        raise NotImplementedError(
-            f"storage={storage!r}: the host tier is not ported yet "
-            f"(ROADMAP Queue 1: host tier and spill)")
+def _as_tiled(x: MatLike, tile, storage: str, device) -> _TiledBase:
+    return shard_matrix(x, tile=tile, storage=storage, device=device) if _is_array(x) else x
 
 
-def _as_tiled(x: MatLike, tile, device) -> _TiledBase:
-    return shard_matrix(x, tile=tile, device=device) if _is_array(x) else x
+def _zeros_parent(m, i, j):
+    return torch.zeros(m.tile, dtype=m.dtype)
+
+
+def _new(key, shape, tile, like, storage: str, lazy: bool = False) -> TiledMatrix:
+    """An output or scratch matrix on `like`'s device and dtype. An unwritten
+    block reads as zeros: the device tier's fill (allocated at first use;
+    `lazy` leaves it unfilled, so an unwritten read raises) or the host
+    tier's parent_fn."""
+    if storage == "hbm":
+        return TiledMatrix(key=key, shape=shape, tile=tile, dtype=like.dtype,
+                           fill=None if lazy else 0.0, device=like.device)
+    return TiledMatrix(key=key, shape=shape, tile=tile, dtype=like.dtype, storage=storage,
+                       parent_fn=_zeros_parent, device=like.device)
 
 
 def _default_tile(x: MatLike, tile) -> Tuple[int, int]:
@@ -71,7 +85,8 @@ def cholesky(X: MatLike, tile=None, storage: str = "hbm", truncate: int = 0,
 
     X: SPD matrix (ndarray, tensor, TiledMatrix, or with
     storage="trapezoid" a TrapezoidMatrix). The scratch S holds the trailing
-    matrix; version 0 is a copy of X on the device tier.
+    matrix; version 0 is a copy of X on the device tier and a lazy parent_fn
+    alias of X on the host tier.
 
     storage="trapezoid" binds the half-memory lower-trapezoid column-block
     tier (the fastest path): the fused lowering runs cholesky_trapezoid on
@@ -82,22 +97,25 @@ def cholesky(X: MatLike, tile=None, storage: str = "hbm", truncate: int = 0,
     device="cpu")."""
     if storage == "trapezoid":
         return _cholesky_trapezoid_bind(X, tile, truncate, panel, device)
-    _check_storage(storage)
     tile = _default_tile(X, tile)
     if tile[0] != tile[1]:
         raise ShapeError("cholesky requires square tiles")
-    x_t = _as_tiled(X, tile, device)
+    x_t = _as_tiled(X, tile, storage, device)
     if x_t.shape[0] != x_t.shape[1]:
         raise ShapeError(f"cholesky requires a square matrix, got {x_t.shape}")
     g = x_t.grid[0]
 
-    o = TiledMatrix(key=x_t.key + ":chol_L", shape=x_t.shape, tile=tile,
-                    dtype=x_t.dtype, device=x_t.device)
-    s = TiledMatrix(key=x_t.key + ":chol_S", shape=x_t.shape, tile=tile,
-                    dtype=x_t.dtype, fill=None, device=x_t.device)
-    # S is overwritten by the factorization: it never shares X's buffer
-    arr = x_t.to_hbm().array if x_t.storage != "hbm" else x_t.array.clone()
-    s.replace_array(_identity_pad_diag(arr, x_t))
+    # the upper-triangle blocks of L are never written: they read as zeros
+    o = _new(x_t.key + ":chol_L", x_t.shape, tile, x_t, storage)
+    if storage == "hbm":
+        s = TiledMatrix(key=x_t.key + ":chol_S", shape=x_t.shape, tile=tile,
+                        dtype=x_t.dtype, fill=None, device=x_t.device)
+        # S is overwritten by the factorization: it never shares X's buffer
+        arr = x_t.to_hbm().array if x_t.storage != "hbm" else x_t.array.clone()
+        s.replace_array(_identity_pad_diag(arr, x_t))
+    else:
+        s = TiledMatrix(key=x_t.key + ":chol_S", shape=x_t.shape, tile=tile, dtype=x_t.dtype,
+                        storage="host", parent_fn=_spd_parent(x_t), device=x_t.device)
 
     program = _template("cholesky").bind(
         O=o, S=BoundArg(name="S", matrix=s, versioned=True), N=g, truncate=truncate
@@ -161,6 +179,20 @@ def _identity_pad_diag(arr: torch.Tensor, x_t) -> torch.Tensor:
     return arr
 
 
+def _spd_parent(x_t):
+    """parent_fn of the host-tier S: X's block, with 1s on the padded
+    diagonal of an edge diagonal block (the padded tile stays SPD)."""
+    def parent(m, i, j):
+        blk = x_t.get_block(i, j).clone()
+        bm, _ = m.true_block_shape(i, j)
+        if i == j and bm < m.tile[0]:
+            idx = torch.arange(bm, m.tile[0])
+            blk[idx, idx] = 1.0
+        return blk
+
+    return parent
+
+
 def cholesky_solve(l: _TiledBase, b):
     """Solve A x = b given A's lower Cholesky factor `l` (the matrix
     cholesky() returned, after run_program): two triangular solves on l's
@@ -196,10 +228,9 @@ def gemm(A: MatLike, B: MatLike, tile=None, storage: str = "hbm",
     Default bounds scratch at <= 8 partials per output tile
     (k_chunk = cdiv(K, 8)). The fused lowering runs one product and never
     allocates that scratch. `device` as in cholesky."""
-    _check_storage(storage)
     tile = _default_tile(A, tile)
-    a_t = _as_tiled(A, tile, device)
-    b_t = _as_tiled(B, tile, device)
+    a_t = _as_tiled(A, tile, storage, device)
+    b_t = _as_tiled(B, tile, storage, device)
     if a_t.shape[1] != b_t.shape[0]:
         raise ShapeError(f"gemm shape mismatch: {a_t.shape} @ {b_t.shape}")
     if a_t.tile[1] != b_t.tile[0]:
@@ -218,11 +249,9 @@ def gemm(A: MatLike, B: MatLike, tile=None, storage: str = "hbm",
         live = cdiv(live, 2)
         depth += 1
 
-    c = TiledMatrix(key="gemm_C", shape=(a_t.shape[0], b_t.shape[1]), tile=c_tile,
-                    dtype=a_t.dtype, fill=0.0, device=a_t.device)
-    # lazy (fill=None): the fused runner never touches the partials
-    p = TiledMatrix(key="gemm_P", shape=(m * n * c_tile[0], nc * c_tile[1]), tile=c_tile,
-                    dtype=a_t.dtype, fill=None, device=a_t.device)
+    c = _new("gemm_C", (a_t.shape[0], b_t.shape[1]), c_tile, a_t, storage)
+    # lazy: the fused runner never touches the partials
+    p = _new("gemm_P", (m * n * c_tile[0], nc * c_tile[1]), c_tile, a_t, storage, lazy=True)
     program = _template("gemm").bind(
         A=a_t, B=b_t, C=c, P=BoundArg(name="P", matrix=p, versioned=True),
         M=m, N=n, K=k, NC=nc, Q=q, L=depth,
@@ -262,11 +291,10 @@ def tsqr(X: MatLike, tile_rows: int = 4096, storage: str = "hbm",
     (see compiler.lower.fused_tsqr). b_fac is the combine tree's branching
     factor; compute_q needs b_fac=2 (the DSL template's Q sweep is binary).
     `device` as in cholesky."""
-    _check_storage(storage)
     if _is_array(X):
         m, b = X.shape
         tile_rows = min(tile_rows, m)
-        a_t = shard_matrix(X, tile=(tile_rows, b), device=device)
+        a_t = shard_matrix(X, tile=(tile_rows, b), storage=storage, device=device)
     else:
         a_t = X
         m, b = a_t.shape
@@ -285,8 +313,7 @@ def tsqr(X: MatLike, tile_rows: int = 4096, storage: str = "hbm",
 
     def new(key, shape, tile):
         # allocated at first use: the fused lowering writes only R (and Q)
-        return TiledMatrix(key=key, shape=shape, tile=tile, dtype=a_t.dtype, fill=0.0,
-                           device=a_t.device)
+        return _new(key, shape, tile, a_t, storage)
 
     q0 = new("tsqr_Q0", (n_leaves * tile_rows, b), (tile_rows, b))
     r = new("tsqr_R", (n_leaves * b, (depth + 1) * b), (b, b))
@@ -308,6 +335,59 @@ def tsqr(X: MatLike, tile_rows: int = 4096, storage: str = "hbm",
     meta = {"n_leaves": n_leaves, "depth": depth, "tile_rows": tile_rows, "b": b,
             "logical_m": m, "b_fac": b_fac}
     return program, outputs, meta
+
+
+# ---------------------------------------------------------------------------
+# BDFAC (block bidiagonalization)
+# ---------------------------------------------------------------------------
+
+def bdfac(X: MatLike, tile=None, storage: str = "hbm", device=None):
+    """Block bidiagonalization: returns (program, B_matrix, meta).
+
+    B is block upper bidiagonal with the singular values of X (orthogonal
+    QR/LQ sweeps, reference alg_wrappers.bdfac). Requires a square tile
+    grid. The port has no fused BDFAC lowering yet (ROADMAP Queue 1 #5):
+    run the program with executor="jax", "spill" or "local". `device` as
+    in cholesky."""
+    tile = _default_tile(X, tile)
+    if tile[0] != tile[1]:
+        raise ShapeError("bdfac requires square tiles")
+    x_t = _as_tiled(X, tile, storage, device)
+    gm, gn = x_t.grid
+    if gm != gn:
+        raise ShapeError(f"bdfac requires a square tile grid, got {x_t.grid}")
+    n, t, dt, dev = gm, tile[0], x_t.dtype, x_t.device
+
+    def new(key, grid):
+        return _new(x_t.key + ":" + key, (grid[0] * t, grid[1] * t), tile, x_t, storage)
+
+    # S starts as a copy of X (version 0); the sweeps rewrite it in place
+    if storage == "hbm":
+        s = TiledMatrix(key=x_t.key + ":bd_S", shape=x_t.shape, tile=tile, dtype=dt,
+                        fill=None, device=dev)
+        s.replace_array(x_t.to_hbm().array if x_t.storage != "hbm" else x_t.array.clone())
+    else:
+        s = TiledMatrix(key=x_t.key + ":bd_S", shape=x_t.shape, tile=tile, dtype=dt,
+                        storage="host", parent_fn=lambda m, i, j: x_t.get_block(i, j),
+                        device=dev)
+    b = new("bd_B", (n, n))
+    scr = {"RA": new("bd_RA", (n, 1)), "LA": new("bd_LA", (n, 1)),
+           "CA": new("bd_CA", (n, n)), "DA": new("bd_DA", (n, n))}
+    for q in ("QTT", "QTB", "QBT", "QBB", "PTT", "PTB", "PBT", "PBB"):
+        scr[q] = new("bd_" + q, (n, n))
+    program = _template("bdfac").bind(
+        S=BoundArg(name="S", matrix=s, versioned=True),
+        B=b,
+        RA=BoundArg(name="RA", matrix=scr["RA"], versioned=True),
+        CA=BoundArg(name="CA", matrix=scr["CA"], versioned=True),
+        LA=BoundArg(name="LA", matrix=scr["LA"], versioned=True),
+        DA=BoundArg(name="DA", matrix=scr["DA"], versioned=True),
+        QTT=scr["QTT"], QTB=scr["QTB"], QBT=scr["QBT"], QBB=scr["QBB"],
+        PTT=scr["PTT"], PTB=scr["PTB"], PBT=scr["PBT"], PBB=scr["PBB"],
+        N=n,
+    )
+    meta = {"input": x_t, "scratch": scr, "tile": tile, "grid": n}
+    return program, b, meta
 
 
 def tsqr_r_factor(outputs) -> np.ndarray:

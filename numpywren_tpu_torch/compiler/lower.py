@@ -50,7 +50,7 @@ from numpywren_tpu_torch.ops.pallas_factor import (
     potrf_inv_pallas,
 )
 
-_SPILL = "out-of-core spill is not ported yet (ROADMAP Queue 1: host tier and spill)"
+_SPILL = "out-of-core spill (runtime/spill.py) is not ported yet (ROADMAP Queue 1 #1)"
 
 
 def _dus(arr: torch.Tensor, update: torch.Tensor, i0: int, j0: int) -> torch.Tensor:
@@ -502,12 +502,30 @@ def lower_fused(program) -> Optional[Callable[[], None]]:
     the tsqr family have)."""
     name = program.dag.template.name
     if name == "cholesky":
-        return lambda: _run_fused_cholesky(program)
-    if name == "gemm":
-        return lambda: _run_fused_gemm(program)
-    if name in ("tsqr", "tsqr_q") or name.startswith("tsqr_b"):
-        return lambda: _run_fused_tsqr(program, compute_q=(name == "tsqr_q"))
-    return None
+        inner = lambda: _run_fused_cholesky(program)  # noqa: E731
+    elif name == "gemm":
+        inner = lambda: _run_fused_gemm(program)  # noqa: E731
+    elif name in ("tsqr", "tsqr_q") or name.startswith("tsqr_b"):
+        inner = lambda: _run_fused_tsqr(program, compute_q=(name == "tsqr_q"))  # noqa: E731
+    else:
+        return None
+
+    def run_and_commit():
+        """The runners promote host-tier operands to device-tier copies; the
+        caller's handles must still see the results (the reference's
+        semantics: writes land in the store the program was bound to), so
+        computed blocks are copied back and the handles restored."""
+        originals = {nm: ba.matrix for nm, ba in program.matrices.items()}
+        inner()
+        for nm, orig in originals.items():
+            cur = program.matrices[nm].matrix
+            if cur is orig or orig.storage in ("hbm", "trapezoid"):
+                continue
+            for (i, j) in cur.block_idxs_exist:
+                orig.put_block(cur.get_block(i, j), i, j)
+            program.matrices[nm].matrix = orig
+
+    return run_and_commit
 
 
 def _hbm_budget_bytes() -> int:
@@ -525,16 +543,31 @@ def _hbm_budget_bytes() -> int:
 def _hbm(program, name):
     """The bound matrix on the flat device tier, promoted if it is not."""
     ba = program.matrices[name]
-    m = ba.matrix
-    if m.storage != "hbm":
-        pm, pn = m.padded_shape
-        need = pm * pn * m.dtype.itemsize
-        if need > _hbm_budget_bytes():
-            raise NotImplementedError(
-                f"{name}: a flat {pm}x{pn} copy needs {need} bytes, over the "
-                f"device-memory budget; {_SPILL}")
-        ba.matrix = m.to_hbm()
+    if ba.matrix.storage != "hbm":
+        ba.matrix = ba.matrix.to_hbm()
     return ba.matrix
+
+
+def _spill_if_over_budget(program, factor: int = 2, names=None) -> bool:
+    """Host-tier operands whose wholesale promotion would exceed the
+    device-memory budget run through the streaming SpillTaskExecutor
+    instead. Returns True when the program ran that way. `names`: the
+    matrices the fused runner would promote (default: all); scratch it never
+    touches (gemm's chunk partials) does not count."""
+    total, any_host = 0, False
+    for nm, ba in program.matrices.items():
+        if names is not None and nm not in names:
+            continue
+        m = ba.matrix
+        pm, pn = m.padded_shape
+        total += pm * pn * m.dtype.itemsize
+        any_host = any_host or m.storage != "hbm"
+    if any_host and factor * total > _hbm_budget_bytes():
+        from numpywren_tpu_torch.runtime.executor import SpillTaskExecutor
+
+        SpillTaskExecutor(program).run()
+        return True
+    return False
 
 
 def _run_fused_cholesky(program):
@@ -558,8 +591,14 @@ def _run_fused_cholesky(program):
                       written_tile_cols=done_tiles)
         s_m.free()  # its buffers now belong to O
         return
-    if s_ba.matrix.storage != "hbm":
-        raise NotImplementedError(f"cholesky on the {s_ba.matrix.storage!r} tier: {_SPILL}")
+    if s_ba.matrix.storage == "host" and truncate == 0:
+        # the fused factorization holds ~3 flat copies on the card; a host
+        # matrix too large for that streams out of core in the reference
+        # (runtime.spill.out_of_core_cholesky), which the port has not yet
+        m = s_ba.matrix
+        pm, pn = m.padded_shape
+        if 3 * pm * pn * m.dtype.itemsize > _hbm_budget_bytes():
+            raise NotImplementedError(f"cholesky of a {pm}x{pn} host matrix: {_SPILL}")
 
     s = _hbm(program, "S")
     o = _hbm(program, "O")
@@ -582,6 +621,8 @@ def _run_fused_cholesky(program):
 
 
 def _run_fused_gemm(program):
+    if _spill_if_over_budget(program, names=("A", "B", "C")):
+        return
     a = _hbm(program, "A")
     b = _hbm(program, "B")
     c = _hbm(program, "C")
@@ -593,6 +634,8 @@ def _run_fused_gemm(program):
 
 
 def _run_fused_tsqr(program, compute_q: bool):
+    if _spill_if_over_budget(program):
+        return
     a = _hbm(program, "A")
     r_mat = _hbm(program, "R")
     n_leaves = program.consts["N"]

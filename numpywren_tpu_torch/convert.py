@@ -14,7 +14,7 @@ import torch
 
 from numpywren_tpu_torch.ops.common import default_device
 from numpywren_tpu_torch.ops.common import to_numpy as _tensor_to_numpy
-from numpywren_tpu_torch.tiled import TiledMatrix, _TiledBase
+from numpywren_tpu_torch.tiled import TiledMatrix, TiledSymmetricMatrix, _TiledBase
 from numpywren_tpu_torch.trapezoid import TiledTrapezoidMatrix, TrapezoidMatrix
 
 
@@ -24,12 +24,16 @@ def _tensor(x, device) -> torch.Tensor:
 
 def from_reference(obj, device=None):
     """The port's counterpart of a numpywren_tpu TrapezoidMatrix,
-    TiledTrapezoidMatrix or TiledMatrix, on `device` (default: the current
-    CUDA device; a host without one raises, so pass device="cpu").
+    TiledTrapezoidMatrix, TiledMatrix or TiledSymmetricMatrix, on `device`
+    (default: the current CUDA device; a host without one raises, so pass
+    device="cpu"), on the same tier: a host-tier matrix stays a dict of
+    host tiles computed on `device`.
 
     Stored state carries over exactly, including what a factorization has
-    left behind: the stale strict upper of diagonal blocks and the
-    computed-block mask."""
+    left behind: the stale strict upper of diagonal blocks, the
+    computed-block mask and the host tier's set of existing blocks. A
+    parent_fn (a Python closure over the JAX package's objects) does not
+    carry over."""
     device = torch.device(device) if device is not None else default_device()
     kind = type(obj).__name__
     if kind == "TrapezoidMatrix":
@@ -39,11 +43,16 @@ def from_reference(obj, device=None):
                                    tile=obj.tile[0], symmetric=obj.symmetric)
         out._written = np.array(obj._written)
         return out
-    if kind in ("TiledMatrix", "TiledSymmetricMatrix"):  # the latter as its dense mirror
-        if obj.storage != "hbm":
-            obj = obj.to_hbm()
-        out = TiledMatrix(key=obj.key, shape=obj.shape, tile=obj.tile,
-                          dtype=np.dtype(obj.dtype), fill=obj._fill, device=device)
+    if kind in ("TiledMatrix", "TiledSymmetricMatrix"):
+        cls = TiledSymmetricMatrix if kind == "TiledSymmetricMatrix" else TiledMatrix
+        if obj.storage == "host":
+            out = cls(key=obj.key, shape=obj.shape, tile=obj.tile, dtype=np.dtype(obj.dtype),
+                      storage="host", device=device)
+            for (i, j), blk in obj._tiles.items():  # the stored (canonical) tiles
+                out._tiles[(i, j)] = out._host_tile(np.array(blk), i, j)
+            return out
+        out = cls(key=obj.key, shape=obj.shape, tile=obj.tile, dtype=np.dtype(obj.dtype),
+                  storage="hbm", fill=obj._fill, device=device)
         out.replace_array(_tensor(obj.array, device), mark_written=False)
         out._written = np.array(obj._written)
         out._cached = np.array(obj._cached)

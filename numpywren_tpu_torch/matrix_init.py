@@ -1,6 +1,7 @@
 """Creating TiledMatrices from local data (counterpart of
 numpywren_tpu/matrix_init.py; the reference's matrix_init.shard_matrix puts
-each block to S3, here the device tier is one padded transfer)."""
+each block to S3, here the device tier is one padded transfer and the host
+tier a dict of CPU tiles)."""
 
 from __future__ import annotations
 
@@ -9,8 +10,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from numpywren_tpu_torch.ops.common import as_tensor
-from numpywren_tpu_torch.tiled import TiledMatrix
+from numpywren_tpu_torch.ops.common import as_tensor, default_device
+from numpywren_tpu_torch.tiled import TiledMatrix, TiledSymmetricMatrix
 
 
 def shard_matrix(
@@ -25,18 +26,33 @@ def shard_matrix(
     """A TiledMatrix holding `arr` (an ndarray or a tensor), zero-padded to
     whole tiles. `device=None` keeps a tensor where it is and puts an
     ndarray on the current CUDA device (a host without one raises: pass
-    device="cpu")."""
-    if symmetric:
-        raise NotImplementedError(
-            "the mirrored TiledSymmetricMatrix is not ported; bind SPD operands "
-            "with storage='trapezoid' (the half-memory symmetric tier)")
+    device="cpu"); on the host tier `device` is where the tiles are
+    computed. symmetric=True gives a TiledSymmetricMatrix: the lower
+    triangle's tiles on the host tier, both triangles mirrored (and an
+    identity on the padded diagonal) on the device tier."""
+    cls = TiledSymmetricMatrix if symmetric else TiledMatrix
+    if storage == "host":
+        if device is None:
+            device = arr.device if isinstance(arr, torch.Tensor) else default_device()
+        t = as_tensor(arr, device="cpu", dtype=dtype)
+        out = cls(key=key, shape=tuple(t.shape), tile=tile, dtype=t.dtype, storage="host",
+                  fill=None, device=device)
+        for (i, j) in out.block_idxs:
+            if symmetric and j > i:
+                continue
+            m, n = out.true_block_shape(i, j)
+            out.put_block(t[i * tile[0]:i * tile[0] + m, j * tile[1]:j * tile[1] + n], i, j)
+        return out
     t = as_tensor(arr, device=device, dtype=dtype)
-    out = TiledMatrix(key=key, shape=tuple(t.shape), tile=tile, dtype=t.dtype,
-                      storage=storage, fill=None, device=t.device)
+    out = cls(key=key, shape=tuple(t.shape), tile=tile, dtype=t.dtype,
+              storage=storage, fill=None, device=t.device)
     pm, pn = out.padded_shape
     if tuple(t.shape) != (pm, pn):
         pad = torch.zeros((pm, pn), dtype=t.dtype, device=t.device)
         pad[: t.shape[0], : t.shape[1]] = t
+        if symmetric:  # keep the padded matrix SPD-compatible
+            idx = torch.arange(t.shape[0], pm, device=t.device)
+            pad[idx, idx] = 1.0
         t = pad
     elif t is arr or (isinstance(arr, np.ndarray) and t.device.type == "cpu"):
         t = t.clone()  # the store owns its buffer: fused runs overwrite it

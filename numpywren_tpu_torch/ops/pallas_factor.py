@@ -1,5 +1,5 @@
-"""Factorization tile kernels: potrf, (potrf, its inverse), trtri, trsm and
-the one-launch CholeskyQR2 chain.
+"""Factorization tile kernels: potrf, (potrf, its inverse), trtri, trsm,
+the one-launch CholeskyQR2 chain and the blocked-Householder QR.
 
 Counterpart of numpywren_tpu/ops/pallas_factor.py. Module and function
 names are the JAX package's, so callers and tests read alike; the kernels
@@ -16,15 +16,20 @@ are hand-written CUDA C++ for Hopper:
   analytic pass-2 Gram, the Neumann or identity fold chosen on the device,
   the folded inverse and R) in one launch, then the apply of the folded
   inverse to the tall operand in true FP32 by the matmul kernel.
+- ``csrc/qr.cu``: the thin compact-WY Householder QR of an (m, n) tile with
+  LAPACK geqrf signs, one CTA: the panels' column loop, their T factors,
+  the trailing updates and the rebuild of Q as FP32 products over
+  L2-resident buffers.
 
 Routing, the same for every wrapper: a CUDA tensor inside the envelope
 launches the kernel or raises; a CPU tensor takes the plain PyTorch
 version (``potrf_ref``, ``potrf_inv_ref``, ``trtri_ref``,
-``cholqr2_chain_ref``), a blocked step-by-step transcription of the kernel,
-so the two differ only in summation order. Outside the envelope (fp32,
-128 | n, n <= 1024, the TPU's VMEM limits kept for parity) a shape check
-routes the factor wrappers to ``torch.linalg``, the reference's own library
-fallback; the chain raises ValueError there, as the reference does.
+``cholqr2_chain_ref``, ``qr_ref``), a blocked step-by-step transcription of
+the kernel, so the two differ only in summation order. Outside the
+envelope (the TPU's VMEM limits kept for parity: fp32, 128 | n <= 1024 for
+the factors; 128 | m, 128 | n <= 512, m >= n, m n <= 2^18 for QR) a shape
+check routes the factor wrappers to ``torch.linalg``, the reference's own
+library fallback; the chain raises ValueError there, as the reference does.
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ from numpywren_tpu_torch.ops.gemm import matmul
 
 _B = 128  # the diagonal block one CTA factors in shared memory
 
-LAUNCHES = {"potrf": 0, "potrf_inv": 0, "trtri": 0, "cholqr2_chain": 0}
+LAUNCHES = {"potrf": 0, "potrf_inv": 0, "trtri": 0, "cholqr2_chain": 0, "qr": 0}
 """Kernel launches in this process, by kernel (plain versions do not count)."""
 
 _MODES = {"potrf": 0, "potrf_inv": 1, "trtri": 2}
@@ -190,6 +195,8 @@ def _lib():
         lib.npw_factor.restype = i
         lib.npw_cholqr2_chain.argtypes = [i, i, i, p, p, p, p, p, p, f, f, p]
         lib.npw_cholqr2_chain.restype = i
+        lib.npw_qr.argtypes = [i, i, p, p, p, p, p]
+        lib.npw_qr.restype = i
         lib._npw_factor_typed = True
     return lib
 
@@ -344,3 +351,109 @@ def cholqr2_chain_pallas(g: torch.Tensor, p: torch.Tensor, *, rows: bool,
     LAUNCHES["cholqr2_chain"] += 1
     _build.check(rc, "cholqr2_chain kernel")
     return q, total, stat[1] > 0.5, stat[0]
+
+
+# ---------------------------------------------------------------------------
+# Blocked-Householder QR (the qr_factor / qr_leaf member of the family)
+# ---------------------------------------------------------------------------
+
+def _householder_panel_ref(s: torch.Tensor, v: torch.Tensor, taus: torch.Tensor,
+                           j0: int) -> None:
+    """The column loop of _householder_panel on s[:, j0:j0+B], in place:
+    geqrf signs (beta = -sign(alpha)||x||, v[diag] = 1, tau = (beta -
+    alpha)/beta), a zero column gives tau = 1 and v = 0, the panel's later
+    columns take the reflection and R[jg, jg] = beta exactly. Column jg of
+    v and taus[jj] receive the vector and its tau. No host read: the
+    branches are torch.where on the device."""
+    one = torch.ones((), dtype=s.dtype, device=s.device)
+    for jj in range(_B):
+        jg = j0 + jj
+        x = s[jg:, jg]
+        sigma = torch.dot(x, x)
+        alpha = x[0].clone()
+        nrm = torch.sqrt(sigma)
+        beta = torch.where(alpha >= 0, -nrm, nrm)
+        good = sigma > 0
+        vcol = torch.where(good, x / torch.where(good, alpha - beta, one), 0 * one)
+        vcol[0] = torch.where(good, one, 0 * one)
+        tau = torch.where(good, (beta - alpha) / torch.where(good, beta, one), one)
+        v[jg:, jg] = vcol
+        taus[jj] = tau
+        c1 = j0 + _B
+        w = (vcol @ s[jg:, jg + 1:c1]) * tau
+        s[jg:, jg + 1:c1] -= torch.outer(vcol, w)
+        s[jg, jg] = beta
+
+
+def _invert_upper_ref(tinv: torch.Tensor) -> torch.Tensor:
+    """T = (T⁻¹)⁻¹ for an upper-triangular T⁻¹, rows bottom-up
+    (_invert_upper): T[j] = (e_j - T⁻¹[j, j+1:] T[j+1:]) / T⁻¹[j, j]."""
+    b = tinv.shape[0]
+    t = torch.zeros_like(tinv)
+    for j in range(b - 1, -1, -1):
+        row = -(tinv[j, j + 1:] @ t[j + 1:])
+        row[j] += 1
+        t[j] = row / tinv[j, j]
+    return t
+
+
+def qr_ref(a: torch.Tensor):
+    """Plain version of the qr kernel: (q, r) by the blocked compact-WY
+    steps of _qr_kernel. Per 128-column panel the column loop, T from
+    T⁻¹ = strict_upper(VᵀV) + diag(1/tau), the trailing update
+    S -= V(Tᵀ(VᵀS)); then R = triu(S[:n]) and Q rebuilt right to left,
+    Q -= V(T(VᵀQ)). V is zero above its diagonal, so the products run over
+    rows (and, in the rebuild, columns) from the panel's first on: the
+    reference's sums less their exact zero terms."""
+    m, n = a.shape
+    s = a.clone()
+    v = torch.zeros_like(a)
+    ts = []
+    for j0 in range(0, n, _B):
+        taus = torch.zeros(_B, dtype=a.dtype, device=a.device)
+        _householder_panel_ref(s, v, taus, j0)
+        vp = v[j0:, j0:j0 + _B]
+        t = _invert_upper_ref(torch.triu(vp.T @ vp, 1) + torch.diag(1.0 / taus))
+        ts.append(t)
+        if j0 + _B < n:
+            st = s[j0:, j0 + _B:]
+            st -= vp @ (t.T @ (vp.T @ st))
+    r = torch.triu(s[:n])
+    q = torch.eye(m, n, dtype=a.dtype, device=a.device)
+    for p in reversed(range(n // _B)):
+        j0 = p * _B
+        vp = v[j0:, j0:j0 + _B]
+        qs = q[j0:, j0:]
+        qs -= vp @ (ts[p] @ (vp.T @ qs))
+    return q, r
+
+
+def _qr_supported(m: int, n: int, dtype) -> bool:
+    return (m % _B == 0 and n % _B == 0 and m >= n and n <= 512
+            and m * n <= (1 << 18) and dtype == torch.float32)
+
+
+def qr_pallas(a: torch.Tensor):
+    """Thin Householder QR of a tile, (q, r) with a = q r, q (m, n)
+    orthonormal, r (n, n) upper triangular, LAPACK geqrf signs. Inside the
+    envelope (fp32, 128 | m, 128 | n, m >= n, n <= 512, m n <= 2^18) the
+    qr kernel on the card and qr_ref on the CPU; outside it
+    torch.linalg.qr(mode="reduced"), the reference's jnp.linalg.qr."""
+    if a.dim() != 2:
+        raise ValueError(f"qr_pallas: need a 2-D tile, got {tuple(a.shape)}")
+    m, n = a.shape
+    if not _qr_supported(m, n, a.dtype):
+        return torch.linalg.qr(a, mode="reduced")
+    if not on_cuda(a):
+        return qr_ref(a)
+    a = a.contiguous()
+    q = torch.empty_like(a)
+    r = torch.empty((n, n), dtype=torch.float32, device=a.device)
+    scratch = torch.empty(2 * m * n + 3 * _B * n + _B * _B, dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _lib().npw_qr(m, n, a.data_ptr(), q.data_ptr(), r.data_ptr(), scratch.data_ptr(),
+                           stream)
+    LAUNCHES["qr"] += 1
+    _build.check(rc, "qr kernel")
+    return q, r

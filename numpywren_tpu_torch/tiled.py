@@ -10,9 +10,18 @@ Tensors are mutable, so put_block writes into the array directly where the
 JAX store stages tiles for one batched scatter, and get_block returns a
 view (do not write through it).
 
-Only the device tier (``storage="hbm"``, the name kept from the JAX package)
-is ported. The host tier, the spill target for matrices larger than the
-card, is not yet (ROADMAP Queue 1), nor is the mirrored TiledSymmetricMatrix.
+Two tiers, named as in the JAX package:
+
+- ``storage="hbm"``: the device tier, one padded tensor on ``device``.
+- ``storage="host"``: a dict of CPU tiles with the reference store's sparse
+  semantics (a missing block falls back to ``parent_fn`` or raises
+  BlockNotFoundError). It is the spill tier of the executors: ``device``
+  names the device its tiles are computed on (the card by default), and the
+  tiles are pinned when that device is CUDA, so copies to and from it can
+  run asynchronously.
+
+``TiledSymmetricMatrix`` keeps the lower triangle on the host tier and
+mirrors both triangles on the device tier.
 
 API parity with BigMatrix: get_block / put_block / delete_block /
 block_idxs / block_idxs_exist / block_idxs_not_exist / blocks / numpy() /
@@ -22,7 +31,9 @@ submatrix / .T / free, plus parent_fn lazy aliasing.
 from __future__ import annotations
 
 import itertools
-from typing import Callable, List, Optional, Tuple
+import threading
+import warnings
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,9 +43,6 @@ from numpywren_tpu_torch.utils import cdiv, hash_key
 from numpywren_tpu_torch.ops.common import as_tensor, default_device, np_dtype, to_numpy, torch_dtype
 
 Idx = Tuple[int, int]
-
-_HOST_TIER = ("the host storage tier is not ported yet (ROADMAP Queue 1: host tier "
-              "and spill); use storage='hbm' or 'trapezoid'")
 
 _anon_counter = itertools.count(1)  # next() is atomic under the GIL
 
@@ -157,15 +165,18 @@ def _as_range(r, n: int) -> range:
 
 
 class TiledMatrix(_TiledBase):
-    """A tiled (M, N) matrix backed by one padded tensor on `device`.
+    """A tiled (M, N) matrix on the device tier (one padded tensor on
+    `device`) or the host tier (a dict of CPU tiles computed on `device`).
 
     Parameters mirror BigMatrix.__init__(key, shape, shard_sizes, dtype,
-    parent_fn) where they apply. Reads are dense: an unwritten block reads
-    back as ``fill`` or via ``parent_fn``, but ``block_exists`` means
-    *computed* (only put_block / replace_array mark a block), the
-    reference's block_idxs_exist resume contract. ``fill=None`` makes a read
-    of an unwritten block without parent_fn raise BlockNotFoundError. The
-    padded tensor is allocated at first use."""
+    parent_fn) where they apply. On the device tier reads are dense: an
+    unwritten block reads back as ``fill`` or via ``parent_fn``, but
+    ``block_exists`` means *computed* (only put_block / replace_array mark
+    a block), the reference's block_idxs_exist resume contract;
+    ``fill=None`` makes a read of an unwritten block without parent_fn raise
+    BlockNotFoundError, and the padded tensor is allocated at first use. On
+    the host tier a block exists once it is put; a missing one falls back
+    to parent_fn (not stored) or raises BlockNotFoundError."""
 
     def __init__(
         self,
@@ -180,9 +191,8 @@ class TiledMatrix(_TiledBase):
     ):
         if shape is None:
             raise ShapeError("shape is required")
-        if storage != "hbm":
-            raise NotImplementedError(_HOST_TIER if storage == "host"
-                                      else f"unknown storage tier {storage!r}")
+        if storage not in ("hbm", "host"):
+            raise ValueError(f"unknown storage tier {storage!r}")
         self.key = key or _anon_key("tm")
         self.shape = tuple(int(s) for s in shape)
         self.tile = tuple(int(t) for t in tile)
@@ -190,6 +200,10 @@ class TiledMatrix(_TiledBase):
         self.device = torch.device(device) if device is not None else default_device()
         self.storage = storage
         self.parent_fn = parent_fn
+        self._lock = threading.Lock()
+        if storage == "host":
+            self._tiles: Dict[Idx, torch.Tensor] = {}
+            return
         # _written = "computed"; _cached = parent_fn results staged into the
         # array for fast re-reads, which do NOT exist for resume purposes
         self._written = np.zeros(self.grid, dtype=bool)
@@ -199,14 +213,18 @@ class TiledMatrix(_TiledBase):
 
     @property
     def array(self) -> torch.Tensor:
-        """The padded flat tensor. Fused executors overwrite it in place or
-        commit a new one with replace_array()."""
+        """The padded flat tensor (device tier). Fused executors overwrite
+        it in place or commit a new one with replace_array()."""
+        if self.storage != "hbm":
+            raise ValueError("array only available for hbm storage; use to_hbm()")
         if self._data is None:
             self._data = torch.full(self.padded_shape, self._fill or 0.0,
                                     dtype=self.dtype, device=self.device)
         return self._data
 
     def replace_array(self, new_array: torch.Tensor, mark_written: bool = True):
+        if self.storage != "hbm":
+            raise ValueError("replace_array only for hbm storage")
         if tuple(new_array.shape) != self.padded_shape:
             raise ShapeError(f"expected padded shape {self.padded_shape}, "
                              f"got {tuple(new_array.shape)}")
@@ -222,11 +240,18 @@ class TiledMatrix(_TiledBase):
 
     # ------------------------------------------------------------- get/put
     def get_block(self, i: int, j: int) -> torch.Tensor:
-        """Tile (i, j), always full tile-shaped (edge blocks padded).
+        """Tile (i, j), always full tile-shaped (edge blocks padded): a view
+        of the device tier's tensor, or the host tier's CPU tile.
 
         Reference behavior (matrix.py::get_block): on a miss, delegate to
         parent_fn (lazy aliasing of scratch onto inputs), else error."""
         self._check_idx(i, j)
+        if self.storage == "host":
+            with self._lock:
+                blk = self._tiles.get((i, j))
+            if blk is None:
+                blk = self._padded(self._fallback(i, j), i, j, torch.device("cpu"))
+            return blk
         if not (self._written[i, j] or self._cached[i, j]):
             if self.parent_fn is not None:
                 # stage the fallback so repeated reads hit, but do NOT mark
@@ -238,8 +263,14 @@ class TiledMatrix(_TiledBase):
                     f"block ({i},{j}) of {self.key} does not exist and no parent_fn")
         return self._tile_view(i, j)
 
-    def _padded(self, arr, i: int, j: int) -> torch.Tensor:
-        blk = as_tensor(arr, device=self.device, dtype=self.dtype)
+    def _fallback(self, i: int, j: int):
+        if self.parent_fn is not None:
+            return self.parent_fn(self, i, j)
+        raise BlockNotFoundError(f"block ({i},{j}) of {self.key} does not exist and no parent_fn")
+
+    def _padded(self, arr, i: int, j: int, device=None) -> torch.Tensor:
+        device = device if device is not None else self.device
+        blk = as_tensor(arr, device=device, dtype=self.dtype)
         ti, tj = self.tile
         if tuple(blk.shape) == (ti, tj):
             return blk
@@ -248,20 +279,37 @@ class TiledMatrix(_TiledBase):
             accepted = f"{(ti, tj)}" if (m, n) == (ti, tj) else f"{(ti, tj)} or edge shape {(m, n)}"
             raise ShapeError(f"block ({i},{j}) of {self.key}: expected {accepted}, "
                              f"got {tuple(blk.shape)}")
-        out = torch.zeros((ti, tj), dtype=self.dtype, device=self.device)
+        out = torch.zeros((ti, tj), dtype=self.dtype, device=device)
         out[:m, :n] = blk
         return out
+
+    def _host_tile(self, arr, i: int, j: int) -> torch.Tensor:
+        """An owned CPU copy of `arr` as tile (i, j), pinned when the tier
+        computes on a CUDA device."""
+        src = arr.device if isinstance(arr, torch.Tensor) else torch.device("cpu")
+        blk = self._padded(arr, i, j, src)
+        out = torch.empty(self.tile, dtype=self.dtype, pin_memory=self.device.type == "cuda")
+        return out.copy_(blk)
 
     def put_block(self, arr, i: int, j: int):
         """Store tile (i, j). Accepts full-tile or true-edge-shaped arrays;
         idempotent (deterministic location), like the reference's S3 puts."""
         self._check_idx(i, j)
+        if self.storage == "host":
+            blk = self._host_tile(arr, i, j)
+            with self._lock:
+                self._tiles[(i, j)] = blk
+            return (i, j)
         self._tile_view(i, j).copy_(self._padded(arr, i, j))
         self._written[i, j] = True
         return (i, j)
 
     def delete_block(self, i: int, j: int):
         self._check_idx(i, j)
+        if self.storage == "host":
+            with self._lock:
+                self._tiles.pop((i, j), None)
+            return
         was = self._written[i, j] or self._cached[i, j]
         self._written[i, j] = False
         self._cached[i, j] = False
@@ -269,23 +317,114 @@ class TiledMatrix(_TiledBase):
             self._tile_view(i, j).fill_(self._fill)  # a dense read sees the fill
 
     def block_exists(self, i: int, j: int) -> bool:
+        if self.storage == "host":
+            return (i, j) in self._tiles
         return bool(self._written[i, j])
 
     def free(self):
         """Drop the storage (BigMatrix.free/delete analog)."""
+        if self.storage == "host":
+            with self._lock:
+                self._tiles.clear()
+            return
         self._data = None
         self._written[:] = False
         self._cached[:] = False
 
     # --------------------------------------------------------- tier moves
     def to_hbm(self) -> "TiledMatrix":
-        """A copy on the same device tier."""
+        """A copy on the device tier of `device` (spill-in). Blocks that do
+        not exist are staged from parent_fn (not marked computed)."""
         out = TiledMatrix(key=self.key + ":hbm", shape=self.shape, tile=self.tile,
-                          dtype=self.dtype, device=self.device, fill=self._fill)
-        out.replace_array(self.array.clone())
-        out._written = self._written.copy()
-        out._cached = self._cached.copy()
+                          dtype=self.dtype, device=self.device, parent_fn=self.parent_fn,
+                          fill=self._fill if self.storage == "hbm" else 0.0)
+        if self.storage == "hbm":
+            out.replace_array(self.array.clone())
+            out._written = self._written.copy()
+            out._cached = self._cached.copy()
+            return out
+        ti, tj = self.tile
+        arr = torch.zeros(self.padded_shape, dtype=self.dtype, device=self.device)
+        with self._lock:
+            tiles = dict(self._tiles)
+        for (i, j), blk in tiles.items():
+            arr[i * ti:(i + 1) * ti, j * tj:(j + 1) * tj].copy_(blk, non_blocking=True)
+        out.replace_array(arr, mark_written=False)
+        for (i, j) in tiles:
+            out._written[i, j] = True
+        if self.parent_fn is not None:  # the copy reads what this tier reads
+            for (i, j) in self.block_idxs:
+                if (i, j) not in tiles:
+                    out.get_block(i, j)
         return out
+
+    def to_host(self) -> "TiledMatrix":
+        """A copy on the host tier (spill-out): the computed blocks."""
+        out = TiledMatrix(key=self.key + ":host", shape=self.shape, tile=self.tile,
+                          dtype=self.dtype, storage="host", parent_fn=self.parent_fn,
+                          device=self.device)
+        if self.storage == "host":
+            with self._lock:
+                out._tiles = dict(self._tiles)
+            return out
+        for (i, j) in self.block_idxs:
+            if self._written[i, j]:
+                out._tiles[(i, j)] = out._host_tile(self._tile_view(i, j), i, j)
+        return out
+
+
+class TiledSymmetricMatrix(TiledMatrix):
+    """Symmetric matrix keeping only the lower triangle on the host tier
+    (BigSymmetricMatrix parity: (i, j) -> (j, i) with a transpose on read).
+    The device tier mirrors writes into both triangles so region ops can
+    slice either side, at 2x the memory of the half-memory trapezoid tier
+    (``storage="trapezoid"`` on the alg_wrappers), which a one-time
+    UserWarning points to."""
+
+    _hbm_warned = False
+
+    def __init__(self, key=None, shape=None, tile=(512, 512), dtype=torch.float32,
+                 storage="host", **kw):
+        if shape is None or shape[0] != shape[1]:
+            raise ShapeError("symmetric matrix must be square")
+        if tile[0] != tile[1]:
+            raise ShapeError("symmetric matrix requires square tiles")
+        if storage == "hbm" and not TiledSymmetricMatrix._hbm_warned:
+            TiledSymmetricMatrix._hbm_warned = True
+            warnings.warn(
+                "TiledSymmetricMatrix(storage='hbm') mirrors both triangles (2x memory). "
+                "For SPD factorizations use the half-memory trapezoid tier instead: "
+                "alg_wrappers.cholesky(..., storage='trapezoid').", UserWarning, stacklevel=2)
+        super().__init__(key=key, shape=shape, tile=tile, dtype=dtype, storage=storage, **kw)
+
+    @staticmethod
+    def _canonical(i: int, j: int) -> Tuple[int, int, bool]:
+        return (i, j, False) if i >= j else (j, i, True)
+
+    def get_block(self, i: int, j: int):
+        ci, cj, flip = self._canonical(i, j)
+        blk = super().get_block(ci, cj)
+        return blk.T if flip else blk
+
+    def put_block(self, arr, i: int, j: int):
+        ci, cj, flip = self._canonical(i, j)
+        blk = as_tensor(arr, device=arr.device if isinstance(arr, torch.Tensor) else "cpu")
+        blk = blk.T if flip else blk
+        super().put_block(blk, ci, cj)
+        if self.storage == "hbm" and ci != cj:
+            # mirror into the upper triangle so the flat array is truly symmetric
+            super().put_block(blk.T, cj, ci)
+        return (ci, cj)
+
+    def block_exists(self, i: int, j: int) -> bool:
+        ci, cj, _ = self._canonical(i, j)
+        return super().block_exists(ci, cj)
+
+    def delete_block(self, i: int, j: int):
+        ci, cj, _ = self._canonical(i, j)
+        super().delete_block(ci, cj)
+        if self.storage == "hbm" and ci != cj:
+            super().delete_block(cj, ci)
 
 
 class TransposeView(_TiledBase):
@@ -297,6 +436,7 @@ class TransposeView(_TiledBase):
         self.shape = (parent.shape[1], parent.shape[0])
         self.tile = (parent.tile[1], parent.tile[0])
         self.dtype = parent.dtype
+        self.device = parent.device
 
     def get_block(self, i, j):
         self._check_idx(i, j)
@@ -331,6 +471,7 @@ class SubmatrixView(_TiledBase):
         n = sum(parent.true_block_shape(rows.start, j)[1] for j in cols)
         self.shape = (m, n)
         self.dtype = parent.dtype
+        self.device = parent.device
 
     def _map(self, i, j):
         return self.rows.start + i, self.cols.start + j

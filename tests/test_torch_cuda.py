@@ -12,10 +12,14 @@ Tolerance: relative Frobenius error 1e-5, both sides doing the same fp32
 are in its test.
 """
 
+import importlib
 import pytest
 import torch
 
-from numpywren_tpu_torch.ops import gemm, gemm3
+from numpywren_tpu_torch.ops import gemm3
+
+# the module: the package exports its function `gemm` under the same name
+gemm = importlib.import_module("numpywren_tpu_torch.ops.gemm")
 
 BAR = 1e-5
 
@@ -192,3 +196,64 @@ def test_cholqr2_chain_kernel(gen, b, kappa, rows):
     assert abs(float(dev2) - float(dev2r)) <= 1e-4 * float(dev2r)
     with pytest.raises(ValueError):
         pf.cholqr2_chain_pallas(g, p[:, :100] if rows else p[:100], **kw)
+
+
+# ---------------------------------------------------------------------------
+# The blocked-Householder QR kernel and the generic executors on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,n", [(128, 128), (256, 128), (384, 256), (512, 512), (2048, 128)])
+def test_qr_kernel(gen, m, n):
+    """The qr kernel against qr_ref: rel 1e-5 on Q and R (the same fp32
+    steps in another summation order), ‖QᵀQ − I‖_max ≤ 2e-5, R exactly
+    upper triangular."""
+    from numpywren_tpu_torch.ops import pallas_factor as pf
+
+    a = _rand(gen, m, n)
+    before = pf.LAUNCHES["qr"]
+    q, r = pf.qr_pallas(a)
+    assert pf.LAUNCHES["qr"] == before + 1
+    qr_, rr = pf.qr_ref(a)
+    _close(q, qr_)
+    _close(r, rr)
+    assert torch.equal(torch.triu(r), r)
+    assert float((q.T @ q - torch.eye(n, device="cuda")).abs().max()) <= 2e-5
+
+
+def test_qr_kernel_zero_column_and_kappa(gen):
+    from numpywren_tpu_torch.ops import pallas_factor as pf
+
+    a = _rand(gen, 512, 128)
+    a[:, 7] = 0.0
+    q, r = pf.qr_pallas(a)
+    assert torch.isfinite(q).all() and torch.isfinite(r).all()
+    _close(q @ r, a)
+    p = _panel(gen, 512, 128, 1e7)
+    q, r = pf.qr_pallas(p)
+    assert float((q.T @ q - torch.eye(128, device="cuda")).abs().max()) <= 5e-5
+    assert float((q @ r - p).abs().max()) <= 1e-5 * float(p.abs().max())
+
+
+def test_qr_off_envelope_does_not_launch(gen):
+    from numpywren_tpu_torch.ops import pallas_factor as pf
+
+    before = dict(pf.LAUNCHES)
+    for shape in ((100, 60), (128, 256), (4096, 128)):
+        a = _rand(gen, *shape)
+        q, r = pf.qr_pallas(a)
+        _close(q @ r, a)
+    assert pf.LAUNCHES == before
+
+
+@pytest.mark.parametrize("executor,storage", [("jax", "hbm"), ("spill", "host"),
+                                              ("local", "host")])
+def test_generic_executors_on_the_card(gen, executor, storage):
+    import numpywren_tpu_torch as npw
+    from numpywren_tpu_torch.runtime.program import PS
+
+    a = _spd(gen, 512)
+    prog, o, _ = npw.cholesky(a, tile=(128, 128), storage=storage)
+    assert o.device.type == "cuda"
+    assert npw.run_program(prog, executor=executor) == PS.SUCCESS
+    l = o.to_hbm().array if storage == "host" else o.array
+    _close(l @ l.T, a)

@@ -108,14 +108,20 @@ def test_convert_round_trip():
         convert.from_reference(object(), device="cpu")
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(monkeypatch):
+    """What is left unported raises and names its ROADMAP item: "auto" on a
+    program whose fused lowering the port lacks (bdfac), and a host-tier
+    cholesky too large for the card (runtime/spill.py's out-of-core path)."""
     a = random_spd(64, seed=7)
-    with pytest.raises(NotImplementedError, match="host tier"):
-        npw.cholesky(a, storage="host")
-    prog, _, _ = npw.cholesky(a, tile=(32, 32), device="cpu")
-    for ex in ("jax", "local", "spill"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            npw.run_program(prog, executor=ex)
+    x = np.ones((64, 64), np.float32)
+    prog, _, _ = npw.bdfac(x, tile=(32, 32), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #5"):
+        npw.run_program(prog)
+    cfg = npw.default_config()
+    monkeypatch.setattr(cfg, "hbm_budget_bytes", 1024)
+    prog, _, _ = npw.cholesky(a, tile=(32, 32), storage="host", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #1"):
+        npw.run_program(prog)
     with pytest.raises(ValueError, match="unknown executor"):
         npw.run_program(prog, executor="bogus")
 
@@ -150,5 +156,6 @@ def test_gemm_checks():
     a = np.ones((64, 32), np.float32)
     with pytest.raises(ShapeError, match="mismatch"):
         npw.gemm(a, a, tile=(32, 32), device="cpu")
-    with pytest.raises(NotImplementedError, match="host tier"):
-        npw.gemm(a, a.T, storage="host", device="cpu")
+    prog, c, _ = npw.gemm(a, a.T, tile=(32, 32), storage="host", device="cpu")
+    assert c.storage == "host" and npw.run_program(prog) == PS.SUCCESS
+    np.testing.assert_allclose(c.numpy(), a @ a.T, rtol=1e-6)

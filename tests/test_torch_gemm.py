@@ -15,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from numpywren_tpu_torch.ops import gemm
+# the module: the package exports its function `gemm` under the same name
+gemm = importlib.import_module("numpywren_tpu_torch.ops.gemm")
 
 # the module: numpywren_tpu.ops re-exports a function of the same name
 jgemm = importlib.import_module("numpywren_tpu.ops.gemm")

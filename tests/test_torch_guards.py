@@ -84,6 +84,12 @@ def test_port_runs_with_the_jax_package_blocked():
         "prog, c, _ = npw.gemm(x.T, x, tile=(16, 16), device='cpu')\n"
         "npw.run_program(prog)\n"
         "assert np.abs(c.numpy() - x.T @ x).max() < 1e-3\n"
+        "y = np.random.default_rng(1).standard_normal((48, 48)).astype(np.float32)\n"
+        "for ex, st in (('jax', 'hbm'), ('spill', 'host'), ('local', 'host')):\n"
+        "    prog, b, _ = npw.bdfac(y, tile=(16, 16), storage=st, device='cpu')\n"
+        "    npw.run_program(prog, executor=ex)\n"
+        "    s = np.linalg.svd(b.numpy(), compute_uv=False)\n"
+        "    assert np.abs(s - np.linalg.svd(y, compute_uv=False)).max() < 1e-4 * s[0]\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'numpywren_tpu')"
         " and sys.modules[m] is not None))\n"
     )
@@ -112,7 +118,10 @@ def test_no_cpu_fallback_without_a_device(monkeypatch):
                  lambda: npw.cholesky(a, storage="trapezoid", panel=32),
                  lambda: npw.TrapezoidMatrix.from_array(a, panel=32),
                  lambda: npw.tsqr(x, tile_rows=64),
-                 lambda: npw.gemm(a, a, tile=(32, 32))):
+                 lambda: npw.gemm(a, a, tile=(32, 32)),
+                 lambda: npw.bdfac(a, tile=(32, 32)),
+                 lambda: shard_matrix(a, storage="host"),
+                 lambda: npw.TiledMatrix(shape=(64, 64), storage="host")):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
 
@@ -120,7 +129,8 @@ def test_no_cpu_fallback_without_a_device(monkeypatch):
 def test_no_try_around_kernel_launches():
     """A CUDA tensor launches the kernel or raises: the ops and the
     lowering hold no try/except that could fall back to another GEMM."""
-    for rel in ("ops/gemm.py", "ops/gemm3.py", "ops/pallas_factor.py", "compiler/lower.py"):
+    for rel in ("ops/gemm.py", "ops/gemm3.py", "ops/pallas_factor.py", "ops/factor.py",
+                "ops/dispatch.py", "compiler/lower.py"):
         tree = ast.parse((PKG / rel).read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), rel
 

@@ -61,8 +61,9 @@ def test_shard_matrix_owns_its_buffer(rng):
     m.put_block(np.zeros((32, 32), np.float32), 0, 0)
     assert a[0, 0] != 0  # the store copied the input
     np.testing.assert_array_equal(convert.to_numpy(shard_matrix(a, tile=(48, 48), device="cpu")), a)
-    with pytest.raises(NotImplementedError):
-        shard_matrix(a, symmetric=True)
+    sym = shard_matrix(a + a.T, tile=(48, 48), symmetric=True, device="cpu")
+    assert type(sym).__name__ == "TiledSymmetricMatrix"
+    np.testing.assert_array_equal(sym.get_block(0, 1).numpy(), sym.get_block(1, 0).numpy().T)
 
 
 @pytest.mark.parametrize("symmetric", [True, False])

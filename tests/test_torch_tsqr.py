@@ -125,5 +125,7 @@ def test_tsqr_entry_checks():
         aw.tsqr(x, tile_rows=64, b_fac=3, compute_q=True, device="cpu")
     with pytest.raises(ValueError, match="unknown tsqr method"):
         lower.fused_tsqr(torch.from_numpy(x), 64, method="bogus")
-    with pytest.raises(NotImplementedError, match="host tier"):
-        aw.tsqr(x, tile_rows=64, storage="host", device="cpu")
+    prog, out, _ = aw.tsqr(x, tile_rows=64, storage="host", device="cpu")
+    assert out["R"].storage == "host" and out["R"].block_idxs_exist == []
+    with pytest.raises(ValueError, match="unknown storage tier"):
+        aw.tsqr(x, tile_rows=64, storage="bogus", device="cpu")
