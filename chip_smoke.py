@@ -22,12 +22,17 @@ executors on both storage tiers (P15-P16):
       reference, and ||L_P2 - L_P4|| / ||L_P4|| <= 1e-4
   P5  the flat entry point cholesky(shard_matrix(A)) + run_program at
       N=16384, compensated
-  P6  potrf, potrf_inv, trtri, trsm kernels vs their plain versions at
-      n = 128..1024 (rel Frobenius <= 1e-5, ||L W - I||_max <= 1e-4,
-      strict upper exactly 0), ms of kernel, plain and torch.linalg in
-      turns; an off-envelope n=1000 call launches nothing; then the ops
-      entry points potrf_pallas + trsm_pallas on the first Cholesky panel
-      (1024 diagonal block, 31744 x 1024 below it)
+  P6  potrf's diagonal step alone at 128² vs its plain version
+      (_factor_block_rec_ref, rel <= 1e-5); potrf, potrf_inv, trtri, trsm
+      kernels vs their plain versions at n = 128..1024 (rel Frobenius
+      <= 1e-5, ||L W - I||_max <= 1e-4, strict upper exactly 0), ms of
+      kernel, plain and torch.linalg in turns, and for potrf the device
+      launches of one call (counted by csrc/potrf.cu) and their device ms
+      by kernel (torch.profiler; a session that loses records is retaken);
+      potrf at kappa = 1e5 (||A - L Lᵀ||_F/||A||_F <= 1e-5, fp64); an
+      off-envelope n=1000 call launches nothing; then the ops entry points
+      potrf_pallas + trsm_pallas on the first Cholesky panel (1024
+      diagonal block, 31744 x 1024 below it)
   P7  the CholeskyQR2 chain kernel vs its plain version at 1,048,576 x 256
       (columns) and 256 x 1,048,576 (rows), kappa 10: max|q - q_plain|
       <= 3e-5, total rel <= 1e-5, the same conv flag, dev2 rel <= 1e-4
@@ -421,12 +426,73 @@ def spd(torch, gen, n):
     return x @ x.T / n + torch.eye(n, device="cuda")
 
 
+def spd_kappa(torch, gen, n, kappa):
+    """An (n, n) SPD fp32 matrix with eigenvalues logspaced from 1 to 1/kappa."""
+    q, _ = torch.linalg.qr(torch.randn(n, n, generator=gen, device="cuda").double())
+    ev = torch.logspace(0, -float(torch.log10(torch.tensor(kappa))), n, device="cuda",
+                        dtype=torch.float64)
+    return ((q * ev) @ q.T).float()
+
+
+def potrf_split(torch, fn, want: int, sessions: int = 3):
+    """One warm call of the potrf launch sequence under torch.profiler:
+    (kernels the session recorded, device ms by step, sessions taken). The
+    matmul kernel's launches alternate panel solve, trailing update. A
+    session that recorded another number of kernels than the call enqueued
+    (`want`; the profiler can lose a short session's device records) is
+    taken again; after `sessions` such sessions the split is None."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, sessions + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                         key=lambda e: e.time_range.start)
+        if len(kernels) == want:
+            break
+    else:
+        return len(kernels), None, sessions
+    split, gemms = {"diag": 0.0, "solve": 0.0, "update": 0.0, "store": 0.0, "other": 0.0}, 0
+    for e in kernels:
+        if "potrf_diag" in e.name:
+            step = "diag"
+        elif "potrf_store" in e.name:
+            step = "store"
+        elif "gemm_kernel" in e.name:
+            step = ("solve", "update")[gemms % 2]
+            gemms += 1
+        else:
+            step = "other"
+        split[step] += e.time_range.elapsed_us() / 1e3
+    return len(kernels), split, attempt
+
+
 def p6_factor(torch, gen):
-    """The four factor wrappers at n = 128..1024: kernel vs plain vs library."""
+    """The four factor wrappers at n = 128..1024: kernel vs plain vs library;
+    potrf's diagonal step alone; potrf at kappa = 1e5."""
     gemm = gemm_module()
     from numpywren_tpu_torch.ops import pallas_factor as pf
 
     rows = {}
+    d = spd(torch, gen, 128)
+    got, want = pf.potrf_diag_block(d), pf._factor_block_rec_ref(d)
+    torch.cuda.synchronize()
+    errs = [rel_err(torch, g, w) for g, w in zip(got, want)]
+    for g in got:
+        require(bool(torch.isfinite(g).all()), "P6 potrf_diag: non-finite output")
+        require(int(torch.count_nonzero(torch.triu(g, 1))) == 0,
+                "P6 potrf_diag: strict upper triangle not 0")
+    require(max(errs) <= KERNEL_BAR, f"P6 potrf_diag: rel error {errs} > {KERNEL_BAR}")
+    ms, plain_ms = in_turns(torch, lambda: pf.potrf_diag_block(d),
+                            lambda: pf._factor_block_rec_ref(d), iters=5)
+    emit({"phase": "P6", "case": "potrf_diag:128", "n": 128, "rel_err": max(errs),
+          "max_abs_err": max(float((g - w).abs().max()) for g, w in zip(got, want)),
+          "inv_err": float((got[0] @ got[1] - torch.eye(128, device="cuda")).abs().max()),
+          "ms": ms, "plain_ms": plain_ms})
     for n in (128, 256, 512, 1024):
         a = spd(torch, gen, n)
         eye = torch.eye(n, device="cuda")
@@ -477,8 +543,31 @@ def p6_factor(torch, gen):
             ms, plain_ms, lib_ms = in_turns(torch, kern, plain, lib, iters=5)
             b_ms, b_by = bound(flops, nbytes, PEAK_FP32)
             row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+            if name == "potrf":
+                want_launches = 4 * n // 128 - 3  # diag + solve, update, store per panel
+                before = pf.DEVICE_LAUNCHES["potrf"]
+                kern()
+                torch.cuda.synchronize()
+                row["device_launches"] = pf.DEVICE_LAUNCHES["potrf"] - before
+                require(row["device_launches"] == want_launches,
+                        f"P6 potrf n={n}: {row['device_launches']} device launches, "
+                        f"expected {want_launches}")
+                (row["profiled_launches"], row["device_ms_by_step"],
+                 row["profile_sessions"]) = potrf_split(torch, kern, want_launches)
+                if row["device_ms_by_step"] is None:
+                    print(f"chip_smoke: P6 potrf n={n}: the profiler recorded "
+                          f"{row['profiled_launches']} of {want_launches} kernels in "
+                          f"{row['profile_sessions']} sessions; split not measured",
+                          file=sys.stderr)
             emit(row)
             rows[(name, n)] = row
+
+    a = spd_kappa(torch, gen, 1024, 1e5)
+    l = pf.potrf_pallas(a).double()
+    resid = rel_err(torch, l @ l.T, a)
+    emit({"phase": "P6", "case": "potrf_kappa_1e5:1024", "n": 1024, "kappa": 1e5,
+          "residual": resid})
+    require(resid <= KERNEL_BAR, f"P6 potrf kappa=1e5: residual {resid} > {KERNEL_BAR}")
 
     # outside the envelope: torch.linalg, no launch
     before = dict(pf.LAUNCHES)
@@ -1022,12 +1111,13 @@ def main(argv=None) -> int:
                         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
                         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
                         "library_ms": main_case["torch_ms"]})
-    factor_src = "numpywren_tpu_torch/csrc/factor.cu"
-    for name, n, replaces in (("potrf", 1024, "numpywren_tpu/ops/pallas_factor.py:180"),
-                              ("potrf_inv", 512, "numpywren_tpu/ops/pallas_factor.py:189"),
-                              ("trtri", 1024, "numpywren_tpu/ops/pallas_factor.py:199")):
+    for name, n, src, replaces in (
+        ("potrf", 1024, "potrf.cu", "numpywren_tpu/ops/pallas_factor.py:180"),
+        ("potrf_inv", 512, "factor.cu", "numpywren_tpu/ops/pallas_factor.py:189"),
+        ("trtri", 1024, "factor.cu", "numpywren_tpu/ops/pallas_factor.py:199"),
+    ):
         row = p6[(name, n)]
-        kernels.append({"name": name, "route": "cuda", "source": factor_src,
+        kernels.append({"name": name, "route": "cuda", "source": f"numpywren_tpu_torch/csrc/{src}",
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": max(r["max_abs_err"] for (k, _), r in p6.items()
                                            if k == name),

@@ -64,7 +64,7 @@ __global__ void __launch_bounds__(NT, 1)
   }
   const float shift = shift_c * npwf::cta_max(rs, sm);  // the reference's `floor`
   plus_identity(buf[L1], g, b, shift);
-  npwf::potrf_inv_into(buf[L1], buf[W1], b, true, buf[X], sm);
+  npwf::potrf_inv_into(buf[L1], buf[W1], b, buf[X], sm);
 
   npwf::cta_gemm<false, true>(b, b, b, -shift, buf[W1], b, buf[W1], b, 0.f, nullptr, 0, buf[E2], b,
                               sm);

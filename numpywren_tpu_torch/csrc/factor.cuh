@@ -185,9 +185,8 @@ __device__ inline void offdiag_inverse(const float* l, float* w, int n, float* a
 }
 
 // _potrf_inv_into: l holds the SPD operand (n, n); factors it in place
-// (strict upper zeroed) and leaves the inverse in w when want_w, else only
-// w's diagonal blocks. x is (n, n) scratch.
-__device__ inline void potrf_inv_into(float* l, float* w, int n, bool want_w, float* x, Smem& sm) {
+// (strict upper zeroed) and leaves the inverse in w. x is (n, n) scratch.
+__device__ inline void potrf_inv_into(float* l, float* w, int n, float* x, Smem& sm) {
   cta_fill(w, n, n, n, 0.f);
   for (int j0 = 0; j0 < n; j0 += B) {
     const int j1 = j0 + B, rem = n - j1;
@@ -207,7 +206,7 @@ __device__ inline void potrf_inv_into(float* l, float* w, int n, bool want_w, fl
     }
   }
   cta_zero_upper(l, n, n);
-  if (want_w) offdiag_inverse(l, w, n, x, sm);
+  offdiag_inverse(l, w, n, x, sm);
 }
 
 // _trtri_kernel: w = l^-1 for lower-triangular (n, n) l (strict upper not

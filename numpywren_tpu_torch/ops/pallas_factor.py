@@ -5,12 +5,19 @@ Counterpart of numpywren_tpu/ops/pallas_factor.py. Module and function
 names are the JAX package's, so callers and tests read alike; the kernels
 are hand-written CUDA C++ for Hopper:
 
-- ``csrc/factor.cu``: ``potrf``, ``potrf_inv`` and ``trtri`` of an (n, n)
-  fp32 tile, one CTA each. The 128-wide diagonal block is factored in
-  shared memory by the column loop of the reference's
-  ``_factor_block_with_inverse`` (its inverse built row by row in the same
-  loop); the below-panel solve, the trailing update and the off-diagonal
-  inverse blocks are FP32 products the CTA runs over L2-resident buffers.
+- ``csrc/potrf.cu``: ``potrf`` of an (n, n) fp32 tile as a right-looking
+  blocked factor over many CTAs, enqueued from C on the caller's stream:
+  per 128-wide panel a one-CTA diagonal step (the block and its inverse in
+  shared memory, factored by a 32-wide recursion: one warp factors and
+  inverts each 32 x 32 sub-block in registers, all warps solve and update
+  the rest), then the panel solve X = A21 W11ᵀ and the trailing update
+  A22 -= X Xᵀ as launches of the matmul kernel, and a store of X into L.
+- ``csrc/factor.cu``: ``potrf_inv`` and ``trtri`` of an (n, n) fp32 tile,
+  one CTA each. The 128-wide diagonal block is factored in shared memory
+  by the column loop of the reference's ``_factor_block_with_inverse`` (its
+  inverse built row by row in the same loop); the below-panel solve, the
+  trailing update and the off-diagonal inverse blocks are FP32 products
+  the CTA runs over L2-resident buffers.
 - ``csrc/cholqr_chain.cu``: CholeskyQR2 passes 1-2 of
   ``compiler.lower._cholqr_adaptive`` (shifted factor and inverse, the
   analytic pass-2 Gram, the Neumann or identity fold chosen on the device,
@@ -25,7 +32,9 @@ Routing, the same for every wrapper: a CUDA tensor inside the envelope
 launches the kernel or raises; a CPU tensor takes the plain PyTorch
 version (``potrf_ref``, ``potrf_inv_ref``, ``trtri_ref``,
 ``cholqr2_chain_ref``, ``qr_ref``), a blocked step-by-step transcription of
-the kernel, so the two differ only in summation order. Outside the
+the kernel, so the two differ only in summation order (potrf_ref keeps the
+reference's 128-wide column loop: the kernel's diagonal step has its own
+plain version, ``_factor_block_rec_ref``). Outside the
 envelope (the TPU's VMEM limits kept for parity: fp32, 128 | n <= 1024 for
 the factors; 128 | m, 128 | n <= 512, m >= n, m n <= 2^18 for QR) a shape
 check routes the factor wrappers to ``torch.linalg``, the reference's own
@@ -44,16 +53,28 @@ from numpywren_tpu_torch.ops.common import on_cuda
 from numpywren_tpu_torch.ops.gemm import matmul
 
 _B = 128  # the diagonal block one CTA factors in shared memory
+_R = 32   # the potrf diagonal step's sub-block: one warp's rows
 
-LAUNCHES = {"potrf": 0, "potrf_inv": 0, "trtri": 0, "cholqr2_chain": 0, "qr": 0}
-"""Kernel launches in this process, by kernel (plain versions do not count)."""
+LAUNCHES = {"potrf": 0, "potrf_diag": 0, "potrf_inv": 0, "trtri": 0, "cholqr2_chain": 0,
+            "qr": 0}
+"""Wrapper calls that launched a kernel in this process, by kernel (plain
+versions do not count). One potrf call enqueues 4 n/128 - 3 device launches
+(the diagonal step and three multi-CTA launches per panel); "potrf_diag"
+counts the diagonal step run alone, for its comparison with
+_factor_block_rec_ref."""
 
-_MODES = {"potrf": 0, "potrf_inv": 1, "trtri": 2}
+DEVICE_LAUNCHES = {"potrf": 0}
+"""Device kernels that potrf's launch sequence enqueued in this process, as
+csrc/potrf.cu counts them (4 n/128 - 3 a call)."""
+
+_MODES = {"potrf_inv": 0, "trtri": 1}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for k in DEVICE_LAUNCHES:
+        DEVICE_LAUNCHES[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -92,13 +113,13 @@ def _invert_block_ref(lb: torch.Tensor) -> torch.Tensor:
     return w
 
 
-def _offdiag_inverse_ref(l: torch.Tensor, w: torch.Tensor) -> None:
+def _offdiag_inverse_ref(l: torch.Tensor, w: torch.Tensor, block: int = _B) -> None:
     """W[i, j] = -W[i, i] Σ_k L[i, k] W[k, j] for the strictly lower blocks,
     in place; W's diagonal blocks must be set."""
-    nb = l.shape[0] // _B
+    nb = l.shape[0] // block
 
     def blk(m, i, j):
-        return m[i * _B:(i + 1) * _B, j * _B:(j + 1) * _B]
+        return m[i * block:(i + 1) * block, j * block:(j + 1) * block]
 
     for j in range(nb):
         for i in range(j + 1, nb):
@@ -106,15 +127,16 @@ def _offdiag_inverse_ref(l: torch.Tensor, w: torch.Tensor) -> None:
             blk(w, i, j).copy_(-(blk(w, i, i) @ acc))
 
 
-def _blocked_factor_ref(a: torch.Tensor, with_inverse: bool):
-    """Blocked (L, L⁻¹) of _potrf_inv_into: per 128-block the column loop,
-    the below-panel solve X = A21 W11ᵀ and the trailing update A22 -= X Xᵀ;
-    then the off-diagonal inverse blocks. W is None when not asked for."""
+def _blocked_factor_ref(a: torch.Tensor, with_inverse: bool, block: int = _B):
+    """Blocked (L, L⁻¹) of _potrf_inv_into: per `block`-wide diagonal block
+    the column loop, the below-panel solve X = A21 W11ᵀ and the trailing
+    update A22 -= X Xᵀ; then the off-diagonal inverse blocks. W is None when
+    not asked for."""
     n = a.shape[0]
     l = a.clone()
     w = torch.zeros_like(a)
-    for j0 in range(0, n, _B):
-        j1 = j0 + _B
+    for j0 in range(0, n, block):
+        j1 = j0 + block
         lb, wb = _factor_block_ref(l[j0:j1, j0:j1])
         l[j0:j1, j0:j1] = lb
         w[j0:j1, j0:j1] = wb
@@ -125,8 +147,18 @@ def _blocked_factor_ref(a: torch.Tensor, with_inverse: bool):
     l = torch.tril(l)
     if not with_inverse:
         return l, None
-    _offdiag_inverse_ref(l, w)
+    _offdiag_inverse_ref(l, w, block)
     return l, w
+
+
+def _factor_block_rec_ref(d: torch.Tensor):
+    """Plain version of the potrf kernel's diagonal step: (l, w) of the
+    (128, 128) SPD block d, l lᵀ = d, w = l⁻¹, by its 32-wide recursion.
+    Per 32-wide sub-block the column loop (the warp's factor and forward
+    substitution), the rows below solved by the sub-block's inverse and
+    the rank-32 trailing update; then w's strictly lower sub-blocks by
+    W[i, j] = -W[i, i] Σ_k L[i, k] W[k, j]."""
+    return _blocked_factor_ref(d, with_inverse=True, block=_R)
 
 
 def potrf_ref(a: torch.Tensor) -> torch.Tensor:
@@ -193,6 +225,10 @@ def _lib():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.npw_factor.argtypes = [i, i, p, p, p, p, p]
         lib.npw_factor.restype = i
+        lib.npw_potrf.argtypes = [i, p, p, p, p, ctypes.POINTER(i)]
+        lib.npw_potrf.restype = i
+        lib.npw_potrf_diag.argtypes = [p, p, p, p]
+        lib.npw_potrf_diag.restype = i
         lib.npw_cholqr2_chain.argtypes = [i, i, i, p, p, p, p, p, p, f, f, p]
         lib.npw_cholqr2_chain.restype = i
         lib.npw_qr.argtypes = [i, i, p, p, p, p, p]
@@ -207,12 +243,55 @@ def _contiguous_on(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
     return x.contiguous()
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x contiguous at a 16-byte aligned address (the kernel loads float4s)."""
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
+
+
+def _launch_potrf(a: torch.Tensor) -> torch.Tensor:
+    """The potrf launch sequence (csrc/potrf.cu) on the current stream:
+    the lower factor. Scratch: W11 (128 x 128), then X ((n - 128) x 128)."""
+    n = a.shape[0]
+    a = _aligned(a)
+    l = torch.empty_like(a)
+    scratch = torch.empty((n, _B), dtype=torch.float32, device=a.device)
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _lib().npw_potrf(n, a.data_ptr(), l.data_ptr(), scratch.data_ptr(), stream,
+                              ctypes.byref(launched))
+    LAUNCHES["potrf"] += 1
+    DEVICE_LAUNCHES["potrf"] += launched.value
+    _build.check(rc, "potrf kernel")
+    return l
+
+
+def potrf_diag_block(d: torch.Tensor):
+    """The potrf kernel's diagonal step alone: (l, w) of a (128, 128) SPD
+    fp32 block (its lower triangle read), l lᵀ = d with strict upper 0,
+    w = l⁻¹. One CTA on the card, _factor_block_rec_ref on the CPU."""
+    if tuple(d.shape) != (_B, _B) or d.dtype != torch.float32:
+        raise ValueError(f"potrf_diag_block: need a ({_B}, {_B}) fp32 block, "
+                         f"got {tuple(d.shape)} {d.dtype}")
+    if not on_cuda(d):
+        return _factor_block_rec_ref(d)
+    d = _aligned(d)
+    l, w = torch.empty_like(d), torch.empty_like(d)
+    with torch.cuda.device(d.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _lib().npw_potrf_diag(d.data_ptr(), l.data_ptr(), w.data_ptr(), stream)
+    LAUNCHES["potrf_diag"] += 1
+    _build.check(rc, "potrf diagonal step")
+    return l, w
+
+
 def _launch_factor(kind: str, a: torch.Tensor):
-    """One launch of the factor kernel in `kind` mode: (l, w) with l None
-    for trtri."""
+    """One launch of the factor kernel in `kind` mode ("potrf_inv" or
+    "trtri"): (l, w) with l None for trtri."""
     n = a.shape[0]
     a = a.contiguous()
-    l = torch.empty_like(a) if kind != "trtri" else None
+    l = torch.empty_like(a) if kind == "potrf_inv" else None
     w = torch.empty_like(a)
     scratch = torch.empty((n, n), dtype=torch.float32, device=a.device)
     with torch.cuda.device(a.device):
@@ -238,13 +317,14 @@ def _trtri_lib(l: torch.Tensor) -> torch.Tensor:
 def potrf_pallas(a: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factor of an SPD tile (fp32, 128 | n <= 1024): the
     potrf kernel on the card, potrf_ref on the CPU, torch.linalg outside
-    the envelope. The strict upper triangle is exactly 0."""
+    the envelope. The strict upper triangle is exactly 0; a non-SPD tile
+    gives non-finite values (the pivot's square root), with no host read."""
     n = _square(a, "potrf_pallas")
     if not _supported(n, a.dtype):
         return _cholesky_lib(a)
     if not on_cuda(a):
         return potrf_ref(a)
-    return _launch_factor("potrf", a)[0]
+    return _launch_potrf(a)
 
 
 def potrf_inv_pallas(a: torch.Tensor):

@@ -124,16 +124,20 @@ def _spd(gen, n):
     return x @ x.T / n + torch.eye(n, device="cuda")
 
 
-@pytest.mark.parametrize("n", [128, 256, 384, 1024])
+@pytest.mark.parametrize("n", [128, 256, 384, 512, 1024])
 def test_factor_kernels(gen, n):
-    """potrf, potrf_inv, trtri, trsm against their plain versions: the same
-    fp32 algorithm in another summation order (rel 1e-5); strict upper
-    triangles exactly 0; L W = I to 1e-4."""
+    """potrf (csrc/potrf.cu's launch sequence), potrf_inv, trtri, trsm
+    against their plain versions: the same fp32 algorithm in another
+    blocking and summation order (rel 1e-5); strict upper triangles exactly
+    0; one counted launch per wrapper call, and potrf's 4 n/128 - 3 device
+    launches; L W = I to 1e-4."""
     from numpywren_tpu_torch.ops import pallas_factor as pf
 
     a = _spd(gen, n)
     before = dict(pf.LAUNCHES)
+    device_before = pf.DEVICE_LAUNCHES["potrf"]
     l = pf.potrf_pallas(a)
+    assert pf.DEVICE_LAUNCHES["potrf"] == device_before + 4 * n // 128 - 3
     l2, w = pf.potrf_inv_pallas(a)
     wi = pf.trtri_pallas(l)
     x = _rand(gen, 300, n)
@@ -152,6 +156,64 @@ def test_factor_kernels(gen, n):
         assert torch.count_nonzero(torch.triu(m, 1)) == 0
     assert float((l2 @ w - eye).abs().max()) <= 1e-4
     assert float((l @ wi - eye).abs().max()) <= 1e-4
+
+
+def _spd_kappa(gen, n, kappa):
+    q, _ = torch.linalg.qr(_rand(gen, n, n).double())
+    ev = torch.logspace(0, -torch.log10(torch.tensor(kappa)).item(), n, device="cuda",
+                        dtype=torch.float64)
+    return ((q * ev) @ q.T).float()
+
+
+def test_potrf_kernel_kappa_nonspd_and_streams(gen):
+    """κ = 1e5: ‖A − LLᵀ‖_F/‖A‖_F ≤ 1e-5 (fp64). A non-SPD tile gives
+    non-finite values and no exception. Two calls on two streams agree
+    bit for bit (the scratch is per call)."""
+    from numpywren_tpu_torch.ops import pallas_factor as pf
+
+    a = _spd_kappa(gen, 1024, 1e5)
+    l = pf.potrf_pallas(a).double()
+    a64 = a.double()
+    assert float(torch.linalg.norm(a64 - l @ l.T) / torch.linalg.norm(a64)) <= 1e-5
+    bad = _spd(gen, 512)
+    bad[300, 300] = -1.0
+    out = pf.potrf_pallas(bad)
+    torch.cuda.synchronize()
+    assert not bool(torch.isfinite(out).all())
+    a = _spd(gen, 1024)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    torch.cuda.synchronize()
+    for s in streams:
+        with torch.cuda.stream(s):
+            outs.append(pf.potrf_pallas(a))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    _close(outs[0], pf.potrf_ref(a))
+
+
+@pytest.mark.parametrize("kappa", [10.0, 1e4])
+def test_potrf_diag_step(gen, kappa):
+    """The diagonal step alone against _factor_block_rec_ref: rel 1e-5 on L
+    and W at κ = 10. At κ = 1e4 two summation orders differ by ~κ·eps in
+    L's last columns, so the kernel is held by ‖D − LLᵀ‖_F/‖D‖_F ≤ 1e-5
+    (fp64) and ‖LW − I‖_max ≤ 1e-4. Strict upper triangles exactly 0."""
+    from numpywren_tpu_torch.ops import pallas_factor as pf
+
+    d = _spd_kappa(gen, 128, kappa)
+    before = pf.LAUNCHES["potrf_diag"]
+    l, w = pf.potrf_diag_block(d)
+    assert pf.LAUNCHES["potrf_diag"] == before + 1
+    if kappa == 10.0:
+        lr, wr = pf._factor_block_rec_ref(d)
+        _close(l, lr)
+        _close(w, wr)
+    l64, d64 = l.double(), d.double()
+    assert float(torch.linalg.norm(d64 - l64 @ l64.T) / torch.linalg.norm(d64)) <= 1e-5
+    assert float((l64 @ w.double() - torch.eye(128, device="cuda", dtype=torch.float64))
+                 .abs().max()) <= 1e-4
+    for m in (l, w):
+        assert torch.count_nonzero(torch.triu(m, 1)) == 0
 
 
 def test_factor_envelope_fallback_does_not_launch(gen):

@@ -34,6 +34,31 @@ def test_potrf_ref_matches_jax(n):
     assert np.abs(np.triu(got, 1)).max() == 0.0
 
 
+def _spd_kappa(n, kappa, seed):
+    """An (n, n) SPD fp32 matrix with eigenvalues logspaced from 1 to 1/κ."""
+    r = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(r.standard_normal((n, n)))
+    return ((q * np.logspace(0, -np.log10(kappa), n)) @ q.T).astype(np.float32)
+
+
+@pytest.mark.parametrize("kappa", [10.0, 1e4])
+def test_factor_block_rec_ref_matches_jax(kappa):
+    """The potrf kernel's diagonal step (32-wide recursion) against the
+    reference's 128-step column loop on the same block."""
+    d = _spd_kappa(128, kappa, seed=7)
+    jl, jw = jpf._factor_block_with_inverse(jnp.asarray(d))
+    jl, jw = np.asarray(jl), np.asarray(jw)
+    l, w = pf._factor_block_rec_ref(_t(d))
+    l, w = l.numpy(), w.numpy()
+    np.testing.assert_allclose(l, jl, rtol=1e-4, atol=1e-4 * np.abs(jl).max())
+    np.testing.assert_allclose(w, jw, rtol=1e-4, atol=1e-4 * np.abs(jw).max())
+    np.testing.assert_allclose(l @ w, np.eye(128), atol=1e-4)
+    assert np.abs(np.triu(l, 1)).max() == 0.0
+    assert np.abs(np.triu(w, 1)).max() == 0.0
+    gl, gw = pf.potrf_diag_block(_t(d))  # the CPU route of its wrapper
+    assert torch.equal(gl, torch.from_numpy(l)) and torch.equal(gw, torch.from_numpy(w))
+
+
 @pytest.mark.parametrize("n", [128, 256])
 def test_potrf_inv_ref_matches_jax(n):
     a = random_spd(n, seed=11)
