@@ -38,6 +38,8 @@ from numpywren_tpu_torch.trapezoid import (
     cholesky_trapezoid,
 )
 
+__version__ = "0.1.0"
+
 __all__ = [
     "TiledMatrix",
     "TiledSymmetricMatrix",
@@ -53,4 +55,18 @@ __all__ = [
     "run_program",
     "NpwConfig",
     "default_config",
+    "__version__",
 ]
+
+
+def __getattr__(name):
+    # binops and lpcompile load at first use, as in the JAX package
+    if name == "binops":
+        import importlib
+
+        return importlib.import_module("numpywren_tpu_torch.binops")
+    if name == "lpcompile":
+        from numpywren_tpu_torch.frontend import lpcompile
+
+        return lpcompile
+    raise AttributeError(f"module 'numpywren_tpu_torch' has no attribute {name!r}")

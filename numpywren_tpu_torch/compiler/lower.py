@@ -20,10 +20,13 @@ region is a strided view:
 
 Cholesky's and GEMM's products go through `_matmul` / `_sub_matmul`, which
 pick the kernel by precision and NpwConfig.compensated (see ops/common.py).
-TSQR's products outside the factorization kernels are ``torch.matmul`` in
-true FP32, as the JAX package's are ``jnp.matmul``. PyTorch runs eagerly:
-there is no jit, what JAX expresses as buffer donation is an in-place write
-here, and the TSQR chain's ``lax.cond`` / ``while_loop`` read their
+TSQR's builders take the reference's ``precision`` and map it onto two
+routes (`_tsqr_matmul`): "high" in compensated mode is the matmul3 kernel
+for a 2-D apply; every other product (the Grams, the batched tree
+products, any other precision) is ``torch.matmul`` in true FP32, as the
+JAX package's are ``jnp.matmul``. PyTorch runs eagerly: there is no jit,
+what JAX expresses as buffer donation is an in-place write here, and the
+TSQR chain's ``lax.cond`` / ``while_loop`` read their
 predicate on the host (one read per factoring decision). The Cholesky
 factorization overwrites the buffers it is given.
 
@@ -76,6 +79,15 @@ def _matmul(a, b, *, ta=False, tb=False, precision: str) -> torch.Tensor:
             return matmul3(a, b, tb=tb)
         return torch.matmul(a.T if ta else a, b.T if tb else b)
     return kernel_matmul(a, b, ta=ta, tb=tb, precision=precision)
+
+
+def _tsqr_matmul(a, b, *, tb=False, precision: str) -> torch.Tensor:
+    """a @ op(b) for the TSQR builders: the matmul3 kernel when
+    `_use_compensated` holds and both operands are 2-D, else torch.matmul
+    in true FP32 (TSQR has no bf16 route, as `_matmul`'s "default" is)."""
+    if a.dim() == 2 and b.dim() == 2 and _use_compensated(a, precision):
+        return matmul3(a, b, tb=tb)
+    return torch.matmul(a, b.mT if tb else b)
 
 
 def _sub_matmul(c, a, b, *, tb=False, precision: str,
@@ -281,7 +293,7 @@ def _trtri_gemm(l: torch.Tensor) -> torch.Tensor:
 
 
 def _cholqr_adaptive(p: torch.Tensor, rows: bool = False, max_passes: int = 16,
-                     pallas_chain: Optional[bool] = None):
+                     pallas_chain: Optional[bool] = None, precision: str = "high"):
     """Adaptive CholeskyQR chain: thin QR (rows=False: p = q r, r upper
     b x b) or thin LQ (rows=True: p = l q, l lower b x b) of p by repeated
     Gram-Cholesky passes with shift-on-breakdown.
@@ -304,7 +316,11 @@ def _cholqr_adaptive(p: torch.Tensor, rows: bool = False, max_passes: int = 16,
 
     Host reads: the library route reads dev2 once (the fold and the
     convergence flag); the chain reads its conv flag once; each extras
-    pass reads its Gram's deviation once."""
+    pass reads its Gram's deviation once.
+
+    precision routes the applies of the inverse to the tall operand
+    (`_tsqr_matmul`); the Grams and the b x b algebra stay true FP32, the
+    reference's HIGHEST smalls."""
     b = p.shape[0] if rows else p.shape[1]
     m = p.shape[1] if rows else p.shape[0]
     eye = torch.eye(b, dtype=p.dtype, device=p.device)
@@ -332,7 +348,9 @@ def _cholqr_adaptive(p: torch.Tensor, rows: bool = False, max_passes: int = 16,
         return l, torch.linalg.solve_triangular(l, eye, upper=False)
 
     def apply_linv(x, linv):
-        return linv @ x if rows else x @ linv.T
+        if rows:
+            return _tsqr_matmul(linv, x, precision=precision)
+        return _tsqr_matmul(x, linv, tb=True, precision=precision)
 
     def iterate_pass(x):
         """Extras pass: cleanup in the near-orthonormal regime, a full
@@ -354,7 +372,8 @@ def _cholqr_adaptive(p: torch.Tensor, rows: bool = False, max_passes: int = 16,
     g1, _, _ = gram_dev(p)
     if pallas_chain and chain_supported(m, b, p.dtype):
         q, total, conv, _ = cholqr2_chain_pallas(
-            g1, p, rows=rows, shift_c=float(shift_c), conv_gate=float(conv_gate))
+            g1, p, rows=rows, shift_c=float(shift_c), conv_gate=float(conv_gate),
+            precision=precision)
     else:
         l1, linv1 = shifted_linv(g1)
         g2 = (linv1 @ g1) @ linv1.T
@@ -394,44 +413,57 @@ def fused_gemm(a: torch.Tensor, b: torch.Tensor, *,
 # TSQR
 # ---------------------------------------------------------------------------
 
-def fused_cholqr2_fn(compute_q: bool = False) -> Callable:
+def fused_cholqr2_fn(compute_q: bool = False, precision: Optional[str] = None,
+                     dtype=torch.float32) -> Callable:
     """CholeskyQR2: two Gram + Cholesky + apply passes; needs kappa(A) well
-    below 1/sqrt(eps). fn(a) -> R (or (Q, R)) for a tall (m, b) tensor."""
+    below 1/sqrt(eps). fn(a) -> R (or (Q, R)) for a tall (m, b) tensor.
+    precision (None: dtype's default) routes the applies and R's product
+    (`_tsqr_matmul`)."""
+    precision = check_precision(default_precision(dtype) if precision is None else precision)
 
     def one_pass(x):
         g = x.T @ x
         l = torch.linalg.cholesky_ex(g)[0]  # the lower triangle only
         eye = torch.eye(l.shape[0], dtype=x.dtype, device=x.device)
         w = torch.linalg.solve_triangular(l, eye, upper=False)
-        return x @ w.T, l                   # X L⁻ᵀ
+        return _tsqr_matmul(x, w, tb=True, precision=precision), l  # X L⁻ᵀ
 
     def f(a):
         q1, l1 = one_pass(a)
         q2, l2 = one_pass(q1)
-        r = l2.T @ l1.T                     # R = R2 R1
+        r = _tsqr_matmul(l2.T, l1, tb=True, precision=precision)  # R = R2 R1
         return (q2, r) if compute_q else r
 
     return f
 
 
-def fused_cholqr3s_fn(compute_q: bool = False) -> Callable:
+def fused_cholqr3s_fn(compute_q: bool = False, precision: Optional[str] = None,
+                      dtype=torch.float32) -> Callable:
     """Shifted CholeskyQR3 (Fukaya et al., SISC 2020) through
-    _cholqr_adaptive: the fast robust tall-skinny QR."""
+    _cholqr_adaptive: the fast robust tall-skinny QR. precision (None:
+    dtype's default) reaches the chain's applies."""
+    precision = check_precision(default_precision(dtype) if precision is None else precision)
 
     def f(a):
-        q, r = _cholqr_adaptive(a, rows=False)
+        q, r = _cholqr_adaptive(a, rows=False, precision=precision)
         return (q, r) if compute_q else r
 
     return f
 
 
 def fused_tsqr_fn(n_leaves: int, tile_rows: int, b: int, *, b_fac: int = 2,
-                  compute_q: bool = False) -> Callable:
+                  compute_q: bool = False, precision: Optional[str] = None,
+                  dtype=torch.float32) -> Callable:
     """TSQR over the (n_leaves*tile_rows, b) flat tensor: batched leaf QRs,
     then a b_fac-ary combine tree whose levels are batched QRs of stacked
     R groups (the DSL `reducer` tree). A lone tail block passes through; a
     ragged tail group is zero-padded (QR of [Rs; 0] has the same R).
-    fn(a) -> R, or (Q, R) with Q rebuilt by the downward sweep."""
+    fn(a) -> R, or (Q, R) with Q rebuilt by the downward sweep.
+
+    precision (None: dtype's default) is checked as the reference's is; the
+    tree's products are batched, so every precision runs them in true FP32
+    (`_tsqr_matmul`)."""
+    precision = check_precision(default_precision(dtype) if precision is None else precision)
     if b_fac < 2:
         raise ValueError(f"b_fac must be >= 2, got {b_fac}")
 
@@ -464,28 +496,32 @@ def fused_tsqr_fn(n_leaves: int, tile_rows: int, b: int, *, b_fac: int = 2,
         z = torch.eye(b, dtype=a.dtype, device=a.device)[None]
         for q, m_in, tail in reversed(levels):
             g = q.shape[0]
-            z_child = (q @ z[:g]).reshape(g * b_fac, b, b)[: m_in - tail]
+            z_child = _tsqr_matmul(q, z[:g], precision=precision)
+            z_child = z_child.reshape(g * b_fac, b, b)[: m_in - tail]
             z = torch.cat([z_child, z[g:]], dim=0) if tail else z_child
-        return (q0 @ z).reshape(n_leaves * tile_rows, b), r_final
+        q_full = _tsqr_matmul(q0, z, precision=precision)
+        return q_full.reshape(n_leaves * tile_rows, b), r_final
 
     return tsqr
 
 
 def fused_tsqr(a: torch.Tensor, tile_rows: int, *, compute_q: bool = False,
-               method: str = "tree", b_fac: int = 2):
+               precision: Optional[str] = None, method: str = "tree", b_fac: int = 2):
     """Tall-skinny QR: method "cholqr2" (two GEMM passes, moderate kappa),
     "cholqr3s" (the adaptive shifted chain, kappa up to ~1/eps) or "tree"
     (the Householder combine tree, unconditionally stable). b_fac is the
-    tree's branching factor."""
+    tree's branching factor; precision (None: a's dtype default) goes to
+    the method's builder."""
     m, b = a.shape
     if m % tile_rows != 0:
         raise ValueError(f"rows {m} not a multiple of tile_rows {tile_rows}")
+    kw = dict(compute_q=compute_q, precision=precision, dtype=a.dtype)
     if method == "cholqr2":
-        fn = fused_cholqr2_fn(compute_q=compute_q)
+        fn = fused_cholqr2_fn(**kw)
     elif method == "cholqr3s":
-        fn = fused_cholqr3s_fn(compute_q=compute_q)
+        fn = fused_cholqr3s_fn(**kw)
     elif method == "tree":
-        fn = fused_tsqr_fn(m // tile_rows, tile_rows, b, b_fac=b_fac, compute_q=compute_q)
+        fn = fused_tsqr_fn(m // tile_rows, tile_rows, b, b_fac=b_fac, **kw)
     else:
         raise ValueError(f"unknown tsqr method {method!r}")
     return fn(a)

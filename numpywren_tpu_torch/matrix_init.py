@@ -60,6 +60,11 @@ def shard_matrix(
     return out
 
 
+def local_numpy_init(arr, tile: Tuple[int, int] = (512, 512), **kw) -> TiledMatrix:
+    """Reference-parity alias (matrix_init.local_numpy_init)."""
+    return shard_matrix(arr, tile=tile, **kw)
+
+
 def random_spd(n: int, seed: int = 0, dtype=np.float32, jitter: float = None) -> np.ndarray:
     """A well-conditioned random SPD matrix for tests (numpy, fp64 product).
 

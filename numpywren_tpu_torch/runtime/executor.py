@@ -42,7 +42,7 @@ from numpywren_tpu_torch.compiler.schedule import critical_path_priority, groupe
 from numpywren_tpu_torch.config import default_config
 from numpywren_tpu_torch.exceptions import TiledProgramExecutionError
 from numpywren_tpu_torch.ops import factor
-from numpywren_tpu_torch.ops.common import to_numpy
+from numpywren_tpu_torch.ops.common import check_precision, to_numpy
 from numpywren_tpu_torch.runtime.program import NS, PS, TiledProgram
 
 
@@ -270,11 +270,22 @@ class TorchTaskExecutor:
     "generic" lowering). Host-tier matrices are copied to the device tier
     for the run and their computed blocks written back after it.
 
+    precision ("default", "high", "highest" or None for the tiles' dtype
+    default) is checked and kept, as the reference takes it; no batched op
+    has a product it changes: every one is a batched torch.matmul or
+    torch.linalg call on (k, Tm, Tn) stacks, true FP32 on fp32 tiles, and
+    the port's compensated product (ops.gemm3) takes 2-D operands only.
+    donate is accepted for the reference's signature and does nothing:
+    PyTorch has no buffer donation (the run writes its stacks in place).
+
     groups_run counts the groups of the last run()."""
 
-    def __init__(self, program: TiledProgram, schedule_policy: str = "wavefront",
+    def __init__(self, program: TiledProgram, precision: Optional[str] = None,
+                 donate: bool = True, schedule_policy: str = "wavefront",
                  trsm_inv: bool = True):
         self.program = program
+        self.precision = None if precision is None else check_precision(precision)
+        self.donate = donate
         # "lookahead" emits the next panel's critical-path groups before bulk
         # trailing updates (compiler.schedule.grouped_schedule)
         self.schedule_policy = schedule_policy
@@ -416,11 +427,16 @@ class SpillTaskExecutor:
 
     on_event(kind, group_idx) test/trace hook, kinds: prefetch_issue /
     prefetch_done / compute / scatter. h2d_bytes / d2h_bytes count the
-    last run's copies to and from the device."""
+    last run's copies to and from the device.
 
-    def __init__(self, program: TiledProgram, schedule_policy: str = "lookahead",
+    precision is checked and kept as TorchTaskExecutor keeps it: the same
+    batched ops, with no product it changes."""
+
+    def __init__(self, program: TiledProgram, precision: Optional[str] = None,
+                 schedule_policy: str = "lookahead",
                  pipeline_width: Optional[int] = None, on_event=None):
         self.program = program
+        self.precision = None if precision is None else check_precision(precision)
         self.schedule_policy = schedule_policy
         self.pipeline_width = int(pipeline_width if pipeline_width is not None
                                   else default_config().pipeline_width)

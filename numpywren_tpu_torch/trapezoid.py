@@ -109,6 +109,9 @@ class TrapezoidMatrix:
     def nbytes(self) -> int:
         return sum(c.numel() * c.element_size() for c in self.cols)
 
+    def block(self, c: int) -> torch.Tensor:
+        return self.cols[c]
+
     def __repr__(self):
         return (f"TrapezoidMatrix(n={self.n}, panel={self.panel}, nb={self.nb}, "
                 f"dtype={self.dtype}, device={self.device})")

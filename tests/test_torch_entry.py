@@ -159,3 +159,34 @@ def test_gemm_checks():
     prog, c, _ = npw.gemm(a, a.T, tile=(32, 32), storage="host", device="cpu")
     assert c.storage == "host" and npw.run_program(prog) == PS.SUCCESS
     np.testing.assert_allclose(c.numpy(), a @ a.T, rtol=1e-6)
+
+
+def test_restored_names_match_the_reference():
+    """The package surface the reference has: __version__, the lazy binops
+    and lpcompile, matrix_init.local_numpy_init, TrapezoidMatrix.block."""
+    from numpywren_tpu import matrix_init as jmi
+    from numpywren_tpu.frontend import lpcompile as jlpcompile
+    from numpywren_tpu_torch import matrix_init as pmi
+    from numpywren_tpu_torch import trapezoid
+
+    assert npw.__version__ == jnpw.__version__
+    assert "__version__" in npw.__all__
+    assert npw.binops.__name__ == "numpywren_tpu_torch.binops"
+    for fn in ("gemm", "add", "sub"):
+        assert callable(getattr(npw.binops, fn)) and callable(getattr(jnpw.binops, fn))
+    assert npw.lpcompile.__name__ == jlpcompile.__name__ == "lpcompile"
+    with pytest.raises(AttributeError, match="has no attribute 'bogus'"):
+        npw.bogus  # noqa: B018
+    a = np.arange(96 * 64, dtype=np.float32).reshape(96, 64)
+    m = pmi.local_numpy_init(a, tile=(32, 32), device="cpu")
+    s = pmi.shard_matrix(a, tile=(32, 32), device="cpu")
+    jm = jmi.local_numpy_init(a, tile=(32, 32))
+    assert m.block_idxs == s.block_idxs == jm.block_idxs
+    for (i, j) in m.block_idxs:
+        np.testing.assert_array_equal(m.get_block(i, j).numpy(), s.get_block(i, j).numpy())
+        np.testing.assert_array_equal(m.get_block(i, j).numpy(), np.asarray(jm.get_block(i, j)))
+    t = trapezoid.TrapezoidMatrix.from_array(random_spd(96, seed=8), panel=32, device="cpu")
+    jt = jnpw.TrapezoidMatrix.from_array(random_spd(96, seed=8), panel=32)
+    for c in range(t.nb):
+        assert t.block(c) is t.cols[c]
+        np.testing.assert_array_equal(t.block(c).numpy(), np.asarray(jt.block(c)))

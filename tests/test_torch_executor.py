@@ -492,3 +492,32 @@ def test_auto_on_bdfac_names_the_queue_item(rng):
         npw.run_program(prog)
     with pytest.raises(ValueError, match="no fused lowering"):
         npw.run_program(prog, executor="fused")
+
+
+@pytest.mark.parametrize("executor", ["jax", "spill"])
+def test_executor_precision_matches_default(executor):
+    """precision= (and donate= on "jax") reach the executors through
+    run_program, as in the reference; the batched ops have no product it
+    changes, so "highest" gives the default run's result exactly."""
+    a = random_spd(64, seed=12)
+    storage = "hbm" if executor == "jax" else "host"
+    outs = []
+    for kw in ({}, {"precision": "highest"}):
+        if executor == "jax":
+            kw["donate"] = False if kw else True
+        prog, out, _ = npw.cholesky(a, tile=(T, T), storage=storage, device="cpu")
+        assert npw.run_program(prog, executor=executor, **kw) == PS.SUCCESS
+        outs.append(out.numpy())
+    np.testing.assert_array_equal(outs[0], outs[1])
+    jprog, jout, _ = jnpw.cholesky(a, tile=(T, T), storage=storage)
+    jnpw.run_program(jprog, executor=executor, precision="highest")
+    np.testing.assert_allclose(outs[1], jout.numpy(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("cls", [TorchTaskExecutor, SpillTaskExecutor])
+def test_executor_rejects_an_invalid_precision(cls):
+    prog, _, _ = npw.cholesky(random_spd(32, seed=13), tile=(T, T), device="cpu")
+    with pytest.raises(ValueError, match="precision must be one of"):
+        cls(prog, precision="bogus")
+    ex = cls(prog, precision="default")
+    assert ex.precision == "default"

@@ -129,3 +129,38 @@ def test_tsqr_entry_checks():
     assert out["R"].storage == "host" and out["R"].block_idxs_exist == []
     with pytest.raises(ValueError, match="unknown storage tier"):
         aw.tsqr(x, tile_rows=64, storage="bogus", device="cpu")
+
+
+@pytest.mark.parametrize("method", ["tree", "cholqr2", "cholqr3s"])
+def test_fused_tsqr_precision_matches_default(rng, method):
+    """fused_tsqr(..., precision=) as the reference takes it: "highest" is
+    true FP32 on every route, the default's products, so the same (Q, R)."""
+    x = rng.standard_normal((256, 32)).astype(np.float32)
+    q0, r0 = lower.fused_tsqr(torch.from_numpy(x), 64, compute_q=True, method=method)
+    q1, r1 = lower.fused_tsqr(torch.from_numpy(x), 64, compute_q=True, method=method,
+                              precision="highest")
+    assert torch.equal(q0, q1) and torch.equal(r0, r1)
+    jq, jr = jlower.fused_tsqr(jnp.asarray(x), 64, compute_q=True, method=method,
+                               precision=lax.Precision.HIGHEST)
+    _assert_r_close(r1.numpy(), np.asarray(jr))
+    np.testing.assert_allclose(q1.numpy() @ r1.numpy(), x, rtol=5e-3, atol=5e-3)
+
+
+def test_tsqr_builders_take_precision_and_dtype(rng):
+    x = torch.from_numpy(rng.standard_normal((256, 32)).astype(np.float32))
+    r = lower.fused_tsqr_fn(4, 64, 32, precision="high", dtype=torch.float32)(x)
+    r2 = lower.fused_cholqr2_fn(precision="highest", dtype=torch.float32)(x)
+    r3 = lower.fused_cholqr3s_fn(precision=None, dtype=torch.float32)(x)
+    for got in (r2, r3):
+        _assert_r_close(got.numpy(), r.numpy())
+
+
+@pytest.mark.parametrize("build", [
+    lambda: lower.fused_tsqr(torch.ones((128, 8)), 64, precision="bogus"),
+    lambda: lower.fused_tsqr_fn(2, 64, 8, precision="HIGHEST"),
+    lambda: lower.fused_cholqr2_fn(precision="fp32"),
+    lambda: lower.fused_cholqr3s_fn(precision=""),
+], ids=["fused_tsqr", "tree", "cholqr2", "cholqr3s"])
+def test_tsqr_rejects_an_invalid_precision(build):
+    with pytest.raises(ValueError, match="precision must be one of"):
+        build()
