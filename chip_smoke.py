@@ -45,12 +45,15 @@ executors on both storage tiers (P15-P16):
   P12 gemm(A, B) + run_program at 8192^2 fp32, tile 512: the default route
       (torch.matmul) and the compensated one (matmul3), vs an fp64 product
       on the card, rel <= 1e-5
-  P13 the qr kernel vs its plain version at 128², 256 x 128, 512²,
-      1024 x 256, 2048 x 128 (rel Frobenius of Q and R <= 1e-5,
-      ||QᵀQ - I||_max <= 2e-5, R exactly upper), a zero column (the same,
-      finite) and kappa = 1e7 at 512 x 128 (ortho <= 5e-5, reconstruction
-      <= 1e-5 max|A|); ms of kernel, plain and torch.linalg.qr in turns;
-      an off-envelope 100 x 60 call launches nothing
+  P13 the qr kernel vs its plain versions, qr_ref and the row-split
+      _qr_rowsplit_ref (the kernel's sum order), at 128², 256 x 128, 512²,
+      1024 x 256, 2048 x 128 (rel Frobenius of Q and R <= 1e-5 against
+      each, ||QᵀQ - I||_max <= 2e-5, R exactly upper), a zero column (the
+      same, finite) and kappa = 1e7 at 512 x 128 (ortho <= 5e-5,
+      reconstruction <= 1e-5 max|A|); the launch's CTAs and shared bytes
+      per CTA; ms of kernel and torch.linalg.qr in turns at every case, of
+      the plain version too at 512² and 2048 x 128; an off-envelope
+      100 x 60 call launches nothing
   P14 ops.qr_leaf on the 128 leaves (2048 x 128) of a 262,144 x 128
       operand with NPW_PALLAS_QR=1 (one kernel launch each), and with it
       off (the library); R agreement as P8's
@@ -815,7 +818,8 @@ def qr_bound(m, n):
 
 
 def p13_qr(torch, gen):
-    """The qr kernel against qr_ref at the reference tests' shapes, a zero
+    """The qr kernel against qr_ref and _qr_rowsplit_ref at the reference
+    tests' shapes, with its launch's CTAs and shared bytes per CTA, a zero
     column and kappa = 1e7 at 512 x 128; ms of kernel, plain and
     torch.linalg.qr in turns; an off-envelope call launches nothing."""
     from numpywren_tpu_torch.ops import pallas_factor as pf
@@ -832,6 +836,8 @@ def p13_qr(torch, gen):
         q, r = pf.qr_pallas(a)
         require(pf.LAUNCHES["qr"] == before + 1, f"P13 {case}: the kernel did not launch")
         qp, rp = pf.qr_ref(a)
+        plan = pf.qr_plan(m, n)
+        qs, rs = pf._qr_rowsplit_ref(a, plan["parts"])
         torch.cuda.synchronize()
         for t in (q, r):
             require(bool(torch.isfinite(t).all()), f"P13 {case}: non-finite output")
@@ -840,9 +846,12 @@ def p13_qr(torch, gen):
         ortho = float((q.double().T @ q.double() - eye).abs().max())
         recon = float((q.double() @ r.double() - a.double()).abs().max() / a.abs().max())
         q_err, r_err = rel_err(torch, q, qp), rel_err(torch, r, rp)
+        qs_err, rs_err = rel_err(torch, q, qs), rel_err(torch, r, rs)
         mx = max(float((q - qp).abs().max()), float((r - rp).abs().max()))
-        row = {"phase": "P13", "case": case, "shape": [m, n], "q_rel_err": q_err,
-               "r_rel_err": r_err, "max_abs_err": mx, "ortho": ortho, "recon": recon}
+        row = {"phase": "P13", "case": case, "shape": [m, n], "ctas": plan["parts"],
+               "smem_bytes_per_cta": plan["smem_bytes"], "q_rel_err": q_err,
+               "r_rel_err": r_err, "q_rel_err_rowsplit": qs_err, "r_rel_err_rowsplit": rs_err,
+               "max_abs_err": mx, "ortho": ortho, "recon": recon}
         if case.startswith("kappa"):
             # Q's last columns are determined only to eps·kappa: held by
             # orthogonality and reconstruction (tests/test_pallas_factor.py)
@@ -851,13 +860,17 @@ def p13_qr(torch, gen):
         else:
             require(max(q_err, r_err) <= KERNEL_BAR,
                     f"P13 {case}: rel error q {q_err} r {r_err} > {KERNEL_BAR}")
+            require(max(qs_err, rs_err) <= KERNEL_BAR,
+                    f"P13 {case}: rel error to the row split q {qs_err} r {rs_err} > {KERNEL_BAR}")
             require(ortho <= QR_ORTHO_BAR, f"P13 {case}: ortho {ortho} > {QR_ORTHO_BAR}")
+        runs = [lambda: pf.qr_pallas(a), lambda: torch.linalg.qr(a, mode="reduced")]
         if case in ("2048x128", "512x512"):
-            ms, plain_ms, lib_ms = in_turns(
-                torch, lambda: pf.qr_pallas(a), lambda: pf.qr_ref(a),
-                lambda: torch.linalg.qr(a, mode="reduced"), iters=5)
-            b_ms, b_by = qr_bound(m, n)
-            row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+            runs.append(lambda: pf.qr_ref(a))
+        times = in_turns(torch, *runs, iters=5)
+        b_ms, b_by = qr_bound(m, n)
+        row.update(ms=times[0], library_ms=times[1], bound_ms=b_ms, bound_by=b_by)
+        if len(times) > 2:
+            row.update(plain_ms=times[2])
         emit(row)
         rows[case] = row
     before = dict(pf.LAUNCHES)

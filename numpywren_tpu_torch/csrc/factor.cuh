@@ -36,12 +36,14 @@ struct Smem {
 
 // out = alpha * op(A) @ op(B) + beta * C over an (m, n) result, k deep;
 // m, n, k >= 0, any size (ragged edges masked). Row-major operands with
-// leading dimensions. `c` may be `out` (each element is read and written
-// by one thread); `out` must not overlap A or B. Ends with a barrier.
-template <bool TA, bool TB>
+// leading dimensions, in device or shared memory. `c` may be `out` (each
+// element is read and written by one thread); `out` must not overlap A or
+// B. `sm` is any shared workspace with Smem's `as` and `bs` staging
+// arrays. Ends with a barrier.
+template <bool TA, bool TB, class SM>
 __device__ void cta_gemm(int m, int n, int k, float alpha, const float* a, int64_t lda,
                          const float* b, int64_t ldb, float beta, const float* c, int64_t ldc,
-                         float* out, int64_t ldo, Smem& sm) {
+                         float* out, int64_t ldo, SM& sm) {
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   for (int m0 = 0; m0 < m; m0 += GT) {
     for (int n0 = 0; n0 < n; n0 += GT) {

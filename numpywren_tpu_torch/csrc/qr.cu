@@ -3,36 +3,65 @@
 // is the TPU kernel's: 128 | m, 128 | n, m >= n, n <= 512, m n <= 2^18.
 //
 // Replaces the Pallas kernel numpywren_tpu/ops/pallas_factor.py::_qr_kernel
-// (qr_pallas) with its LAPACK geqrf conventions, step for step:
+// (qr_pallas) with its LAPACK geqrf conventions:
 //   per 128-column panel, the column loop of _householder_panel:
 //     beta = -sign(alpha) ||x||, v[diag] = 1, tau = (beta - alpha) / beta,
 //     a zero column gives tau = 1 and v = 0 (H = I),
 //     the panel's later columns -= v (tau v^T panel), R[jg, jg] = beta exactly;
 //   T from T^-1 = strict_upper(V^T V) + diag(1/tau), inverted bottom-up
-//   (_invert_upper);
-//   the trailing update S -= V (T^T (V^T S));
+//   (_invert_upper, here by 32 x 32 blocks);
+//   the trailing update S -= V (T^T (V^T S)), here (V T^T) (V^T S);
 //   R = triu(S[:n]), then Q = H_1 ... H_p E rebuilt right to left with
-//   Q -= V (T (V^T Q)).
-// V is zero above its diagonal, so every product runs over rows >= the
-// panel's first row, and the rebuild over columns >= it (the columns of Q
-// left of the panel are unit vectors that V^T annihilates): the same sums
-// as the reference's full-height products less their exact zero terms.
+//   Q -= (V T) (V^T Q) over the columns from the panel's first on.
 //
-// Bound: the n-step column loop, each step a reduction, a dot product of
-// the vector with every later panel column and a rank-1 update, three
-// barriers apart; then one SM's FP32 rate for the products. The function's
-// own bound at 2048 x 128 is 2 us of FP32 operations.
-// Design: ONE CTA of 256 threads owns the tile, as one TPU core owned it in
-// VMEM (up to 1 MB here: too large for shared memory). The working copy S,
-// the vectors V, the panels' T, Q and the products' temporaries live in
-// device memory, where they stay L2-resident; shared memory holds the
-// current vector (at most 2048 floats), the panel's T^-1 and T (128 x 128,
-// rows padded to 129 floats so column walks hit all banks) and the
-// products' staging (factor.cuh's cta_gemm). In the column loop thread t
-// owns panel column t % 128 and every other row from t / 128, so a warp
-// reads 32 neighbouring floats of a row. One launch, no host
-// synchronisation. Several CTAs for the products is later work.
+// Bound: the n-step column loop, a dependent chain of reductions over all
+// m rows; the function's own bound at 2048 x 128 is 2 us of FP32
+// operations. A tile of up to 1 MB does not fit one block's shared memory.
+// What bounds this kernel: each column's grid barrier and the L2 round
+// trip after it (at 32 rows a CTA its time does not change from 4 to 16
+// CTAs), then the column step's shared-memory work, which grows with the
+// rows a CTA owns; at n > 128 also the products on 32-row CTAs, which
+// cta_gemm runs in 128-row tiles.
+//
+// Design: ONE cooperative launch of P = min(16, m / 32) CTAs of 256
+// threads. CTA p owns the h = m / P contiguous rows [p h, (p + 1) h),
+// 32 <= h <= 128, so h n <= 2^14: its rows of S (the working copy of A) and
+// of V live in its own shared memory (rows padded to n + 1 floats, so
+// column walks hit all banks), and after R is written S holds its rows of
+// Q. Every step but one is row-local; the one cross-CTA primitive is a
+// column sum through device scratch (L2-resident) after a grid barrier,
+// whose partials every reader adds in the fixed order p = 0 .. P - 1, so
+// all CTAs compute bit-identical sums.
+//
+// The column step for column jg takes ONE grid barrier: each CTA publishes
+// its partial sum of x^2 over its rows >= jg and its partial dot products
+// sum_{r > jg} x_r S[r, c] with the panel's later columns; the owner of
+// row jg publishes that row (alpha = S[jg, jg] and S[jg, c]). After the
+// barrier every thread forms sigma, beta, tau and
+//   v^T S[:, c] = ((alpha - beta) S[jg, c] + sum_{r > jg} x_r S[r, c]) / (alpha - beta),
+// the same sum as the reference's with v = x / (alpha - beta) below the
+// diagonal ((alpha - beta) is a difference of opposite signs: nothing
+// cancels); each CTA writes its rows of v and takes the rank-1 update on
+// its rows. The step's latency is the barrier and one round of L2 loads.
+// The partials are double-buffered by column parity: a CTA cannot reach
+// column jg + 2's writes before every CTA has passed column jg + 1's
+// barrier, which follows its reads of column jg's.
+//
+// Per panel: one column sum of [V^T V | V^T S_trailing] (two barriers);
+// every CTA inverts T in its own shared memory (in place, on identical
+// inputs, by 32 x 32 blocks: a warp a diagonal block in registers, then
+// block rows as products, in place of the unblocked recurrence's 128
+// barrier-separated, latency-bound rows); the trailing update is
+// Y_p = V_p T^T (h x 128, device scratch) then S_p -= Y_p W, both
+// factor.cuh cta_gemm calls on the CTA's own rows.
+// The rebuild of Q takes one column sum per panel the same way. Every CTA
+// runs every barrier (none returns early or skips a step), and no CTA
+// reads another's data but through the scratch after a grid barrier.
+#include <cooperative_groups.h>
+
 #include "factor.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -40,167 +69,269 @@ using npwf::B;
 using npwf::NT;
 using npwf::SP;
 
-constexpr int MAXM = 2048;  // m <= 2^18 / 128
-constexpr int U = 8;        // rows a thread has in flight in the column loop
-static_assert(NT == 2 * B, "the column loop maps two threads to each panel column");
+constexpr int MAXP = 16;  // CTAs of the launch, at most
+constexpr int MINH = 32;  // rows a CTA owns, at least
+static_assert(NT >= B && NT % 32 == 0 && MAXP <= 32, "the column step's thread maps");
 
-struct QrSmem {
-  npwf::Smem f;          // f.s: the panel's T^-1, f.w: its T; the products' staging
-  float vcol[MAXM];      // the current Householder vector, by global row
-  float part[2][B];      // the two row halves' partial dot products
-  float tau[B];          // the panel's taus
-  float scal[4];         // beta, tau, denom, good
-  float wred[NT / 32];   // per-warp partial sums
+// factor.cuh's product staging, without its 128 x 128 blocks
+struct Stage {
+  float as[npwf::BK][npwf::GT + npwf::GP];
+  float bs[npwf::BK][npwf::GT + npwf::GP];
 };
 
-// _householder_panel on the columns j0 .. j0 + B - 1 of s (m, n), in place;
-// column j0 + jj of v (rows >= j0) receives its vector, sm.tau its tau.
-__device__ void householder_panel(float* s, float* v, int m, int n, int j0, QrSmem& sm) {
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int c = tid % B, h = tid / B;
-  const int col = j0 + c;
-  for (int jj = 0; jj < B; ++jj) {
-    const int jg = j0 + jj;
-    float acc = 0.f;
-    for (int r = jg + tid; r < m; r += NT) {
-      const float x = s[(int64_t)r * n + jg];
-      acc = fmaf(x, x, acc);
-    }
-    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-    if (lane == 0) sm.wred[warp] = acc;
-    __syncthreads();
-    if (tid == 0) {
-      float sigma = 0.f;
-      for (int w = 0; w < NT / 32; ++w) sigma += sm.wred[w];
-      const float alpha = s[(int64_t)jg * n + jg];
-      const float nrm = sqrtf(sigma);
-      const float beta = alpha >= 0.f ? -nrm : nrm;
-      const bool good = sigma > 0.f;
-      const float tau = good ? (beta - alpha) / beta : 1.f;
-      sm.scal[0] = beta;
-      sm.scal[1] = tau;
-      sm.scal[2] = good ? alpha - beta : 1.f;
-      sm.scal[3] = good ? 1.f : 0.f;
-      sm.tau[jj] = tau;
-      s[(int64_t)jg * n + jg] = beta;  // R[jg, jg] = beta exactly; no later read of row jg here
-    }
-    __syncthreads();
-    const float tau = sm.scal[1], denom = sm.scal[2];
-    const bool good = sm.scal[3] != 0.f;
-    for (int r = j0 + tid; r < m; r += NT) {
-      float val = 0.f;
-      if (good && r >= jg) val = r == jg ? 1.f : s[(int64_t)r * n + jg] / denom;
-      sm.vcol[r] = val;
-      v[(int64_t)r * n + jg] = val;
-    }
-    __syncthreads();
-    // the dot products and the update walk rows U at a time, their loads
-    // issued together: a thread's rows are a chain of L2 round trips
-    if (c > jj) {
-      float p[U] = {};
-      int r = jg + h;
-      for (; r + 2 * (U - 1) < m; r += 2 * U) {
-        float x[U];
-#pragma unroll
-        for (int u = 0; u < U; ++u) x[u] = s[(int64_t)(r + 2 * u) * n + col];
-#pragma unroll
-        for (int u = 0; u < U; ++u) p[u] = fmaf(sm.vcol[r + 2 * u], x[u], p[u]);
-      }
-      for (; r < m; r += 2) p[0] = fmaf(sm.vcol[r], s[(int64_t)r * n + col], p[0]);
-      float sum = 0.f;
-#pragma unroll
-      for (int u = 0; u < U; ++u) sum += p[u];
-      sm.part[h][c] = sum;
-    }
-    __syncthreads();
-    if (c > jj) {
-      const float w = (sm.part[0][c] + sm.part[1][c]) * tau;
-      int r = jg + h;
-      for (; r + 2 * (U - 1) < m; r += 2 * U) {
-        float x[U];
-#pragma unroll
-        for (int u = 0; u < U; ++u) x[u] = s[(int64_t)(r + 2 * u) * n + col];
-#pragma unroll
-        for (int u = 0; u < U; ++u) s[(int64_t)(r + 2 * u) * n + col] = x[u] - sm.vcol[r + 2 * u] * w;
-      }
-      for (; r < m; r += 2) {
-        float* x = s + (int64_t)r * n + col;
-        *x = *x - sm.vcol[r] * w;
-      }
-    }
-    __syncthreads();
-  }
+constexpr int MAXG = 8;  // row groups of a column in the column step's partials
+
+struct Small {
+  float part[MAXG][B];       // the column step's per-group partials
+  float w[B];                // the column step's tau v^T S[:, c]
+  float sig[NT / 32][MAXP];  // each warp's copy of sigma's P partials
+  float tau[B];              // the panel's taus
+};
+
+__host__ __device__ inline int qr_parts(int m) { return m / MINH < MAXP ? m / MINH : MAXP; }
+
+// Dynamic shared memory: the staging, the small arrays, T (B x SP) and the
+// CTA's rows of S and V (h x (n + 1) each).
+__host__ __device__ inline size_t qr_smem_bytes(int m, int n) {
+  const size_t h = m / qr_parts(m);
+  return sizeof(Stage) + sizeof(Small) + sizeof(float) * ((size_t)B * SP + 2 * h * (n + 1));
 }
 
-// T of the panel at j0 (_invert_upper) into tg (B x B, ld B); tmp is
-// (B x B) scratch for V^T V.
-__device__ void panel_t(const float* v, float* tmp, float* tg, int m, int n, int j0, QrSmem& sm) {
-  const int tid = threadIdx.x;
-  const float* vp = v + (int64_t)j0 * n + j0;
-  npwf::cta_gemm<true, false>(B, B, m - j0, 1.f, vp, n, vp, n, 0.f, nullptr, 0, tmp, B, sm.f);
-  for (int e = tid; e < B * B; e += NT) {
-    const int r = e / B, cc = e % B;
-    sm.f.s[r * SP + cc] = r < cc ? tmp[e] : (r == cc ? 1.f / sm.tau[r] : 0.f);
-    sm.f.w[r * SP + cc] = 0.f;
+// Device scratch in floats: the column sums' partials (P, B, n) and result
+// (B, n), the column step's partials (2, P, B) and row (2, B), the panels'
+// T (n / B blocks of B x B) and each CTA's Y_p (m, B).
+__host__ __device__ inline int64_t qr_scratch_floats(int m, int n) {
+  const int64_t p = qr_parts(m);
+  return (p + 2) * B * n + 2 * (p + 1) * B + (int64_t)m * B;
+}
+
+// res[e] = sum_q slots[q kc + e] for e < kc, the sum in slot order; CTA p
+// adds the p-th share of the entries, each entry's P loads issued together.
+// The callers have written their partials to their slots; every CTA may
+// read res when this returns.
+__device__ void colsum(cg::grid_group& grid, const float* slots, float* res, int kc) {
+  grid.sync();
+  const int parts = gridDim.x, chunk = (kc + parts - 1) / parts;
+  const int e1 = min(kc, (int)(blockIdx.x + 1) * chunk);
+  for (int e = blockIdx.x * chunk + threadIdx.x; e < e1; e += NT) {
+    float x[MAXP];
+#pragma unroll
+    for (int q = 0; q < MAXP; ++q) x[q] = q < parts ? __ldcg(slots + (int64_t)q * kc + e) : 0.f;
+    float acc = 0.f;
+#pragma unroll
+    for (int q = 0; q < MAXP; ++q) acc += x[q];
+    res[e] = acc;
   }
-  __syncthreads();
-  // rows bottom-up: T[j, c] = (delta_jc - sum_{j < k <= c} T^-1[j, k] T[k, c]) / T^-1[j, j]
-  for (int j = B - 1; j >= 0; --j) {
-    if (tid < B) {
-      float acc = 0.f;
-      for (int k = j + 1; k <= tid; ++k) acc = fmaf(sm.f.s[j * SP + k], sm.f.w[k * SP + tid], acc);
-      sm.f.w[j * SP + tid] = ((tid == j ? 1.f : 0.f) - acc) / sm.f.s[j * SP + j];
+  grid.sync();
+}
+
+// The column step for global column jg = j0 + jj on this CTA's rows
+// [r0, r0 + h) of s and v (row stride ld): see the design note. The
+// threads spread over the columns still active (G row groups of each, rows
+// g, g + G, ...), and the groups' partials are added in group order before
+// the CTA's partial goes to its slot. After the barrier one load per warp
+// fetches sigma's P partials and one thread per column its D_c: every
+// thread forms the scalars, that thread publishes w_c.
+__device__ void column_step(cg::grid_group& grid, float* s, float* v, int ld, int h, int r0,
+                            int j0, int jj, float* lpart, float* lrow, Small& sm) {
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int jg = j0 + jj, parts = gridDim.x;
+  const int lj = jg - r0;                       // row jg's local index
+  const bool owner = lj >= 0 && lj < h;
+  const int first = max(0, lj);                 // first local row >= jg
+  float* part = lpart + (jj & 1) * parts * B;
+  float* row = lrow + (jj & 1) * B;
+  // partials of the columns jj .. B - 1: c == jj sums x^2 over rows >= jg,
+  // c > jj sums x_r s[r, c] over rows > jg
+  const int na = B - jj, ng = min(MAXG, NT / na);
+  if (tid < ng * na) {
+    const int c = jj + tid % na, g = tid / na, col = j0 + c;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    int i = (c == jj ? first : max(0, lj + 1)) + g;
+    for (; i + 3 * ng < h; i += 4 * ng) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        acc[u] = fmaf(s[(i + u * ng) * ld + jg], s[(i + u * ng) * ld + col], acc[u]);
     }
-    __syncthreads();
+    for (; i < h; i += ng) acc[0] = fmaf(s[i * ld + jg], s[i * ld + col], acc[0]);
+    sm.part[g][c] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
   }
-  for (int e = tid; e < B * B; e += NT) tg[e] = sm.f.w[(e / B) * SP + e % B];
   __syncthreads();
+  if (tid >= jj && tid < B) {
+    float sum = 0.f;
+    for (int g = 0; g < ng; ++g) sum += sm.part[g][tid];
+    part[blockIdx.x * B + tid] = sum;
+    if (owner) row[tid] = s[lj * ld + j0 + tid];
+  }
+  grid.sync();
+  // every sum over the P slots runs in slot order
+  if (lane < MAXP) sm.sig[warp][lane] = lane < parts ? __ldcg(part + lane * B + jj) : 0.f;
+  const float alpha = __ldcg(row + jj);
+  const bool later = tid > jj && tid < B;
+  float xd[MAXP];
+#pragma unroll
+  for (int k = 0; k < MAXP; ++k) xd[k] = later && k < parts ? __ldcg(part + k * B + tid) : 0.f;
+  const float rv = later ? __ldcg(row + tid) : 0.f;
+  __syncwarp();
+  float sigma = 0.f, d = 0.f;
+#pragma unroll
+  for (int k = 0; k < MAXP; ++k) {
+    sigma += sm.sig[warp][k];
+    d += xd[k];
+  }
+  const float nrm = sqrtf(sigma);
+  const float beta = alpha >= 0.f ? -nrm : nrm;
+  const bool good = sigma > 0.f;
+  const float tau = good ? (beta - alpha) / beta : 1.f;
+  const float denom = good ? alpha - beta : 1.f;
+  if (later) sm.w[tid] = good ? tau * ((denom * rv + d) / denom) : 0.f;
+  if (tid == 0) sm.tau[jj] = tau;
+  if (tid >= B && tid - B < h) {
+    const int i = tid - B, gr = r0 + i;
+    float val = 0.f;
+    if (good && gr >= jg) val = gr == jg ? 1.f : s[i * ld + jg] / denom;
+    v[i * ld + jg] = val;
+  }
+  __syncthreads();
+  // rank-1 update of the columns jj + 1 .. B - 1 on this CTA's rows >= jg
+  const int nu = B - 1 - jj;
+  if (nu > 0) {
+    const int gu = NT / nu;
+    if (tid < gu * nu) {
+      const int c = jj + 1 + tid % nu, col = j0 + c;
+      const float w = sm.w[c];
+      int i = first + tid / nu;
+      for (; i + 3 * gu < h; i += 4 * gu) {  // four rows' loads before their stores
+        float x[4], y[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          x[u] = s[(i + u * gu) * ld + col];
+          y[u] = v[(i + u * gu) * ld + jg];
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) s[(i + u * gu) * ld + col] = x[u] - y[u] * w;
+      }
+      for (; i < h; i += gu) s[i * ld + col] -= v[i * ld + jg] * w;
+    }
+  }
+  if (owner && tid == 0) s[lj * ld + jg] = beta;  // R[jg, jg] = beta exactly
+  __syncthreads();
+}
+
+// t (B x B, row stride SP) holds T^-1 = U (upper); T = U^-1 replaces it in
+// place, by 32 x 32 blocks: warp b < 4 inverts the diagonal block U_bb in
+// registers, bottom-up as _invert_upper runs (lane c keeps column c,
+// T[j, c] = (delta_jc - sum_{j < k} U[j, k] T[k, c]) / U[j, j]); then block
+// rows i = 2, 1, 0 take T_i,(i+1..) = -T_ii (U_i,(i+1..) T_(i+1..),(i+1..)),
+// two cta_gemm products with the (32 x 96) temporary `tmp` in device
+// scratch. U's lower blocks are 0, so are T's.
+__device__ void invert_upper(float* t, float* tmp, Stage& st) {
+  constexpr int W = 32;
+  const int warp = threadIdx.x / 32, c = threadIdx.x % 32;
+  if (warp < B / W) {
+    float* u = t + warp * W * SP + warp * W;
+    float tc[W];
+#pragma unroll
+    for (int j = W - 1; j >= 0; --j) {
+      float acc = 0.f;
+#pragma unroll
+      for (int k = j + 1; k < W; ++k) acc = fmaf(u[j * SP + k], tc[k], acc);
+      tc[j] = ((c == j ? 1.f : 0.f) - acc) / u[j * SP + j];
+    }
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < W; ++k) u[k * SP + c] = tc[k];
+  }
+  __syncthreads();
+  for (int i = B / W - 2; i >= 0; --i) {
+    const int w = B - (i + 1) * W;  // the columns right of block i
+    float* right = t + i * W * SP + (i + 1) * W;
+    npwf::cta_gemm<false, false>(W, w, w, 1.f, right, SP, t + (i + 1) * W * (SP + 1), SP, 0.f,
+                                 nullptr, 0, tmp, w, st);
+    npwf::cta_gemm<false, false>(W, w, W, -1.f, t + i * W * (SP + 1), SP, tmp, w, 0.f, nullptr, 0,
+                                 right, SP, st);
+  }
 }
 
 __global__ void __launch_bounds__(NT, 1)
     qr_kernel(int m, int n, const float* a, float* q, float* r, float* scratch) {
+  cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char raw[];
-  QrSmem& sm = *reinterpret_cast<QrSmem*>(raw);
-  const int tid = threadIdx.x;
-  const int64_t mn = (int64_t)m * n;
-  float* s = scratch;
-  float* v = s + mn;
-  float* tg = v + mn;      // the panels' T, (n / B) blocks of B x B
-  float* w1 = tg + (int64_t)n * B;
-  float* w2 = w1 + (int64_t)B * n;
-  float* tmp = w2 + (int64_t)B * n;
+  Stage& st = *reinterpret_cast<Stage*>(raw);
+  Small& sm = *reinterpret_cast<Small*>(raw + sizeof(Stage));
+  float* t = reinterpret_cast<float*>(raw + sizeof(Stage) + sizeof(Small));
+  const int tid = threadIdx.x, parts = gridDim.x, p = blockIdx.x;
+  const int h = m / parts, r0 = p * h, ld = n + 1;
+  float* s = t + B * SP;
+  float* v = s + h * ld;
 
-  for (int64_t e = tid; e < mn; e += NT) s[e] = a[e];
+  float* slots = scratch;
+  float* res = slots + (int64_t)parts * B * n;
+  float* lpart = res + (int64_t)B * n;
+  float* lrow = lpart + 2 * parts * B;
+  float* tg = lrow + 2 * B;
+  float* y = tg + (int64_t)n * B + (int64_t)r0 * B;  // this CTA's Y_p (h x B)
+
+  for (int e = tid; e < h * n; e += NT) {
+    const int i = e / n, c = e % n;
+    s[i * ld + c] = a[(int64_t)(r0 + i) * n + c];
+    v[i * ld + c] = 0.f;
+  }
   __syncthreads();
+
   for (int j0 = 0; j0 < n; j0 += B) {
-    householder_panel(s, v, m, n, j0, sm);
-    float* t = tg + (int64_t)j0 * B;
-    panel_t(v, tmp, t, m, n, j0, sm);
-    const int rem = n - j0 - B, rows = m - j0;
+    for (int jj = 0; jj < B; ++jj) column_step(grid, s, v, ld, h, r0, j0, jj, lpart, lrow, sm);
+    // [G | W] = V^T [V | S[:, j0 + B:]] over all rows
+    const int rem = n - j0 - B, wc = B + rem;
+    float* mine = slots + (int64_t)p * B * wc;
+    npwf::cta_gemm<true, false>(B, B, h, 1.f, v + j0, ld, v + j0, ld, 0.f, nullptr, 0, mine, wc,
+                                st);
+    if (rem > 0)
+      npwf::cta_gemm<true, false>(B, rem, h, 1.f, v + j0, ld, s + j0 + B, ld, 0.f, nullptr, 0,
+                                  mine + B, wc, st);
+    colsum(grid, slots, res, B * wc);
+#pragma unroll 8
+    for (int e = tid; e < B * B; e += NT) {
+      const int i = e / B, c = e % B;
+      t[i * SP + c] = i < c ? __ldcg(res + i * wc + c) : (i == c ? 1.f / sm.tau[i] : 0.f);
+    }
+    __syncthreads();
+    invert_upper(t, y, st);  // Y_p's scratch is free until the trailing update
+    if (p == 0)
+      for (int e = tid; e < B * B; e += NT) tg[(int64_t)j0 * B + e] = t[(e / B) * SP + e % B];
     if (rem > 0) {
-      const float* vp = v + (int64_t)j0 * n + j0;
-      float* st = s + (int64_t)j0 * n + j0 + B;
-      // S[j0:, j0+B:] -= V (T^T (V^T S[j0:, j0+B:]))
-      npwf::cta_gemm<true, false>(B, rem, rows, 1.f, vp, n, st, n, 0.f, nullptr, 0, w1, n, sm.f);
-      npwf::cta_gemm<true, false>(B, rem, B, 1.f, t, B, w1, n, 0.f, nullptr, 0, w2, n, sm.f);
-      npwf::cta_gemm<false, false>(rows, rem, B, -1.f, vp, n, w2, n, 1.f, st, n, st, n, sm.f);
+      // S_p[:, j0 + B:] -= (V_p T^T) W
+      npwf::cta_gemm<false, true>(h, B, B, 1.f, v + j0, ld, t, SP, 0.f, nullptr, 0, y, B, st);
+      npwf::cta_gemm<false, false>(h, rem, B, -1.f, y, B, res + B, wc, 1.f, s + j0 + B, ld,
+                                   s + j0 + B, ld, st);
     }
   }
-  for (int e = tid; e < n * n; e += NT) {
-    const int i = e / n, c = e % n;
-    r[e] = c >= i ? s[(int64_t)i * n + c] : 0.f;
+
+  for (int e = tid; e < h * n; e += NT) {
+    const int i = e / n, c = e % n, gr = r0 + i;
+    if (gr < n) r[(int64_t)gr * n + c] = c >= gr ? s[i * ld + c] : 0.f;
   }
-  for (int64_t e = tid; e < mn; e += NT) q[e] = (e / n == e % n) ? 1.f : 0.f;
+  __syncthreads();
+  for (int e = tid; e < h * n; e += NT) {
+    const int i = e / n, c = e % n;
+    s[i * ld + c] = r0 + i == c ? 1.f : 0.f;  // this CTA's rows of E
+  }
   __syncthreads();
   for (int j0 = n - B; j0 >= 0; j0 -= B) {
-    // Q[j0:, j0:] -= V (T (V^T Q[j0:, j0:]))
-    const int rows = m - j0, cols = n - j0;
-    const float* vp = v + (int64_t)j0 * n + j0;
-    const float* t = tg + (int64_t)j0 * B;
-    float* qs = q + (int64_t)j0 * n + j0;
-    npwf::cta_gemm<true, false>(B, cols, rows, 1.f, vp, n, qs, n, 0.f, nullptr, 0, w1, n, sm.f);
-    npwf::cta_gemm<false, false>(B, cols, B, 1.f, t, B, w1, n, 0.f, nullptr, 0, w2, n, sm.f);
-    npwf::cta_gemm<false, false>(rows, cols, B, -1.f, vp, n, w2, n, 1.f, qs, n, qs, n, sm.f);
+    // Q_p[:, j0:] -= (V_p T) (V^T Q[:, j0:])
+    const int cols = n - j0;
+    float* mine = slots + (int64_t)p * B * cols;
+    npwf::cta_gemm<true, false>(B, cols, h, 1.f, v + j0, ld, s + j0, ld, 0.f, nullptr, 0, mine,
+                                cols, st);
+    colsum(grid, slots, res, B * cols);
+    npwf::cta_gemm<false, false>(h, B, B, 1.f, v + j0, ld, tg + (int64_t)j0 * B, B, 0.f, nullptr,
+                                 0, y, B, st);
+    npwf::cta_gemm<false, false>(h, cols, B, -1.f, y, B, res, cols, 1.f, s + j0, ld, s + j0, ld,
+                                 st);
+  }
+  for (int e = tid; e < h * n; e += NT) {
+    const int i = e / n, c = e % n;
+    q[(int64_t)(r0 + i) * n + c] = s[i * ld + c];
   }
 }
 
@@ -208,18 +339,44 @@ __global__ void __launch_bounds__(NT, 1)
 
 extern "C" {
 
+// The launch's plan for an (m, n) tile inside the envelope: its CTAs, their
+// dynamic shared memory in bytes and npw_qr's scratch in floats.
+void npw_qr_plan(int m, int n, int* parts, int* smem_bytes, long long* scratch_floats) {
+  *parts = qr_parts(m);
+  *smem_bytes = static_cast<int>(qr_smem_bytes(m, n));
+  *scratch_floats = qr_scratch_floats(m, n);
+}
+
 // a (m, n), q (m, n), r (n, n), row-major fp32, inside the envelope above;
-// scratch holds 2 m n + 3 * 128 n + 128^2 floats (S, V, the panels' T, two
-// (128, n) temporaries and V^T V). Returns cudaGetLastError().
+// scratch holds npw_qr_plan's scratch_floats. One cooperative launch on
+// `stream`, no host synchronisation. Returns a CUDA error code: the
+// launch's, or cudaErrorCooperativeLaunchTooLarge when the card cannot
+// hold the P CTAs at once.
 int npw_qr(int m, int n, const void* a, void* q, void* r, void* scratch, void* stream) {
   if (m <= 0 || n <= 0) return 0;
-  const int smem = static_cast<int>(sizeof(QrSmem));
+  const int parts = qr_parts(m);
+  if (parts < 1 || m % parts != 0 || n % B != 0 || m < n || (m / parts) * n > (1 << 14))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = static_cast<int>(qr_smem_bytes(m, n));
   cudaError_t err =
       cudaFuncSetAttribute(qr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  qr_kernel<<<1, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      m, n, static_cast<const float*>(a), static_cast<float*>(q), static_cast<float*>(r),
-      static_cast<float*>(scratch));
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return static_cast<int>(err);
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, qr_kernel, NT, smem)) !=
+      cudaSuccess)
+    return static_cast<int>(err);
+  if (per_sm * sms < parts) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  const float* af = static_cast<const float*>(a);
+  float* qf = static_cast<float*>(q);
+  float* rf = static_cast<float*>(r);
+  float* sf = static_cast<float*>(scratch);
+  void* args[] = {&m, &n, &af, &qf, &rf, &sf};
+  err = cudaLaunchCooperativeKernel((void*)qr_kernel, dim3(parts), dim3(NT), args, smem,
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -24,9 +24,11 @@ are hand-written CUDA C++ for Hopper:
   the folded inverse and R) in one launch, then the apply of the folded
   inverse to the tall operand in true FP32 by the matmul kernel.
 - ``csrc/qr.cu``: the thin compact-WY Householder QR of an (m, n) tile with
-  LAPACK geqrf signs, one CTA: the panels' column loop, their T factors,
-  the trailing updates and the rebuild of Q as FP32 products over
-  L2-resident buffers.
+  LAPACK geqrf signs, one cooperative launch of P = min(16, m / 32) CTAs,
+  each holding its m / P rows of the working copy and of V (later of Q) in
+  shared memory; the CTAs meet only in column sums through device scratch,
+  added in CTA order. Its plain version in that arithmetic order is
+  ``_qr_rowsplit_ref``.
 
 Routing, the same for every wrapper: a CUDA tensor inside the envelope
 launches the kernel or raises; a CPU tensor takes the plain PyTorch
@@ -233,6 +235,9 @@ def _lib():
         lib.npw_cholqr2_chain.restype = i
         lib.npw_qr.argtypes = [i, i, p, p, p, p, p]
         lib.npw_qr.restype = i
+        lib.npw_qr_plan.argtypes = [i, i, ctypes.POINTER(i), ctypes.POINTER(i),
+                                    ctypes.POINTER(ctypes.c_longlong)]
+        lib.npw_qr_plan.restype = None
         lib._npw_factor_typed = True
     return lib
 
@@ -477,6 +482,20 @@ def _invert_upper_ref(tinv: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def _invert_upper_blocked_ref(u: torch.Tensor, w: int = 32) -> torch.Tensor:
+    """T = U⁻¹ for an upper-triangular U as the qr kernel forms it: the
+    w x w diagonal blocks by _invert_upper_ref, then block rows bottom-up,
+    T[i, i+1:] = -T[i, i] (U[i, i+1:] T[i+1:, i+1:])."""
+    b = u.shape[0]
+    t = torch.zeros_like(u)
+    for i0 in range(0, b, w):
+        t[i0:i0 + w, i0:i0 + w] = _invert_upper_ref(u[i0:i0 + w, i0:i0 + w])
+    for i in reversed(range(b // w - 1)):
+        r0, r1 = i * w, (i + 1) * w
+        t[r0:r1, r1:] = -(t[r0:r1, r0:r1] @ (u[r0:r1, r1:] @ t[r1:, r1:]))
+    return t
+
+
 def qr_ref(a: torch.Tensor):
     """Plain version of the qr kernel: (q, r) by the blocked compact-WY
     steps of _qr_kernel. Per 128-column panel the column loop, T from
@@ -508,6 +527,89 @@ def qr_ref(a: torch.Tensor):
     return q, r
 
 
+def _qr_parts(m: int) -> int:
+    """The qr kernel's CTAs for m rows: each owns m / P rows, 32 to 128."""
+    return min(16, m // 32)
+
+
+def _ordered_sum(x: torch.Tensor) -> torch.Tensor:
+    """x[0] + x[1] + ... + x[-1] along dim 0, in that order: the kernel's
+    sum of its CTAs' partials."""
+    acc = x[0]
+    for part in x[1:]:
+        acc = acc + part
+    return acc
+
+
+def _qr_rowsplit_ref(a: torch.Tensor, parts: int):
+    """The qr kernel's arithmetic order in plain PyTorch: (q, r) of qr_ref's
+    steps with the rows split into `parts` blocks of m / parts, each step's
+    sums formed per block and added in block order. Per column jg: sigma
+    over rows >= jg, the dot products sum_{r > jg} x_r s[r, c], and
+    vᵀs[:, c] = ((alpha - beta) s[jg, c] + that) / (alpha - beta); per
+    panel the column sum [VᵀV | VᵀS], T by 32-wide blocks
+    (_invert_upper_blocked_ref) and the trailing update (V Tᵀ) W;
+    the rebuild Q -= (V T)(VᵀQ) with VᵀQ a column sum. Used by the tests
+    and the card's check of the kernel; on no path."""
+    m, n = a.shape
+    h = m // parts
+    s = a.clone()
+    v = torch.zeros_like(a)
+    rows = torch.arange(m, device=a.device)
+    one = torch.ones((), dtype=a.dtype, device=a.device)
+    zero = torch.zeros((), dtype=a.dtype, device=a.device)
+
+    def colsum(x, y):  # Σ_p x_pᵀ y_p over the row blocks, in block order
+        return _ordered_sum(torch.bmm(x.reshape(parts, h, -1).mT, y.reshape(parts, h, -1)))
+
+    ts = []
+    for j0 in range(0, n, _B):
+        c1 = j0 + _B
+        taus = torch.zeros(_B, dtype=a.dtype, device=a.device)
+        for jj in range(_B):
+            jg = j0 + jj
+            x = s[:, jg]
+            xs = torch.where(rows >= jg, x, zero)
+            xd = torch.where(rows > jg, x, zero)
+            sigma = _ordered_sum((xs * xs).reshape(parts, h).sum(1))
+            d = colsum(xd[:, None], s[:, jg + 1:c1])[0]
+            alpha = s[jg, jg].clone()
+            nrm = torch.sqrt(sigma)
+            beta = torch.where(alpha >= 0, -nrm, nrm)
+            good = sigma > 0
+            denom = torch.where(good, alpha - beta, one)
+            tau = torch.where(good, (beta - alpha) / torch.where(good, beta, one), one)
+            w = torch.where(good, tau * ((denom * s[jg, jg + 1:c1] + d) / denom), zero)
+            vcol = torch.where(good & (rows > jg), x / denom, zero)
+            vcol[jg] = torch.where(good, one, zero)
+            v[:, jg] = vcol
+            taus[jj] = tau
+            s[:, jg + 1:c1] -= torch.outer(vcol, w)
+            s[jg, jg] = beta
+        vp = v[:, j0:c1]
+        gw = colsum(vp, torch.cat([vp, s[:, c1:]], dim=1))  # [VᵀV | VᵀS[:, c1:]]
+        t = _invert_upper_blocked_ref(torch.triu(gw[:, :_B], 1) + torch.diag(1.0 / taus))
+        ts.append(t)
+        if c1 < n:
+            s[:, c1:] -= (vp @ t.T) @ gw[:, _B:]
+    r = torch.triu(s[:n])
+    q = torch.eye(m, n, dtype=a.dtype, device=a.device)
+    for p in reversed(range(n // _B)):
+        j0 = p * _B
+        vp = v[:, j0:j0 + _B]
+        q[:, j0:] -= (vp @ ts[p]) @ colsum(vp, q[:, j0:])
+    return q, r
+
+
+def qr_plan(m: int, n: int) -> dict:
+    """The qr kernel's launch for an (m, n) tile inside the envelope, as
+    csrc/qr.cu computes it: its CTAs, each CTA's dynamic shared memory in
+    bytes and the scratch in floats. Reads the built library."""
+    parts, smem, floats = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_longlong(0)
+    _lib().npw_qr_plan(m, n, ctypes.byref(parts), ctypes.byref(smem), ctypes.byref(floats))
+    return {"parts": parts.value, "smem_bytes": smem.value, "scratch_floats": floats.value}
+
+
 def _qr_supported(m: int, n: int, dtype) -> bool:
     return (m % _B == 0 and n % _B == 0 and m >= n and n <= 512
             and m * n <= (1 << 18) and dtype == torch.float32)
@@ -529,7 +631,8 @@ def qr_pallas(a: torch.Tensor):
     a = a.contiguous()
     q = torch.empty_like(a)
     r = torch.empty((n, n), dtype=torch.float32, device=a.device)
-    scratch = torch.empty(2 * m * n + 3 * _B * n + _B * _B, dtype=torch.float32, device=a.device)
+    scratch = torch.empty(qr_plan(m, n)["scratch_floats"], dtype=torch.float32,
+                          device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _lib().npw_qr(m, n, a.data_ptr(), q.data_ptr(), r.data_ptr(), scratch.data_ptr(),

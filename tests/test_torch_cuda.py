@@ -280,6 +280,9 @@ def test_qr_kernel(gen, m, n):
     _close(r, rr)
     assert torch.equal(torch.triu(r), r)
     assert float((q.T @ q - torch.eye(n, device="cuda")).abs().max()) <= 2e-5
+    qs, rs = pf._qr_rowsplit_ref(a, pf._qr_parts(m))  # the kernel's own sum order
+    _close(q, qs)
+    _close(r, rs)
 
 
 def test_qr_kernel_zero_column_and_kappa(gen):
@@ -294,6 +297,26 @@ def test_qr_kernel_zero_column_and_kappa(gen):
     q, r = pf.qr_pallas(p)
     assert float((q.T @ q - torch.eye(128, device="cuda")).abs().max()) <= 5e-5
     assert float((q @ r - p).abs().max()) <= 1e-5 * float(p.abs().max())
+
+
+def test_qr_kernel_streams(gen):
+    """Two calls on two streams agree bit for bit (the scratch is per
+    call; the cooperative launch takes the caller's stream), and the plan
+    fits one CTA per SM."""
+    from numpywren_tpu_torch.ops import pallas_factor as pf
+
+    a = _rand(gen, 2048, 128)
+    plan = pf.qr_plan(2048, 128)
+    assert plan["parts"] == 16 and plan["smem_bytes"] <= 232448
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    torch.cuda.synchronize()
+    for s in streams:
+        with torch.cuda.stream(s):
+            outs.append(pf.qr_pallas(a))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    _close(outs[0][0], pf.qr_ref(a)[0])
 
 
 def test_qr_off_envelope_does_not_launch(gen):

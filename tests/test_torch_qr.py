@@ -1,8 +1,10 @@
-"""The plain version of the port's blocked-Householder QR kernel
+"""The plain versions of the port's blocked-Householder QR kernel
 (numpywren_tpu_torch/ops/pallas_factor.py: qr_ref, reached through
-qr_pallas on a CPU tensor) against the JAX package's qr_pallas run in
-interpret mode, on the CPU, from the same numpy inputs; its envelope
-routing and the NPW_PALLAS_QR hook of ops.qr_leaf.
+qr_pallas on a CPU tensor, and _qr_rowsplit_ref, the kernel's row-split
+arithmetic order) against the JAX package's qr_pallas run in interpret
+mode, on the CPU, from the same numpy inputs; at the larger shapes the
+row split against qr_ref; the envelope routing and the NPW_PALLAS_QR hook
+of ops.qr_leaf.
 
 Tolerances: both sides take LAPACK geqrf signs, so Q and R agree
 elementwise (rtol 1e-4, atol 1e-5·max|x|: fp32 sums in another order). The
@@ -86,3 +88,62 @@ def test_qr_leaf_hook_matches_jax(flag, rng, monkeypatch):
     want = pf.qr_ref if flag == "1" else (lambda x: torch.linalg.qr(x, mode="reduced"))
     wq, wr = want(torch.from_numpy(a))
     assert torch.equal(q, wq) and torch.equal(r, wr)
+
+
+def _rowsplit(a):
+    m = a.shape[0]
+    return pf._qr_rowsplit_ref(torch.from_numpy(a), pf._qr_parts(m))
+
+
+@pytest.mark.parametrize("shape", [(128, 128), (256, 128), (512, 128)])
+def test_qr_rowsplit_ref_matches_jax(shape, rng):
+    """The kernel's order (P = 4, 8, 16 row blocks here) against the
+    interpreted Pallas kernel, at test_qr_ref_matches_jax's shapes."""
+    a = rng.standard_normal(shape).astype(np.float32)
+    jq, jr = jpf.qr_pallas(jnp.asarray(a), interpret=True)
+    q, r = _rowsplit(a)
+    _close(q.numpy(), np.asarray(jq))
+    _close(r.numpy(), np.asarray(jr))
+    assert torch.equal(torch.triu(r), r)
+    np.testing.assert_allclose(q.numpy().T @ q.numpy(), np.eye(shape[1]), atol=2e-5)
+
+
+@pytest.mark.parametrize("shape", [(512, 512), (1024, 256), (2048, 128)])
+def test_qr_rowsplit_ref_matches_qr_ref(shape, rng):
+    """Several panels (trailing updates, a rebuild of four steps) and row
+    blocks of 32 to 128 rows, against the plain blocked version."""
+    a = rng.standard_normal(shape).astype(np.float32)
+    q, r = _rowsplit(a)
+    qp, rp = pf.qr_ref(torch.from_numpy(a))
+    _close(q.numpy(), qp.numpy())
+    _close(r.numpy(), rp.numpy())
+    assert torch.equal(torch.triu(r), r)
+    np.testing.assert_allclose(q.numpy().T @ q.numpy(), np.eye(shape[1]), atol=2e-5)
+
+
+def test_qr_rowsplit_ref_zero_column_and_kappa(rng):
+    """A zero column (tau = 1, v = 0: the fused dot product takes the
+    zero-column branch) and kappa = 1e7, held as the qr_ref tests hold them."""
+    a = rng.standard_normal((512, 128)).astype(np.float32)
+    a[:, 5] = 0.0
+    q, r = (t.numpy() for t in _rowsplit(a))
+    assert np.isfinite(q).all() and np.isfinite(r).all()
+    np.testing.assert_allclose(q @ r, a, atol=2e-5 * np.abs(a).max() * 128 ** 0.5)
+    np.testing.assert_allclose(q.T @ q, np.eye(128), atol=2e-5)
+    u, _ = np.linalg.qr(rng.standard_normal((512, 128)))
+    v, _ = np.linalg.qr(rng.standard_normal((128, 128)))
+    a = ((u * np.logspace(0, -7, 128)) @ v.T).astype(np.float32)
+    q, r = (t.numpy() for t in _rowsplit(a))
+    np.testing.assert_allclose(q.T @ q, np.eye(128), atol=5e-5)
+    np.testing.assert_allclose(q @ r, a, atol=1e-5 * np.abs(a).max())
+
+
+def test_qr_parts():
+    """P = min(16, m / 32): every envelope shape gives 32 <= m / P <= 128
+    rows a CTA and (m / P) n <= 2^14 floats of its rows in shared memory."""
+    for m in range(128, 2049, 128):
+        for n in range(128, min(m, 512) + 1, 128):
+            if not pf._qr_supported(m, n, torch.float32):
+                continue
+            p = pf._qr_parts(m)
+            assert m % p == 0 and 32 <= m // p <= 128 and (m // p) * n <= 1 << 14
