@@ -26,9 +26,9 @@ for a 2-D apply; every other product (the Grams, the batched tree
 products, any other precision) is ``torch.matmul`` in true FP32, as the
 JAX package's are ``jnp.matmul``. PyTorch runs eagerly: there is no jit,
 what JAX expresses as buffer donation is an in-place write here, and the
-TSQR chain's ``lax.cond`` / ``while_loop`` read their
-predicate on the host (one read per factoring decision). The Cholesky
-factorization overwrites the buffers it is given.
+TSQR chain's ``lax.cond`` / ``while_loop`` read their predicate on the
+host (one read per factoring decision). The Cholesky factorization
+overwrites the buffers it is given.
 
 The tuning constants (panel_tiles=8, syrk_depth=3, leaf_rows=4096, the
 inner tile of 128) were measured on a TPU and are kept until measured on
@@ -82,12 +82,12 @@ def _matmul(a, b, *, ta=False, tb=False, precision: str) -> torch.Tensor:
 
 
 def _tsqr_matmul(a, b, *, tb=False, precision: str) -> torch.Tensor:
-    """a @ op(b) for the TSQR builders: the matmul3 kernel when
-    `_use_compensated` holds and both operands are 2-D, else torch.matmul
-    in true FP32 (TSQR has no bf16 route, as `_matmul`'s "default" is)."""
-    if a.dim() == 2 and b.dim() == 2 and _use_compensated(a, precision):
+    """a @ op(b) for the TSQR applies: the matmul3 kernel when
+    `_use_compensated` holds, else torch.matmul in true FP32 (TSQR has no
+    bf16 route, as `_matmul`'s "default" is)."""
+    if _use_compensated(a, precision):
         return matmul3(a, b, tb=tb)
-    return torch.matmul(a, b.mT if tb else b)
+    return torch.matmul(a, b.T if tb else b)
 
 
 def _sub_matmul(c, a, b, *, tb=False, precision: str,
@@ -461,8 +461,8 @@ def fused_tsqr_fn(n_leaves: int, tile_rows: int, b: int, *, b_fac: int = 2,
     fn(a) -> R, or (Q, R) with Q rebuilt by the downward sweep.
 
     precision (None: dtype's default) is checked as the reference's is; the
-    tree's products are batched, so every precision runs them in true FP32
-    (`_tsqr_matmul`)."""
+    tree's products are batched, which the compensated kernel does not
+    take, so every precision runs them in true FP32."""
     precision = check_precision(default_precision(dtype) if precision is None else precision)
     if b_fac < 2:
         raise ValueError(f"b_fac must be >= 2, got {b_fac}")
@@ -496,11 +496,9 @@ def fused_tsqr_fn(n_leaves: int, tile_rows: int, b: int, *, b_fac: int = 2,
         z = torch.eye(b, dtype=a.dtype, device=a.device)[None]
         for q, m_in, tail in reversed(levels):
             g = q.shape[0]
-            z_child = _tsqr_matmul(q, z[:g], precision=precision)
-            z_child = z_child.reshape(g * b_fac, b, b)[: m_in - tail]
+            z_child = (q @ z[:g]).reshape(g * b_fac, b, b)[: m_in - tail]
             z = torch.cat([z_child, z[g:]], dim=0) if tail else z_child
-        q_full = _tsqr_matmul(q0, z, precision=precision)
-        return q_full.reshape(n_leaves * tile_rows, b), r_final
+        return (q0 @ z).reshape(n_leaves * tile_rows, b), r_final
 
     return tsqr
 

@@ -502,9 +502,8 @@ def test_executor_precision_matches_default(executor):
     a = random_spd(64, seed=12)
     storage = "hbm" if executor == "jax" else "host"
     outs = []
-    for kw in ({}, {"precision": "highest"}):
-        if executor == "jax":
-            kw["donate"] = False if kw else True
+    donate = {"donate": False} if executor == "jax" else {}
+    for kw in ({}, {"precision": "highest", **donate}):
         prog, out, _ = npw.cholesky(a, tile=(T, T), storage=storage, device="cpu")
         assert npw.run_program(prog, executor=executor, **kw) == PS.SUCCESS
         outs.append(out.numpy())

@@ -146,15 +146,6 @@ def test_fused_tsqr_precision_matches_default(rng, method):
     np.testing.assert_allclose(q1.numpy() @ r1.numpy(), x, rtol=5e-3, atol=5e-3)
 
 
-def test_tsqr_builders_take_precision_and_dtype(rng):
-    x = torch.from_numpy(rng.standard_normal((256, 32)).astype(np.float32))
-    r = lower.fused_tsqr_fn(4, 64, 32, precision="high", dtype=torch.float32)(x)
-    r2 = lower.fused_cholqr2_fn(precision="highest", dtype=torch.float32)(x)
-    r3 = lower.fused_cholqr3s_fn(precision=None, dtype=torch.float32)(x)
-    for got in (r2, r3):
-        _assert_r_close(got.numpy(), r.numpy())
-
-
 @pytest.mark.parametrize("build", [
     lambda: lower.fused_tsqr(torch.ones((128, 8)), 64, precision="bogus"),
     lambda: lower.fused_tsqr_fn(2, 64, 8, precision="HIGHEST"),
@@ -164,3 +155,23 @@ def test_tsqr_builders_take_precision_and_dtype(rng):
 def test_tsqr_rejects_an_invalid_precision(build):
     with pytest.raises(ValueError, match="precision must be one of"):
         build()
+
+
+@pytest.mark.parametrize("compensated", [False, True])
+def test_tsqr_apply_routes(rng, monkeypatch, compensated):
+    """The applies' routes: "high" is the bf16x3 product (its plain version
+    here) in compensated mode, true FP32 otherwise; "highest" is always
+    true FP32. cholqr2 at "high" stays within the JAX package's bars."""
+    from numpywren_tpu_torch import config as pconfig
+    from numpywren_tpu_torch.ops.gemm3 import matmul3_ref
+
+    monkeypatch.setattr(pconfig, "_default", pconfig.NpwConfig(compensated=compensated))
+    x = torch.from_numpy(rng.standard_normal((256, 32)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((32, 32)).astype(np.float32))
+    got = lower._tsqr_matmul(x, w, tb=True, precision="high")
+    want = matmul3_ref(x, w, tb=True) if compensated else x @ w.T
+    assert torch.equal(got, want)
+    assert torch.equal(lower._tsqr_matmul(x, w, tb=True, precision="highest"), x @ w.T)
+    q, r = lower.fused_tsqr(x, 64, compute_q=True, method="cholqr2", precision="high")
+    _assert_r_close(r.numpy(), np.linalg.qr(x.numpy().astype(np.float64), mode="r"))
+    np.testing.assert_allclose(q.numpy().T @ q.numpy(), np.eye(32), atol=5e-4)
