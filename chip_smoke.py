@@ -24,12 +24,15 @@ executors on both storage tiers (P15-P16):
       N=16384, compensated
   P6  potrf's diagonal step alone at 128² vs its plain version
       (_factor_block_rec_ref, rel <= 1e-5); potrf, potrf_inv, trtri, trsm
-      kernels vs their plain versions at n = 128..1024 (rel Frobenius
-      <= 1e-5, ||L W - I||_max <= 1e-4, strict upper exactly 0), ms of
-      kernel, plain and torch.linalg in turns, and for potrf the device
-      launches of one call (counted by csrc/potrf.cu) and their device ms
-      by kernel (torch.profiler; a session that loses records is retaken);
-      potrf at kappa = 1e5 (||A - L Lᵀ||_F/||A||_F <= 1e-5, fp64); an
+      kernels vs their plain versions at n = 128..1024, trtri and potrf_inv
+      also at 384 and 640 (rel Frobenius <= 1e-5, ||L W - I||_max <= 1e-4,
+      strict upper exactly 0), ms of kernel, plain and torch.linalg in
+      turns, and for potrf, potrf_inv and trtri the device launches of one
+      call (counted by csrc/potrf.cu and csrc/trtri.cu, checked against
+      pallas_factor.device_launches) and their device time by kernel and
+      by launch (torch.profiler; a session that loses records is retaken);
+      potrf at kappa = 1e5 (||A - L Lᵀ||_F/||A||_F <= 1e-5, fp64) and trtri
+      of its factor (||L W - I||_max <= 10 x solve_triangular's); an
       off-envelope n=1000 call launches nothing; then the ops entry points
       potrf_pallas + trsm_pallas on the first Cholesky panel (1024
       diagonal block, 31744 x 1024 below it)
@@ -437,13 +440,19 @@ def spd_kappa(torch, gen, n, kappa):
     return ((q * ev) @ q.T).float()
 
 
-def potrf_split(torch, fn, want: int, sessions: int = 3):
-    """One warm call of the potrf launch sequence under torch.profiler:
-    (kernels the session recorded, device ms by step, sessions taken). The
-    matmul kernel's launches alternate panel solve, trailing update. A
-    session that recorded another number of kernels than the call enqueued
-    (`want`; the profiler can lose a short session's device records) is
-    taken again; after `sessions` such sessions the split is None."""
+SPLIT_STEPS = (("potrf_diag", "diag"), ("potrf_store", "store"), ("trtri_diag", "inv_diag"),
+               ("trtri_level_t", "level_t"), ("trtri_level_w", "level_w"))
+
+
+def launch_split(torch, fn, want: int, sessions: int = 3):
+    """One warm call of a launch sequence (potrf, potrf_inv, trtri) under
+    torch.profiler: (the sequence's kernels the session recorded, device ms
+    by step, each launch's device µs in order, sessions taken, the names of
+    other device records in the session). The matmul kernel's launches
+    alternate panel solve, trailing update. A session that recorded another
+    number of the sequence's kernels than the call enqueued (`want`; the
+    profiler can lose a short session's device records) is taken again;
+    after `sessions` such sessions the split and the list are None."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -453,30 +462,30 @@ def potrf_split(torch, fn, want: int, sessions: int = 3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                         key=lambda e: e.time_range.start)
+        device = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        kernels = [e for e in device
+                   if "gemm_kernel" in e.name or any(k in e.name for k, _ in SPLIT_STEPS)]
+        other = sorted({e.name for e in device} - {e.name for e in kernels})
         if len(kernels) == want:
             break
     else:
-        return len(kernels), None, sessions
-    split, gemms = {"diag": 0.0, "solve": 0.0, "update": 0.0, "store": 0.0, "other": 0.0}, 0
+        return len(kernels), None, None, sessions, other
+    split, gemms = {}, 0
     for e in kernels:
-        if "potrf_diag" in e.name:
-            step = "diag"
-        elif "potrf_store" in e.name:
-            step = "store"
-        elif "gemm_kernel" in e.name:
+        step = next((s for key, s in SPLIT_STEPS if key in e.name), "other")
+        if "gemm_kernel" in e.name:
             step = ("solve", "update")[gemms % 2]
             gemms += 1
-        else:
-            step = "other"
-        split[step] += e.time_range.elapsed_us() / 1e3
-    return len(kernels), split, attempt
+        split[step] = split.get(step, 0.0) + e.time_range.elapsed_us() / 1e3
+    return len(kernels), split, [e.time_range.elapsed_us() for e in kernels], attempt, other
 
 
 def p6_factor(torch, gen):
-    """The four factor wrappers at n = 128..1024: kernel vs plain vs library;
-    potrf's diagonal step alone; potrf at kappa = 1e5."""
+    """The four factor wrappers at n = 128..1024 (trtri and potrf_inv also
+    at the ragged 384 and 640): kernel vs plain vs library, the launch
+    sequences' device launches and their device split; potrf's diagonal
+    step alone; potrf and trtri at kappa = 1e5."""
     gemm = gemm_module()
     from numpywren_tpu_torch.ops import pallas_factor as pf
 
@@ -496,7 +505,7 @@ def p6_factor(torch, gen):
           "max_abs_err": max(float((g - w).abs().max()) for g, w in zip(got, want)),
           "inv_err": float((got[0] @ got[1] - torch.eye(128, device="cuda")).abs().max()),
           "ms": ms, "plain_ms": plain_ms})
-    for n in (128, 256, 512, 1024):
+    for n in (128, 256, 384, 512, 640, 1024):
         a = spd(torch, gen, n)
         eye = torch.eye(n, device="cuda")
         x = torch.randn(2048, n, generator=gen, device="cuda")
@@ -522,6 +531,8 @@ def p6_factor(torch, gen):
                      n ** 3 / 3 + 2 * 2048 * n * n, 4 * (n * n + 2 * 2048 * n)),
         }
         for name, (kern, plain, lib, flops, nbytes) in cases.items():
+            if n in (384, 640) and name not in ("trtri", "potrf_inv"):
+                continue  # the ragged doubling levels
             got, want = kern(), plain()
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
@@ -546,19 +557,20 @@ def p6_factor(torch, gen):
             ms, plain_ms, lib_ms = in_turns(torch, kern, plain, lib, iters=5)
             b_ms, b_by = bound(flops, nbytes, PEAK_FP32)
             row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
-            if name == "potrf":
-                want_launches = 4 * n // 128 - 3  # diag + solve, update, store per panel
-                before = pf.DEVICE_LAUNCHES["potrf"]
+            if name != "trsm":
+                want_launches = pf.device_launches(name, n)
+                before = pf.DEVICE_LAUNCHES[name]
                 kern()
                 torch.cuda.synchronize()
-                row["device_launches"] = pf.DEVICE_LAUNCHES["potrf"] - before
+                row["device_launches"] = pf.DEVICE_LAUNCHES[name] - before
                 require(row["device_launches"] == want_launches,
-                        f"P6 potrf n={n}: {row['device_launches']} device launches, "
+                        f"P6 {name} n={n}: {row['device_launches']} device launches, "
                         f"expected {want_launches}")
-                (row["profiled_launches"], row["device_ms_by_step"],
-                 row["profile_sessions"]) = potrf_split(torch, kern, want_launches)
+                (row["profiled_launches"], row["device_ms_by_step"], row["device_us_by_launch"],
+                 row["profile_sessions"], row["profiled_other"]) = launch_split(
+                    torch, kern, want_launches)
                 if row["device_ms_by_step"] is None:
-                    print(f"chip_smoke: P6 potrf n={n}: the profiler recorded "
+                    print(f"chip_smoke: P6 {name} n={n}: the profiler recorded "
                           f"{row['profiled_launches']} of {want_launches} kernels in "
                           f"{row['profile_sessions']} sessions; split not measured",
                           file=sys.stderr)
@@ -571,6 +583,20 @@ def p6_factor(torch, gen):
     emit({"phase": "P6", "case": "potrf_kappa_1e5:1024", "n": 1024, "kappa": 1e5,
           "residual": resid})
     require(resid <= KERNEL_BAR, f"P6 potrf kappa=1e5: residual {resid} > {KERNEL_BAR}")
+
+    # trtri of that factor at kappa = 1e5: ||L W - I||_max within 10x the library's
+    l = l.float()
+    eye = torch.eye(1024, device="cuda")
+    w = pf.trtri_pallas(l)
+    w_lib = torch.linalg.solve_triangular(l, eye, upper=False)
+    inv_err, lib_err = (float((l.double() @ x.double() - eye.double()).abs().max())
+                        for x in (w, w_lib))
+    rel = rel_err(torch, w, pf.trtri_ref(l))
+    emit({"phase": "P6", "case": "trtri_kappa_1e5:1024", "n": 1024, "kappa": 1e5,
+          "inv_err": inv_err, "library_inv_err": lib_err, "rel_err_vs_plain": rel})
+    require(bool(torch.isfinite(w).all()), "P6 trtri kappa=1e5: non-finite output")
+    require(inv_err <= 10 * lib_err,
+            f"P6 trtri kappa=1e5: ||LW - I|| {inv_err} > 10 x the library's {lib_err}")
 
     # outside the envelope: torch.linalg, no launch
     before = dict(pf.LAUNCHES)
@@ -1126,8 +1152,9 @@ def main(argv=None) -> int:
                         "library_ms": main_case["torch_ms"]})
     for name, n, src, replaces in (
         ("potrf", 1024, "potrf.cu", "numpywren_tpu/ops/pallas_factor.py:180"),
-        ("potrf_inv", 512, "factor.cu", "numpywren_tpu/ops/pallas_factor.py:189"),
-        ("trtri", 1024, "factor.cu", "numpywren_tpu/ops/pallas_factor.py:199"),
+        ("potrf_inv", 512, "potrf.cu + numpywren_tpu_torch/csrc/trtri.cu",
+         "numpywren_tpu/ops/pallas_factor.py:189"),
+        ("trtri", 1024, "trtri.cu", "numpywren_tpu/ops/pallas_factor.py:199"),
     ):
         row = p6[(name, n)]
         kernels.append({"name": name, "route": "cuda", "source": f"numpywren_tpu_torch/csrc/{src}",

@@ -1,13 +1,16 @@
-// Device building blocks of the factor kernels (factor.cu) and of the
-// CholeskyQR2 chain (cholqr_chain.cu): everything runs inside ONE CTA of
-// NT threads over fp32 buffers in device memory (L2-resident at these
-// sizes: an (n, n) tile is at most 4 MB) plus a shared-memory workspace.
+// Device building blocks of the one-CTA kernels: the CholeskyQR2 chain
+// (cholqr_chain.cu: its shifted factor and inverse, potrf_inv_into, and its
+// b x b products) and the qr kernel's products (qr.cu, cta_gemm). Everything
+// runs inside ONE CTA of NT threads over fp32 buffers in device memory
+// (L2-resident at these sizes: an (n, n) tile is at most 4 MB) plus a
+// shared-memory workspace.
 //
 // The TPU kernels keep the whole tile in VMEM and lean on the MXU; here one
 // CTA owns the tile, the 128-wide diagonal block lives in shared memory
 // for the column loop, and the products are true-FP32 FFMA tiles of
 // 128 x 128 (8 x 8 outputs a thread, as in gemm.cu). Products that Pallas
-// runs at HIGHEST stay FP32: no TF32, no bf16 splits.
+// runs at HIGHEST stay FP32: no TF32, no bf16 splits. (potrf, potrf_inv and
+// trtri alone are the multi-CTA launch sequences of potrf.cu and trtri.cu.)
 //
 // Coherence: buffers written earlier by this CTA are read back after a
 // __syncthreads(), which makes global writes visible within the block. No
@@ -131,29 +134,23 @@ __device__ inline void inverse_row(Smem& sm, int j, float piv) {
 
 // The column loop of _factor_block_with_inverse on sm.s (an SPD block, its
 // lower triangle read), in place: sm.s becomes L (strict upper stale),
-// sm.w becomes L^-1 (strict upper 0). FACTOR=false skips the pivot and the
-// update and inverts the lower-triangular sm.s (_trtri_kernel's
-// invert_block). Ends with a barrier.
-template <bool FACTOR>
-__device__ void block_loop(Smem& sm) {
+// sm.w becomes L^-1 (strict upper 0). Ends with a barrier.
+__device__ inline void block_loop(Smem& sm) {
   const int tid = threadIdx.x;
   for (int j = 0; j < B; ++j) {
-    const float piv = FACTOR ? sqrtf(sm.s[j * SP + j]) : sm.s[j * SP + j];
-    if (FACTOR)
-      for (int i = j + 1 + tid; i < B; i += NT) sm.s[i * SP + j] = sm.s[i * SP + j] / piv;
+    const float piv = sqrtf(sm.s[j * SP + j]);
+    for (int i = j + 1 + tid; i < B; i += NT) sm.s[i * SP + j] = sm.s[i * SP + j] / piv;
     inverse_row(sm, j, piv);
     __syncthreads();
-    if (FACTOR) {
-      // rank-1 update of the lower trailing block, rows r >= cols c > j;
-      // S[j, j] takes the pivot after every thread has read it
-      const int t = B - 1 - j;
-      for (int e = tid; e < t * t; e += NT) {
-        const int r = j + 1 + e / t, cc = j + 1 + e % t;
-        if (r >= cc) sm.s[r * SP + cc] -= sm.s[r * SP + j] * sm.s[cc * SP + j];
-      }
-      if (tid == 0) sm.s[j * SP + j] = piv;
-      __syncthreads();
+    // rank-1 update of the lower trailing block, rows r >= cols c > j;
+    // S[j, j] takes the pivot after every thread has read it
+    const int t = B - 1 - j;
+    for (int e = tid; e < t * t; e += NT) {
+      const int r = j + 1 + e / t, cc = j + 1 + e % t;
+      if (r >= cc) sm.s[r * SP + cc] -= sm.s[r * SP + j] * sm.s[cc * SP + j];
     }
+    if (tid == 0) sm.s[j * SP + j] = piv;
+    __syncthreads();
   }
 }
 
@@ -163,11 +160,11 @@ __device__ inline void load_block(Smem& sm, const float* x, int64_t ld) {
   __syncthreads();
 }
 
-// Store sm.w to w and, when l != nullptr, tril(sm.s) to l; barrier.
+// Store tril(sm.s) to l and sm.w to w; barrier.
 __device__ inline void store_block(const Smem& sm, float* l, float* w, int64_t ld) {
   for (int e = threadIdx.x; e < B * B; e += NT) {
     const int r = e / B, c = e % B;
-    if (l != nullptr) l[(int64_t)r * ld + c] = c <= r ? sm.s[r * SP + c] : 0.f;
+    l[(int64_t)r * ld + c] = c <= r ? sm.s[r * SP + c] : 0.f;
     w[(int64_t)r * ld + c] = sm.w[r * SP + c];
   }
   __syncthreads();
@@ -194,7 +191,7 @@ __device__ inline void potrf_inv_into(float* l, float* w, int n, float* x, Smem&
     const int j1 = j0 + B, rem = n - j1;
     float* d = l + (int64_t)j0 * n + j0;
     load_block(sm, d, n);
-    block_loop<true>(sm);
+    block_loop(sm);
     store_block(sm, d, w + (int64_t)j0 * n + j0, n);
     if (rem > 0) {
       // X = A21 W11^T, then A22 -= X X^T (the full square, as the
@@ -209,18 +206,6 @@ __device__ inline void potrf_inv_into(float* l, float* w, int n, float* x, Smem&
   }
   cta_zero_upper(l, n, n);
   offdiag_inverse(l, w, n, x, sm);
-}
-
-// _trtri_kernel: w = l^-1 for lower-triangular (n, n) l (strict upper not
-// read). acc is (B, n) scratch.
-__device__ inline void trtri_into(const float* l, float* w, int n, float* acc, Smem& sm) {
-  cta_fill(w, n, n, n, 0.f);
-  for (int i0 = 0; i0 < n; i0 += B) {
-    load_block(sm, l + (int64_t)i0 * n + i0, n);
-    block_loop<false>(sm);
-    store_block(sm, nullptr, w + (int64_t)i0 * n + i0, n);
-  }
-  offdiag_inverse(l, w, n, acc, sm);
 }
 
 // max over the CTA of each thread's v (all threads get it); barrier.

@@ -40,6 +40,12 @@
 // The first panel reads the operand directly (the update writes A22 - X X^T
 // into l), so the tile is never copied. At n = 1024: 8 diagonal launches
 // and 7 x 3 multi-CTA launches, 29 in all.
+//
+// potrf_inv (npw_potrf_inv; replaces :84 _potrf_inv_kernel, potrf_inv_pallas)
+// is the same sequence with each diagonal step's W11 written into the
+// inverse's diagonal block (the panel solve reads it there), then
+// trtri.cu's recursive-doubling levels on (L, W): 2 ceil(log2(n / 128))
+// launches more, 35 in all at n = 1024.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -47,6 +53,8 @@ extern "C" int npw_gemm(int in_bf16, int out_bf16, int ta, int tb, const void* a
                         const void* b, long long ldb, const void* c, long long ldc, void* out,
                         long long ldo, int m, int n, int k, float alpha, float beta,
                         void* stream);
+extern "C" int npw_trtri_levels(int n, const void* l, void* w, void* scratch, void* stream,
+                                int* launches);
 
 namespace {
 
@@ -115,7 +123,8 @@ __device__ __forceinline__ void warp_factor_invert(float* s, float* w, float* lt
 
 // The diagonal step: (l11, w11) of the (B, B) SPD block at d (row stride
 // ldd, 16-byte aligned rows; only its lower triangle is used). l11 gets L11 with
-// its strict upper 0 (row stride ldl), w11 gets W11 = L11^-1 (row stride B).
+// its strict upper 0 (row stride ldl), w11 gets W11 = L11^-1 with its strict
+// upper 0 (row stride ldw).
 //
 // Per 32-wide sub-block c0 (rows and columns c0 .. c1 - 1):
 //   A. warp 0 factors and inverts the diagonal sub-block; meanwhile warps
@@ -127,7 +136,7 @@ __device__ __forceinline__ void warp_factor_invert(float* s, float* w, float* lt
 //      X into S's column block.
 // Every product is 4 x 4 outputs a thread. Eleven barriers in all.
 __global__ void __launch_bounds__(NT, 1)
-    potrf_diag(const float* d, int64_t ldd, float* l11, int64_t ldl, float* w11) {
+    potrf_diag(const float* d, int64_t ldd, float* l11, int64_t ldl, float* w11, int64_t ldw) {
   extern __shared__ __align__(16) unsigned char raw[];
   DiagSmem& sm = *reinterpret_cast<DiagSmem*>(raw);
   const int tid = threadIdx.x;
@@ -260,7 +269,7 @@ __global__ void __launch_bounds__(NT, 1)
   for (int e = tid; e < B * B; e += NT) {
     const int r = e / B, c = e % B;
     l11[r * ldl + c] = c <= r ? sm.s[r * SP + c] : 0.f;
-    w11[r * B + c] = c <= r ? sm.w[r * SP + c] : 0.f;
+    w11[r * ldw + c] = c <= r ? sm.w[r * SP + c] : 0.f;
   }
 }
 
@@ -280,33 +289,37 @@ __global__ void __launch_bounds__(NT)
 }
 
 cudaError_t diag_launch(const float* d, int64_t ldd, float* l11, int64_t ldl, float* w11,
-                        cudaStream_t stream) {
+                        int64_t ldw, cudaStream_t stream) {
   const int smem = static_cast<int>(sizeof(DiagSmem));
   cudaError_t err =
       cudaFuncSetAttribute(potrf_diag, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  potrf_diag<<<1, NT, smem, stream>>>(d, ldd, l11, ldl, w11);
+  potrf_diag<<<1, NT, smem, stream>>>(d, ldd, l11, ldl, w11, ldw);
   return cudaGetLastError();
 }
 
-// The launch sequence of npw_potrf; `done` counts the launches enqueued.
-int potrf_sequence(int n, const void* a, void* l, void* scratch, void* stream, int& done) {
+// The launch sequence of npw_potrf (w null: W11 into scratch) and of
+// npw_potrf_inv (W11 into w's diagonal block, then trtri.cu's global
+// levels); `done` counts the launches enqueued.
+int potrf_sequence(int n, const void* a, void* l, float* w, void* scratch, void* stream,
+                   int& done) {
   if (n <= 0) return 0;
   if (n % B) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* lo = static_cast<float*>(l);
-  float* w11 = static_cast<float*>(scratch);
-  float* x = w11 + B * B;
+  float* x = static_cast<float*>(scratch) + B * B;
+  const int64_t ldw = w ? n : B;
   const float* src = static_cast<const float*>(a);  // the first panel reads a
   for (int j0 = 0; j0 < n; j0 += B) {
     const int j1 = j0 + B, rows = n - j1;
+    float* w11 = w ? w + (int64_t)j0 * n + j0 : static_cast<float*>(scratch);
     int err = static_cast<int>(
-        diag_launch(src + (int64_t)j0 * n + j0, n, lo + (int64_t)j0 * n + j0, n, w11, s));
+        diag_launch(src + (int64_t)j0 * n + j0, n, lo + (int64_t)j0 * n + j0, n, w11, ldw, s));
     if (err != 0) return err;
     ++done;
-    if (rows == 0) return 0;
+    if (rows == 0) break;
     // X = A21 W11^T
-    err = npw_gemm(0, 0, 0, 1, src + (int64_t)j1 * n + j0, n, w11, B, nullptr, 0, x, B, rows, B,
+    err = npw_gemm(0, 0, 0, 1, src + (int64_t)j1 * n + j0, n, w11, ldw, nullptr, 0, x, B, rows, B,
                    B, 1.f, 0.f, s);
     if (err != 0) return err;
     ++done;
@@ -321,7 +334,7 @@ int potrf_sequence(int n, const void* a, void* l, void* scratch, void* stream, i
     ++done;
     src = lo;
   }
-  return 0;
+  return w ? npw_trtri_levels(n, lo, w, scratch, stream, &done) : 0;
 }
 
 }  // namespace
@@ -336,7 +349,23 @@ extern "C" {
 // null); returns the first CUDA error (0 on success).
 int npw_potrf(int n, const void* a, void* l, void* scratch, void* stream, int* launches) {
   int done = 0;
-  const int err = potrf_sequence(n, a, l, scratch, stream, done);
+  const int err = potrf_sequence(n, a, l, nullptr, scratch, stream, done);
+  if (launches) *launches += done;
+  return err;
+}
+
+// (L, L^-1) of the (n, n) SPD a: l as npw_potrf's, w = l^-1 (strict upper
+// 0). potrf's sequence with each W11 left in w's diagonal block, then
+// trtri.cu's global levels (npw_trtri_levels) on (l, w). scratch holds
+// max(n x 128, n^2 / 4) floats (the panels' X, then the levels' T). a, l,
+// w and scratch are fp32, row-major, contiguous, 16-byte aligned, not
+// overlapping. Enqueues (4 n/128 - 3) + 2 ceil(log2(n/128)) launches on
+// `stream` and adds each one enqueued to *launches (when not null);
+// returns the first CUDA error (0 on success).
+int npw_potrf_inv(int n, const void* a, void* l, void* w, void* scratch, void* stream,
+                  int* launches) {
+  int done = 0;
+  const int err = potrf_sequence(n, a, l, static_cast<float*>(w), scratch, stream, done);
   if (launches) *launches += done;
   return err;
 }
@@ -345,7 +374,8 @@ int npw_potrf(int n, const void* a, void* l, void* scratch, void* stream, int* l
 // and w11 are (128, 128) fp32, row-major, contiguous.
 int npw_potrf_diag(const void* d, void* l11, void* w11, void* stream) {
   return static_cast<int>(diag_launch(static_cast<const float*>(d), B, static_cast<float*>(l11), B,
-                                      static_cast<float*>(w11), static_cast<cudaStream_t>(stream)));
+                                      static_cast<float*>(w11), B,
+                                      static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -12,12 +12,17 @@ are hand-written CUDA C++ for Hopper:
   inverts each 32 x 32 sub-block in registers, all warps solve and update
   the rest), then the panel solve X = A21 W11ᵀ and the trailing update
   A22 -= X Xᵀ as launches of the matmul kernel, and a store of X into L.
-- ``csrc/factor.cu``: ``potrf_inv`` and ``trtri`` of an (n, n) fp32 tile,
-  one CTA each. The 128-wide diagonal block is factored in shared memory
-  by the column loop of the reference's ``_factor_block_with_inverse`` (its
-  inverse built row by row in the same loop); the below-panel solve, the
-  trailing update and the off-diagonal inverse blocks are FP32 products
-  the CTA runs over L2-resident buffers.
+- ``csrc/trtri.cu``: ``trtri`` of an (n, n) lower-triangular fp32 tile
+  by recursive doubling, 1 + 2⌈log2(n/128)⌉ launches: one launch of n/128
+  CTAs inverts the 128 x 128 diagonal blocks in shared memory (a warp per
+  32 x 32 sub-block by forward substitution, then the levels h = 32, 64
+  inside the block); then per level h = 128, 256, ... two launches over
+  64 x 64 output tiles of every pair of h-blocks (A, C):
+  T = L[C, A] W[A, A], then W[C, A] = -W[C, C] T, the products' k ranges
+  cut by W's zero triangles.
+- ``potrf_inv`` is ``csrc/potrf.cu``'s sequence with each panel's W11 left
+  in the inverse's diagonal block, then ``trtri.cu``'s levels from h = 128
+  (``npw_potrf_inv``): (4n/128 − 3) + 2⌈log2(n/128)⌉ launches.
 - ``csrc/cholqr_chain.cu``: CholeskyQR2 passes 1-2 of
   ``compiler.lower._cholqr_adaptive`` (shifted factor and inverse, the
   analytic pass-2 Gram, the Neumann or identity fold chosen on the device,
@@ -34,13 +39,15 @@ Routing, the same for every wrapper: a CUDA tensor inside the envelope
 launches the kernel or raises; a CPU tensor takes the plain PyTorch
 version (``potrf_ref``, ``potrf_inv_ref``, ``trtri_ref``,
 ``cholqr2_chain_ref``, ``qr_ref``), a blocked step-by-step transcription of
-the kernel, so the two differ only in summation order (potrf_ref keeps the
-reference's 128-wide column loop: the kernel's diagonal step has its own
-plain version, ``_factor_block_rec_ref``). Outside the
-envelope (the TPU's VMEM limits kept for parity: fp32, 128 | n <= 1024 for
-the factors; 128 | m, 128 | n <= 512, m >= n, m n <= 2^18 for QR) a shape
-check routes the factor wrappers to ``torch.linalg``, the reference's own
-library fallback; the chain raises ValueError there, as the reference does.
+the kernel, so the two differ only in summation order (potrf_ref and
+potrf_inv_ref keep the reference's 128-wide column loop: the kernel's
+diagonal step has its own plain version, ``_factor_block_rec_ref``; the
+inverses follow the kernels' doubling order, ``_inverse_levels_ref``).
+Outside the envelope (the TPU's VMEM limits kept for parity: fp32,
+128 | n <= 1024 for the factors; 128 | m, 128 | n <= 512, m >= n,
+m n <= 2^18 for QR) a shape check routes the factor wrappers to
+``torch.linalg``, the reference's own library fallback; the chain raises
+ValueError there, as the reference does.
 """
 
 from __future__ import annotations
@@ -60,16 +67,25 @@ _R = 32   # the potrf diagonal step's sub-block: one warp's rows
 LAUNCHES = {"potrf": 0, "potrf_diag": 0, "potrf_inv": 0, "trtri": 0, "cholqr2_chain": 0,
             "qr": 0}
 """Wrapper calls that launched a kernel in this process, by kernel (plain
-versions do not count). One potrf call enqueues 4 n/128 - 3 device launches
-(the diagonal step and three multi-CTA launches per panel); "potrf_diag"
-counts the diagonal step run alone, for its comparison with
+versions do not count). One potrf, potrf_inv or trtri call enqueues a
+sequence of device launches (DEVICE_LAUNCHES); "potrf_diag" counts the
+potrf diagonal step run alone, for its comparison with
 _factor_block_rec_ref."""
 
-DEVICE_LAUNCHES = {"potrf": 0}
-"""Device kernels that potrf's launch sequence enqueued in this process, as
-csrc/potrf.cu counts them (4 n/128 - 3 a call)."""
+DEVICE_LAUNCHES = {"potrf": 0, "potrf_inv": 0, "trtri": 0}
+"""Device kernels that the launch sequences enqueued in this process, as
+csrc/potrf.cu and csrc/trtri.cu count them: device_launches(kind, n) a
+call."""
 
-_MODES = {"potrf_inv": 0, "trtri": 1}
+
+def device_launches(kind: str, n: int) -> int:
+    """Device launches of one `kind` call at n (128 | n): potrf's diagonal
+    step and three multi-CTA launches per panel after the first, trtri's
+    diagonal launch and two launches per doubling level; potrf_inv is
+    potrf's sequence and trtri's levels."""
+    levels = 2 * (n // _B - 1).bit_length()  # 2 ceil(log2(n / 128))
+    return {"potrf": 4 * n // _B - 3, "trtri": 1 + levels,
+            "potrf_inv": 4 * n // _B - 3 + levels}[kind]
 
 
 def reset_launches() -> None:
@@ -129,11 +145,11 @@ def _offdiag_inverse_ref(l: torch.Tensor, w: torch.Tensor, block: int = _B) -> N
             blk(w, i, j).copy_(-(blk(w, i, i) @ acc))
 
 
-def _blocked_factor_ref(a: torch.Tensor, with_inverse: bool, block: int = _B):
-    """Blocked (L, L⁻¹) of _potrf_inv_into: per `block`-wide diagonal block
-    the column loop, the below-panel solve X = A21 W11ᵀ and the trailing
-    update A22 -= X Xᵀ; then the off-diagonal inverse blocks. W is None when
-    not asked for."""
+def _blocked_factor_ref(a: torch.Tensor, block: int = _B):
+    """Blocked (L, W) of _potrf_inv_into's factor loop: per `block`-wide
+    diagonal block the column loop, the below-panel solve X = A21 W11ᵀ and
+    the trailing update A22 -= X Xᵀ. W holds the diagonal blocks' inverses
+    W11 and zeros elsewhere."""
     n = a.shape[0]
     l = a.clone()
     w = torch.zeros_like(a)
@@ -146,11 +162,23 @@ def _blocked_factor_ref(a: torch.Tensor, with_inverse: bool, block: int = _B):
             x = l[j1:, j0:j1] @ wb.T
             l[j1:, j0:j1] = x
             l[j1:, j1:] -= x @ x.T
-    l = torch.tril(l)
-    if not with_inverse:
-        return l, None
-    _offdiag_inverse_ref(l, w, block)
-    return l, w
+    return torch.tril(l), w
+
+
+def _inverse_levels_ref(l: torch.Tensor, w: torch.Tensor, h0: int) -> None:
+    """The trtri kernel's doubling levels, in place on w (right on its
+    h0-wide diagonal blocks): for h = h0, 2 h0, ... while h < n, every pair
+    A = [2hp, 2hp + h), C = [2hp + h, min(2hp + 2h, n)) takes
+    W[C, A] = -W[C, C] (L[C, A] W[A, A]) and W[A, C] = 0."""
+    n = l.shape[0]
+    h = h0
+    while h < n:
+        for a0 in range(0, n - h, 2 * h):
+            c0, c1 = a0 + h, min(a0 + 2 * h, n)
+            t = l[c0:c1, a0:c0] @ w[a0:c0, a0:c0]
+            w[c0:c1, a0:c0] = -(w[c0:c1, c0:c1] @ t)
+            w[a0:c0, c0:c1] = 0
+        h *= 2
 
 
 def _factor_block_rec_ref(d: torch.Tensor):
@@ -160,27 +188,33 @@ def _factor_block_rec_ref(d: torch.Tensor):
     substitution), the rows below solved by the sub-block's inverse and
     the rank-32 trailing update; then w's strictly lower sub-blocks by
     W[i, j] = -W[i, i] Σ_k L[i, k] W[k, j]."""
-    return _blocked_factor_ref(d, with_inverse=True, block=_R)
+    l, w = _blocked_factor_ref(d, block=_R)
+    _offdiag_inverse_ref(l, w, _R)
+    return l, w
 
 
 def potrf_ref(a: torch.Tensor) -> torch.Tensor:
     """Plain version of the potrf kernel: the lower factor, strict upper 0."""
-    return _blocked_factor_ref(a, with_inverse=False)[0]
+    return _blocked_factor_ref(a)[0]
 
 
 def potrf_inv_ref(a: torch.Tensor):
-    """Plain version of the potrf_inv kernel: (L, L⁻¹)."""
-    return _blocked_factor_ref(a, with_inverse=True)
+    """Plain version of the potrf_inv kernel: (L, L⁻¹). The factor loop's
+    128-wide W11s, then the trtri kernel's doubling levels from h = 128."""
+    l, w = _blocked_factor_ref(a)
+    _inverse_levels_ref(l, w, _B)
+    return l, w
 
 
 def trtri_ref(l: torch.Tensor) -> torch.Tensor:
     """Plain version of the trtri kernel: L⁻¹ of a lower-triangular tile
-    (its strict upper is not read)."""
+    (its strict upper is not read). The 32 x 32 diagonal blocks by forward
+    substitution, then the doubling levels from h = 32."""
     n = l.shape[0]
     w = torch.zeros_like(l)
-    for i0 in range(0, n, _B):
-        w[i0:i0 + _B, i0:i0 + _B] = _invert_block_ref(l[i0:i0 + _B, i0:i0 + _B])
-    _offdiag_inverse_ref(l, w)
+    for i0 in range(0, n, _R):
+        w[i0:i0 + _R, i0:i0 + _R] = _invert_block_ref(l[i0:i0 + _R, i0:i0 + _R])
+    _inverse_levels_ref(l, w, _R)
     return w
 
 
@@ -225,10 +259,12 @@ def _lib():
     lib = _build.library()
     if not getattr(lib, "_npw_factor_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.npw_factor.argtypes = [i, i, p, p, p, p, p]
-        lib.npw_factor.restype = i
         lib.npw_potrf.argtypes = [i, p, p, p, p, ctypes.POINTER(i)]
         lib.npw_potrf.restype = i
+        lib.npw_potrf_inv.argtypes = [i, p, p, p, p, p, ctypes.POINTER(i)]
+        lib.npw_potrf_inv.restype = i
+        lib.npw_trtri.argtypes = [i, p, p, p, p, ctypes.POINTER(i)]
+        lib.npw_trtri.restype = i
         lib.npw_potrf_diag.argtypes = [p, p, p, p]
         lib.npw_potrf_diag.restype = i
         lib.npw_cholqr2_chain.argtypes = [i, i, i, p, p, p, p, p, p, f, f, p]
@@ -254,22 +290,26 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     return x.clone() if x.data_ptr() % 16 else x
 
 
-def _launch_potrf(a: torch.Tensor) -> torch.Tensor:
-    """The potrf launch sequence (csrc/potrf.cu) on the current stream:
-    the lower factor. Scratch: W11 (128 x 128), then X ((n - 128) x 128)."""
+def _launch_sequence(kind: str, a: torch.Tensor):
+    """One launch sequence on the current stream: "potrf" (csrc/potrf.cu)
+    gives L, "potrf_inv" (potrf.cu's sequence, then csrc/trtri.cu's levels)
+    (L, L⁻¹), "trtri" (csrc/trtri.cu) L⁻¹ of the lower-triangular a.
+    Scratch: potrf's W11 (128 x 128) then X ((n - 128) x 128); trtri's
+    levels' T, n²/4 floats; potrf_inv X, later T."""
     n = a.shape[0]
     a = _aligned(a)
-    l = torch.empty_like(a)
-    scratch = torch.empty((n, _B), dtype=torch.float32, device=a.device)
+    outs = [torch.empty_like(a) for _ in range(2 if kind == "potrf_inv" else 1)]
+    floats = {"potrf": n * _B, "trtri": n * n // 4, "potrf_inv": max(n * _B, n * n // 4)}[kind]
+    scratch = torch.empty(floats, dtype=torch.float32, device=a.device)
     launched = ctypes.c_int(0)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().npw_potrf(n, a.data_ptr(), l.data_ptr(), scratch.data_ptr(), stream,
-                              ctypes.byref(launched))
-    LAUNCHES["potrf"] += 1
-    DEVICE_LAUNCHES["potrf"] += launched.value
-    _build.check(rc, "potrf kernel")
-    return l
+        rc = getattr(_lib(), f"npw_{kind}")(n, a.data_ptr(), *(o.data_ptr() for o in outs),
+                                            scratch.data_ptr(), stream, ctypes.byref(launched))
+    LAUNCHES[kind] += 1
+    DEVICE_LAUNCHES[kind] += launched.value
+    _build.check(rc, f"{kind} kernel")
+    return outs[0] if len(outs) == 1 else tuple(outs)
 
 
 def potrf_diag_block(d: torch.Tensor):
@@ -288,24 +328,6 @@ def potrf_diag_block(d: torch.Tensor):
         rc = _lib().npw_potrf_diag(d.data_ptr(), l.data_ptr(), w.data_ptr(), stream)
     LAUNCHES["potrf_diag"] += 1
     _build.check(rc, "potrf diagonal step")
-    return l, w
-
-
-def _launch_factor(kind: str, a: torch.Tensor):
-    """One launch of the factor kernel in `kind` mode ("potrf_inv" or
-    "trtri"): (l, w) with l None for trtri."""
-    n = a.shape[0]
-    a = a.contiguous()
-    l = torch.empty_like(a) if kind == "potrf_inv" else None
-    w = torch.empty_like(a)
-    scratch = torch.empty((n, n), dtype=torch.float32, device=a.device)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().npw_factor(_MODES[kind], n, a.data_ptr(),
-                               l.data_ptr() if l is not None else None,
-                               w.data_ptr(), scratch.data_ptr(), stream)
-    LAUNCHES[kind] += 1
-    _build.check(rc, f"{kind} kernel")
     return l, w
 
 
@@ -329,29 +351,32 @@ def potrf_pallas(a: torch.Tensor) -> torch.Tensor:
         return _cholesky_lib(a)
     if not on_cuda(a):
         return potrf_ref(a)
-    return _launch_potrf(a)
+    return _launch_sequence("potrf", a)
 
 
 def potrf_inv_pallas(a: torch.Tensor):
-    """(L, L⁻¹) of an SPD tile in one kernel (same envelope); cholesky +
-    triangular solve outside it."""
+    """(L, L⁻¹) of an SPD tile (same envelope): the potrf_inv launch
+    sequence on the card, potrf_inv_ref on the CPU; cholesky + triangular
+    solve outside it."""
     n = _square(a, "potrf_inv_pallas")
     if not _supported(n, a.dtype):
         l = _cholesky_lib(a)
         return l, _trtri_lib(l)
     if not on_cuda(a):
         return potrf_inv_ref(a)
-    return _launch_factor("potrf_inv", a)
+    return _launch_sequence("potrf_inv", a)
 
 
 def trtri_pallas(l: torch.Tensor) -> torch.Tensor:
-    """Inverse of a lower-triangular tile (same envelope)."""
+    """Inverse of a lower-triangular tile (same envelope): the trtri launch
+    sequence on the card, trtri_ref on the CPU, solve_triangular outside
+    it."""
     n = _square(l, "trtri_pallas")
     if not _supported(n, l.dtype):
         return _trtri_lib(l)
     if not on_cuda(l):
         return trtri_ref(l)
-    return _launch_factor("trtri", l)[1]
+    return _launch_sequence("trtri", l)
 
 
 def trsm_pallas(a: torch.Tensor, l: torch.Tensor, *,

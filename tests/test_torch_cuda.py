@@ -124,22 +124,26 @@ def _spd(gen, n):
     return x @ x.T / n + torch.eye(n, device="cuda")
 
 
-@pytest.mark.parametrize("n", [128, 256, 384, 512, 1024])
+@pytest.mark.parametrize("n", [128, 256, 384, 512, 640, 1024])
 def test_factor_kernels(gen, n):
-    """potrf (csrc/potrf.cu's launch sequence), potrf_inv, trtri, trsm
-    against their plain versions: the same fp32 algorithm in another
-    blocking and summation order (rel 1e-5); strict upper triangles exactly
-    0; one counted launch per wrapper call, and potrf's 4 n/128 - 3 device
-    launches; L W = I to 1e-4."""
+    """potrf (csrc/potrf.cu's launch sequence), potrf_inv (the same sequence
+    and csrc/trtri.cu's levels), trtri (csrc/trtri.cu), trsm against their
+    plain versions: the same fp32 algorithm in another blocking and
+    summation order (rel 1e-5); strict upper triangles exactly 0; one
+    counted launch per wrapper call, and the sequences' device launches
+    (potrf 4 n/128 - 3, trtri 1 + 2 ceil(log2(n/128)), potrf_inv both);
+    L W = I to 1e-4."""
     from numpywren_tpu_torch.ops import pallas_factor as pf
 
     a = _spd(gen, n)
     before = dict(pf.LAUNCHES)
-    device_before = pf.DEVICE_LAUNCHES["potrf"]
+    device_before = dict(pf.DEVICE_LAUNCHES)
     l = pf.potrf_pallas(a)
-    assert pf.DEVICE_LAUNCHES["potrf"] == device_before + 4 * n // 128 - 3
     l2, w = pf.potrf_inv_pallas(a)
     wi = pf.trtri_pallas(l)
+    for kind in ("potrf", "potrf_inv", "trtri"):
+        assert (pf.DEVICE_LAUNCHES[kind]
+                == device_before[kind] + pf.device_launches(kind, n)), kind
     x = _rand(gen, 300, n)
     s = pf.trsm_pallas(x, l, precision="highest")
     assert pf.LAUNCHES["potrf"] == before["potrf"] + 1
@@ -214,6 +218,25 @@ def test_potrf_diag_step(gen, kappa):
                  .abs().max()) <= 1e-4
     for m in (l, w):
         assert torch.count_nonzero(torch.triu(m, 1)) == 0
+
+
+@pytest.mark.parametrize("n", [384, 1024])
+def test_inverse_kernels_on_a_side_stream(gen, n):
+    """trtri and potrf_inv enqueue on the caller's stream: on a new
+    torch.cuda.Stream they give the same bits as on the default stream."""
+    from numpywren_tpu_torch.ops import pallas_factor as pf
+
+    a = _spd(gen, n)
+    l = pf.potrf_pallas(a)
+    want = pf.trtri_pallas(l), *pf.potrf_inv_pallas(a)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = pf.trtri_pallas(l), *pf.potrf_inv_pallas(a)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_factor_envelope_fallback_does_not_launch(gen):

@@ -59,7 +59,7 @@ def test_factor_block_rec_ref_matches_jax(kappa):
     assert torch.equal(gl, torch.from_numpy(l)) and torch.equal(gw, torch.from_numpy(w))
 
 
-@pytest.mark.parametrize("n", [128, 256])
+@pytest.mark.parametrize("n", [128, 256, 384])
 def test_potrf_inv_ref_matches_jax(n):
     a = random_spd(n, seed=11)
     jl, jw = jpf.potrf_inv_pallas(jnp.asarray(a), interpret=True)
@@ -72,7 +72,7 @@ def test_potrf_inv_ref_matches_jax(n):
     assert np.abs(np.triu(w, 1)).max() == 0.0
 
 
-@pytest.mark.parametrize("n", [128, 256])
+@pytest.mark.parametrize("n", [128, 256, 384])
 def test_trtri_and_trsm_refs_match_jax(n, rng):
     a = random_spd(n, seed=4)
     l = np.linalg.cholesky(a.astype(np.float64)).astype(np.float32)
@@ -85,6 +85,28 @@ def test_trtri_and_trsm_refs_match_jax(n, rng):
     s = pf.trsm_pallas(_t(x), _t(l)).numpy()
     ref = np.asarray(jpf.trsm_pallas(jnp.asarray(x), jnp.asarray(l)))
     np.testing.assert_allclose(s, ref, rtol=1e-3, atol=1e-3 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("kappa", [10.0, 1e4])
+@pytest.mark.parametrize("n", [128, 384, 640, 1024])
+def test_inverse_levels_ref_matches_fp64(n, kappa):
+    """trtri_ref (32-wide leaves, doubling from h = 32) and potrf_inv_ref's
+    W (128-wide W11s, doubling from h = 128) against fp64 solve_triangular
+    on the factor of an SPD matrix: relative Frobenius error <= 5e-6 (fp32
+    inverses reach ~1e-6 at κ(A) = 1e4), the ragged pairs of n = 384 and 640
+    included; strict upper triangles exactly 0. The launch counts of the
+    card's sequences, as the kernels' sources state them."""
+    a = _t(_spd_kappa(n, kappa, seed=13))
+    l, w = pf.potrf_inv_ref(a)
+    want = torch.linalg.solve_triangular(l.double(), torch.eye(n, dtype=torch.float64),
+                                         upper=False)
+    for got in (pf.trtri_ref(l), w):
+        err = torch.linalg.norm(got.double() - want) / torch.linalg.norm(want)
+        assert float(err) <= 5e-6
+        assert torch.count_nonzero(torch.triu(got, 1)) == 0
+    sizes = (128, 384, 512, 640, 1024)
+    assert [pf.device_launches("trtri", m) for m in sizes] == [1, 5, 5, 7, 7]
+    assert [pf.device_launches("potrf_inv", m) for m in sizes] == [1, 13, 17, 23, 35]
 
 
 def test_envelope_fallback_n96():
