@@ -13,11 +13,18 @@ executors on both storage tiers (P15-P16):
 
   P0  the card, its power limit, the kernel build
   P1  each kernel vs its plain version: relative Frobenius error <= 1e-5
-      (same fp32 or bf16x3 arithmetic, summation order only) and the mean
-      time of >= 10 warm launches, kernel and plain in turns (CUDA events)
+      (same fp32, bf16x3 or bf16x6 arithmetic, summation order only) and the
+      mean time of >= 10 warm launches, kernel and plain in turns (CUDA
+      events); the matmul kernel (bf16x6 on the tensor cores) also vs
+      _matmul_split_ref (its own arithmetic) <= 1e-5, its device launches
+      (pack A, pack B, mainloop: 3 a call), its pack and mainloop device time
+      at the trailing update (torch.profiler) with the ring's stages and
+      shared bytes, and the error against fp64 of matmul, addmm (true FP32)
+      and matmul3 at K = 1024 and 8192: matmul's within 2x of addmm's
   P2  cholesky(TrapezoidMatrix, storage="trapezoid") + run_program with
       NpwConfig.compensated: every GEMM through the matmul3 kernel
-  P3  cholesky_trapezoid(t, precision="highest"): the matmul kernel
+  P3  cholesky_trapezoid(t, precision="highest"): the matmul kernel, its
+      device launches 3 a call
   P4  the default configuration (torch.matmul, true FP32), the plain
       reference, and ||L_P2 - L_P4|| / ||L_P4|| <= 1e-4
   P5  the flat entry point cholesky(shard_matrix(A)) + run_program at
@@ -93,6 +100,7 @@ import time
 PANEL = 1024
 RESID_BAR = 1e-4
 KERNEL_BAR = 1e-5
+FP64_RATIO_BAR = 2.0  # matmul's error against fp64 over addmm's (true FP32)
 INV_BAR = 1e-4     # ||L W - I||_max of a factor kernel
 CHAIN_Q_BAR = 3e-5  # max |q - q_plain| of the chain (tests/test_pallas_factor.py:180)
 DEV2_BAR = 1e-4    # dev2 of kernel and plain: two summation orders of one product
@@ -184,6 +192,7 @@ def p1_kernels(torch, gen):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
     r = 31744  # rows below the first panel at N=32768, panel 1024
+    launches0 = (gemm.LAUNCHES, gemm.DEVICE_LAUNCHES)
     cases = [  # (name, m, k, n, with c)
         ("trailing", r, 1024, 1024, True),
         ("rtrsm_512", r, 512, 512, False),
@@ -207,10 +216,16 @@ def p1_kernels(torch, gen):
                 kw = dict(tb=True, alpha=-1.0, beta=1.0) if with_c else dict(tb=True)
                 run = lambda: gemm.matmul(a, b, c, precision="highest", **kw)  # noqa: E731
                 plain = lambda: gemm.matmul_ref(a, b, c, **kw)  # noqa: E731
-            b_ms, b_by = (bound(3 * flops, nbytes, PEAK_BF16) if kern == "matmul3"
-                          else bound(flops, nbytes, PEAK_FP32))
+            if kern == "matmul3":
+                b_ms, b_by = bound(3 * flops, nbytes, PEAK_BF16)
+                extra = {}
+            else:  # six bf16 products; the FFMA bound of the same fp32 product beside it
+                b_ms, b_by = bound(6 * flops, nbytes, PEAK_BF16)
+                extra = dict(ffma_bound_ms=bound(flops, nbytes, PEAK_FP32)[0],
+                             split_ref=lambda: gemm._matmul_split_ref(a, b, c, **kw))
             results[kern].append(_compare(torch, f"{kern}:{name}", m, k, n, run, plain,
-                                          torch_ms=torch_ms, bound_ms=b_ms, bound_by=b_by))
+                                          torch_ms=torch_ms, bound_ms=b_ms, bound_by=b_by,
+                                          **extra))
 
     # in place, as the trailing update runs: out aliases c
     m, k, n = r, 1024, 1024
@@ -223,21 +238,103 @@ def p1_kernels(torch, gen):
          lambda: gemm.matmul_ref(a, b, c, tb=True, alpha=-1.0, beta=1.0)),
     ):
         row = _check(f"{kern}:trailing_in_place", run(c.clone()), plain())
+        if kern == "matmul":
+            row["rel_err_split_ref"] = _check(
+                "matmul:trailing_in_place vs split", run(c.clone()),
+                gemm._matmul_split_ref(a, b, c, tb=True, alpha=-1.0, beta=1.0))["rel_err"]
         emit({"phase": "P1", **row})
         results[kern].append(row)
 
-    # matmul only: op(A) transposed, alpha/beta, and bf16 inputs
+    # matmul only: op(A) transposed, alpha/beta, and bf16 inputs (one plane)
     a, b, c = rand(300, 1000), rand(300, 777), rand(1000, 777)
+    kw = dict(ta=True, alpha=0.5, beta=-2.0)
     results["matmul"].append(_compare(
         torch, "matmul:ta_alpha_beta", 1000, 300, 777,
-        lambda: gemm.matmul(a, b, c, ta=True, alpha=0.5, beta=-2.0, precision="highest"),
-        lambda: gemm.matmul_ref(a, b, c, ta=True, alpha=0.5, beta=-2.0)))
+        lambda: gemm.matmul(a, b, c, precision="highest", **kw),
+        lambda: gemm.matmul_ref(a, b, c, **kw),
+        split_ref=lambda: gemm._matmul_split_ref(a, b, c, **kw)))
     a, b = rand(r, 1024, dtype=torch.bfloat16), rand(1024, 1024, dtype=torch.bfloat16)
+    kw = dict(tb=True, out_dtype=torch.float32)
+    flops, nbytes = 2 * r * 1024 * 1024, 2 * (r * 1024 + 1024 * 1024) + 4 * r * 1024
+    b_ms, b_by = bound(flops, nbytes, PEAK_BF16)
     results["matmul"].append(_compare(
         torch, "matmul:bf16_trailing", r, 1024, 1024,
-        lambda: gemm.matmul(a, b, tb=True, out_dtype=torch.float32, precision="default"),
-        lambda: gemm.matmul_ref(a, b, tb=True, out_dtype=torch.float32)))
+        lambda: gemm.matmul(a, b, precision="default", **kw),
+        lambda: gemm.matmul_ref(a, b, **kw), bound_ms=b_ms, bound_by=b_by,
+        split_ref=lambda: gemm._matmul_split_ref(a, b, **kw)))
+    calls = gemm.LAUNCHES - launches0[0]
+    device = gemm.DEVICE_LAUNCHES - launches0[1]
+    require(device == 3 * calls, f"P1 matmul: {device} device launches for {calls} calls, not 3 each")
+    results["matmul_split"] = matmul_split_profile(torch, gen, r)
+    results["fp64"] = p1_fp64_errors(torch, gen)
     return results
+
+
+def matmul_split_profile(torch, gen, m: int, k: int = 1024, n: int = 1024, sessions: int = 3):
+    """One warm trailing update c - a bᵀ through the matmul kernel under
+    torch.profiler: the device ms of the two pack launches and of the
+    mainloop, with the ring the mainloop runs (slice depth, stages, dynamic
+    shared bytes a CTA). A session that recorded other than three of the
+    kernel's launches is taken again; after `sessions` the split is None."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gemm = gemm_module()
+    a, b, c = (torch.randn(*s, generator=gen, device="cuda") for s in ((m, k), (n, k), (m, n)))
+
+    def run():
+        return gemm.matmul(a, b, c, tb=True, alpha=-1.0, beta=1.0, precision="highest")
+
+    run()
+    torch.cuda.synchronize()
+    split = None
+    for attempt in range(1, sessions + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and "gemm_split_" in e.name]
+        if len(kernels) == 3:
+            split = {"pack": 0.0, "mainloop": 0.0}
+            for e in kernels:
+                step = "pack" if "gemm_split_pack" in e.name else "mainloop"
+                split[step] += e.time_range.elapsed_us() / 1e3
+            break
+    if split is None:
+        print(f"chip_smoke: matmul's pack/mainloop split not measured ({sessions} sessions)",
+              file=sys.stderr, flush=True)
+    row = {"case": "matmul:trailing_split", "shape": [m, k, n], "device_ms": split,
+           "sessions": attempt, **gemm.split_plan(3)}
+    emit({"phase": "P1", **row})
+    return row
+
+
+def p1_fp64_errors(torch, gen, m: int = 4096, n: int = 1024):
+    """c - a bᵀ against its fp64 value (relative Frobenius) at K = 1024 and
+    8192: the matmul kernel (bf16x6), torch.addmm (cuBLAS, true FP32) and
+    the matmul3 kernel (bf16x3), on the same inputs."""
+    from numpywren_tpu_torch.ops import gemm3
+
+    gemm = gemm_module()
+    rows = []
+    for k in (1024, 8192):
+        a, b, c = (torch.randn(*s, generator=gen, device="cuda") for s in ((m, k), (n, k), (m, n)))
+        exact = c.double() - a.double() @ b.double().T
+        errs = {}
+        for name, got in (
+            ("matmul", gemm.matmul(a, b, c, tb=True, alpha=-1.0, beta=1.0, precision="highest")),
+            ("addmm", torch.addmm(c, a, b.T, alpha=-1.0)),
+            ("matmul3", gemm3.matmul3(a, b, c, tb=True)),
+        ):
+            errs[name] = float(torch.linalg.norm(got.double() - exact) / torch.linalg.norm(exact))
+        row = {"case": f"fp64_error:k{k}", "shape": [m, k, n], "rel_err_vs_fp64": errs,
+               "matmul_over_addmm": errs["matmul"] / errs["addmm"]}
+        emit({"phase": "P1", **row})
+        require(errs["matmul"] <= FP64_RATIO_BAR * errs["addmm"],
+                f"P1 K={k}: matmul's error {errs['matmul']} > {FP64_RATIO_BAR} x addmm's "
+                f"{errs['addmm']}")
+        rows.append(row)
+    return rows
 
 
 def _check(name, got, want):
@@ -251,8 +348,12 @@ def _check(name, got, want):
     return {"case": name, "rel_err": rel, "max_abs_err": mx}
 
 
-def _compare(torch, name, m, k, n, run, plain, **extra):
+def _compare(torch, name, m, k, n, run, plain, split_ref=None, **extra):
+    """`run` against `plain` (and against `split_ref`, the kernel's own
+    arithmetic, when given), then both timed in turns."""
     row = _check(name, run(), plain())
+    if split_ref is not None:
+        row["rel_err_split_ref"] = _check(f"{name} vs split", run(), split_ref())["rel_err"]
     ms, plain_ms = in_turns(torch, run, plain)
     row.update(shape=[m, k, n], ms=ms, plain_ms=plain_ms,
                kernel_tflops=2 * m * n * k / ms / 1e9, **extra)
@@ -322,6 +423,7 @@ def main_path(torch, npw, n: int, n_flat: int, seed: int):
 
     def reset():
         gemm.LAUNCHES = 0
+        gemm.DEVICE_LAUNCHES = 0
         gemm3.LAUNCHES = 0
 
     def counts():
@@ -376,9 +478,12 @@ def main_path(torch, npw, n: int, n_flat: int, seed: int):
     l3, host_s, dev_s = run_entry(torch, lambda: npw.cholesky_trapezoid(t, precision="highest"))
     c3 = counts()
     require(c3["matmul"] > 0 and c3["matmul3"] == 0, f"P3 launches {c3}")
+    require(gemm.DEVICE_LAUNCHES == 3 * c3["matmul"],
+            f"P3: {gemm.DEVICE_LAUNCHES} device launches for {c3['matmul']} matmul calls")
     launches["matmul"] += c3["matmul"]
     p3_row = report("P3", l3, host_s, dev_s,
-                    {"config": "highest", "entry": "cholesky_trapezoid", "launches": c3})
+                    {"config": "highest", "entry": "cholesky_trapezoid", "launches": c3,
+                     "device_launches": gemm.DEVICE_LAUNCHES})
     del t, l3
 
     # P4: the plain reference (torch.matmul in true FP32)
@@ -1140,7 +1245,7 @@ def main(argv=None) -> int:
     require("numpywren_tpu" not in sys.modules, "the JAX package was imported")
     kernels = []
     for name, src, replaces in (
-        ("matmul", "numpywren_tpu_torch/csrc/gemm.cu", "numpywren_tpu/ops/gemm.py:145"),
+        ("matmul", "numpywren_tpu_torch/csrc/gemm_split.cu", "numpywren_tpu/ops/gemm.py:145"),
         ("matmul3", "numpywren_tpu_torch/csrc/gemm3.cu", "numpywren_tpu/ops/gemm3.py:120"),
     ):
         main_case = p1[name][0]  # the trailing update, 31744x1024 by 1024x1024

@@ -1,10 +1,11 @@
 // out = alpha * op(A) @ op(B) + beta * C in true FP32, on the CUDA cores.
 //
-// Replaces the Pallas MXU kernel numpywren_tpu/ops/gemm.py::matmul
-// (_mm_kernel), which the TPU path runs at precision HIGHEST (fp32-exact) and
-// on bf16 inputs at DEFAULT. HIGHEST means fp32 products and sums, so on
-// Hopper this is an FFMA kernel: TF32 tensor cores would keep only ten
-// mantissa bits, and a bf16x6 split would cost six tensor-core passes.
+// The FP32 product engine that potrf.cu's launch sequence and the CholeskyQR2
+// chain's apply (cholqr_chain.cu) call from C; their plain versions are fp32
+// and their error bars were set on this kernel. It is no longer the kernel of
+// ops/gemm.py::matmul: the Pallas kernel there (numpywren_tpu/ops/gemm.py,
+// _mm_kernel) computes HIGHEST as a bf16x6 split on the MXU, which
+// gemm_split.cu does on the tensor cores, under this kernel's FFMA bound.
 //
 // Bound: FP32 FFMA issue (67 TFLOP/s on an H100 SXM). At the Cholesky's
 // shapes (K = 128..1024) a 128 x 128 output tile reads 2 * 128 * K inputs for

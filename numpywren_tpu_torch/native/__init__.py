@@ -25,19 +25,27 @@ _lib = None
 _tried = False
 
 
-def build(force: bool = False) -> bool:
-    """Compile schedule_core.cpp -> _schedule_core.so. Returns success."""
-    if os.path.exists(_SO) and not force:
-        if os.path.getmtime(_SO) >= os.path.getmtime(_SRC):
+def build(force: bool = False, so: str = _SO) -> bool:
+    """Compile schedule_core.cpp -> `so` (by default _schedule_core.so).
+    Returns success. g++ writes a file of its own beside `so`, which then
+    replaces `so` at once: a concurrent loader (another process, an xdist
+    worker) sees no library or a whole one, never half a file."""
+    if os.path.exists(so) and not force:
+        if os.path.getmtime(so) >= os.path.getmtime(_SRC):
             return True
+    tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
     try:
         subprocess.run(
-            ["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-o", _SO, _SRC],
+            ["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-o", tmp, _SRC],
             check=True, capture_output=True, timeout=240,
         )
+        os.replace(tmp, so)
         return True
     except Exception:
         return False
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def load():

@@ -5,8 +5,9 @@ Precision names mirror ``jax.lax.Precision`` as strings:
 =============  ===========================================================
 ``"high"``     fp32 default. ``torch.matmul`` in true FP32, or the bf16x3
                ``matmul3`` kernel when ``NpwConfig.compensated`` is on.
-``"highest"``  the hand-written FP32 ``matmul`` kernel (FFMA).
-``"default"``  bf16 default: the ``matmul`` kernel, bf16 in, fp32 sums.
+``"highest"``  the hand-written ``matmul`` kernel: fp32 operands as a
+               bf16x6 split on the tensor cores, as the TPU computes HIGHEST.
+``"default"``  bf16 default: the ``matmul`` kernel, one bf16 product, fp32 sums.
 =============  ===========================================================
 
 TF32 policy: off. TF32 keeps about three decimal digits, the one-pass mode

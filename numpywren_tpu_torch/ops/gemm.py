@@ -3,16 +3,21 @@
     out = alpha * op(A) @ op(B) + beta * C
 
 Counterpart of numpywren_tpu/ops/gemm.py. The TPU kernel (Pallas, on the
-MXU) becomes the hand-written CUDA kernel ``csrc/gemm.cu``: FP32 FFMA with
-the transposes folded into index arithmetic and the epilogue fused, so the
-Cholesky trailing update ``S - L Lᵀ`` is one launch that writes ``S`` in
+MXU) computes HIGHEST as a bf16x6 split product, and so does its Hopper
+counterpart ``csrc/gemm_split.cu``: a pack pass writes each operand as bf16
+planes (three for fp32: hi, mid, lo; one for bf16), K-major with the
+transposes folded in, then a TMA-fed wgmma mainloop sums the plane pairs
+(i, j) with i + j < P (six products for fp32, one for bf16) with the
+epilogue fused, so the Cholesky trailing update ``S - L Lᵀ`` writes ``S`` in
 place (``out=`` may be ``c``).
 
 Routing mirrors the JAX package: precision ``"high"`` is the library GEMM
 (``torch.matmul`` in true FP32, TF32 off, as JAX hands HIGH to XLA's dot);
 ``"highest"`` and bf16 ``"default"`` launch the kernel. A CPU tensor takes
-``matmul_ref``, the plain PyTorch version; a CUDA tensor launches the kernel
-or raises.
+``matmul_ref``, the plain PyTorch version in fp32 (as JAX on the CPU
+computes); a CUDA tensor launches the kernel or raises. ``_pack_ref`` and
+``_matmul_split_ref`` repeat the kernel's own arithmetic (planes, pair
+schedule, per-slice sums added in fp32) for the tests and ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -24,13 +29,17 @@ import torch
 
 from numpywren_tpu_torch.ops import _build
 from numpywren_tpu_torch.ops.common import (
+    cdiv,
     check_precision,
     default_precision,
     leading_dim,
     on_cuda,
 )
 
-LAUNCHES = 0  # kernel launches in this process (matmul_ref calls do not count)
+LAUNCHES = 0  # matmul kernel calls in this process (matmul_ref calls do not count)
+DEVICE_LAUNCHES = 0  # the device launches of those calls: pack A, pack B, mainloop
+
+SLICE = 64  # the mainloop's slice depth (csrc/gemm_split.cu BK); planes pad K to it
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -58,12 +67,69 @@ def matmul_ref(a, b, c=None, *, ta=False, tb=False, alpha=1.0, beta=1.0,
     return acc.to(out_dtype or a.dtype)
 
 
+def _planes_of(dtype) -> int:
+    """Planes of an operand: three (hi, mid, lo) for fp32, one for bf16."""
+    return 1 if dtype == torch.bfloat16 else 3
+
+
+def _pairs(planes: int):
+    """The product schedule: plane pairs (i, j) with i + j < planes, smallest
+    products first, in the kernel's order (hl, mm, lh, hm, mh, hh at 3)."""
+    return [(i, s - i) for s in range(planes - 1, -1, -1) for i in range(s + 1)]
+
+
+def _depth(k: int) -> int:
+    """K padded to whole slices, at least one (the planes' row length)."""
+    return max(1, cdiv(k, SLICE)) * SLICE
+
+
+def _pack_ref(x: torch.Tensor, *, trans: bool = False, planes: int = 3) -> torch.Tensor:
+    """Plain version of the pack pass: op(x) (x, or xᵀ with `trans`; rows x K)
+    as (planes, rows, kp) bf16, plane p = rn(x - planes before it), K
+    zero-padded to whole slices."""
+    r = (x.T if trans else x).float()
+    rows, k = r.shape
+    out = torch.zeros((planes, rows, _depth(k)), dtype=torch.bfloat16, device=x.device)
+    for p in range(planes):
+        out[p, :, :k] = r.to(torch.bfloat16)
+        r = r - out[p, :, :k].float()  # exact in fp32
+    return out
+
+
+def _matmul_split_ref(a, b, c=None, *, ta=False, tb=False, alpha=1.0, beta=1.0,
+                      out_dtype=None, planes=None) -> torch.Tensor:
+    """Plain version of the kernel's arithmetic: `planes` bf16 planes of
+    op(a) and op(b) (by default 3 for fp32, 1 for bf16), each slice's
+    pair products summed in fp32, the slices' sums added in fp32 in order,
+    then the epilogue. The tensor cores' truncating sums inside a slice are
+    round-to-nearest here."""
+    m, n, _ = _shape(a, b, ta, tb)
+    planes = planes or _planes_of(a.dtype)
+    pa = _pack_ref(a, trans=ta, planes=planes)
+    pb = _pack_ref(b, trans=not tb, planes=planes)
+    acc = torch.zeros((m, n), dtype=torch.float32, device=a.device)
+    for k0 in range(0, pa.shape[2], SLICE):
+        part = None
+        for i, j in _pairs(planes):
+            prod = pa[i, :, k0:k0 + SLICE].float() @ pb[j, :, k0:k0 + SLICE].float().T
+            part = prod if part is None else part + prod
+        acc += part
+    acc = acc * alpha
+    if c is not None:
+        acc = acc + beta * c.float()
+    return acc.to(out_dtype or a.dtype)
+
+
 def _lib():
     lib = _build.library()
     if not getattr(lib, "_npw_gemm_typed", False):
         p, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-        lib.npw_gemm.argtypes = [i, i, i, i, p, ll, p, ll, p, ll, p, ll, i, i, i, f, f, p]
-        lib.npw_gemm.restype = i
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.npw_gemm_pack.argtypes = [i, i, p, ll, i, i, i, p, p, ip]
+        lib.npw_gemm_split.argtypes = [i, i, p, p, i, p, ll, p, ll, i, i, f, f, p, ip]
+        lib.npw_gemm_split_plan.argtypes = [i, ip, ip, ip]
+        for fn in (lib.npw_gemm_pack, lib.npw_gemm_split, lib.npw_gemm_split_plan):
+            fn.restype = i
         lib._npw_gemm_typed = True
     return lib
 
@@ -77,8 +143,18 @@ def _strided(t: torch.Tensor):
     return t, ld
 
 
+def split_plan(planes: int) -> dict:
+    """The mainloop's slice depth, ring stages and dynamic shared bytes per
+    CTA at `planes` planes (1 or 3), as csrc/gemm_split.cu sets them."""
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    _build.check(_lib().npw_gemm_split_plan(planes, *map(ctypes.byref, vals)), "split plan")
+    return dict(zip(("slice", "stages", "smem_bytes"), (v.value for v in vals)))
+
+
 def _launch(a, b, c, out, ta, tb, alpha, beta, m, n, k):
-    global LAUNCHES
+    """Pack op(A) and op(B) into bf16 planes, then the mainloop: three
+    device launches on the current stream, counted as one call."""
+    global LAUNCHES, DEVICE_LAUNCHES
     if a.dtype not in _KERNEL_DTYPES or b.dtype != a.dtype:
         raise TypeError(f"matmul kernel takes fp32 or bf16 A and B of one dtype, got "
                         f"{a.dtype} and {b.dtype}")
@@ -97,15 +173,27 @@ def _launch(a, b, c, out, ta, tb, alpha, beta, m, n, k):
     if ldo is None or tuple(out.shape) != (m, n):
         raise ValueError(f"out must be ({m}, {n}) with unit column stride, got "
                          f"{tuple(out.shape)} strides {out.stride()}")
+    planes, kp, in_bf16 = _planes_of(a.dtype), _depth(k), int(a.dtype == torch.bfloat16)
+    # op(A)'s planes (planes, m, kp), then op(B)'s (planes, n, kp), in one buffer
+    buf = torch.empty(planes * (m + n) * kp, dtype=torch.bfloat16, device=dev)
+    a_planes, b_planes = buf.data_ptr(), buf.data_ptr() + 2 * planes * m * kp
+    lib, launched = _lib(), ctypes.c_int(0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().npw_gemm(
-            int(a.dtype == torch.bfloat16), int(out.dtype == torch.bfloat16),
-            int(ta), int(tb), a.data_ptr(), lda, b.data_ptr(), ldb,
-            c.data_ptr() if c is not None else None, ldc, out.data_ptr(), ldo,
-            m, n, k, float(alpha), float(beta), stream)
+        what, rc = "pack A", lib.npw_gemm_pack(in_bf16, int(ta), a.data_ptr(), lda, m, k, kp,
+                                               a_planes, stream, ctypes.byref(launched))
+        if rc == 0:
+            what, rc = "pack B", lib.npw_gemm_pack(in_bf16, int(not tb), b.data_ptr(), ldb, n,
+                                                   k, kp, b_planes, stream,
+                                                   ctypes.byref(launched))
+        if rc == 0:
+            what, rc = "mainloop", lib.npw_gemm_split(
+                planes, int(out.dtype == torch.bfloat16), a_planes, b_planes, kp,
+                c.data_ptr() if c is not None else None, ldc, out.data_ptr(), ldo, m, n,
+                float(alpha), float(beta), stream, ctypes.byref(launched))
     LAUNCHES += 1
-    _build.check(rc, "matmul kernel")
+    DEVICE_LAUNCHES += launched.value
+    _build.check(rc, f"matmul kernel ({what})")
     return out
 
 

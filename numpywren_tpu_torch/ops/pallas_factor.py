@@ -11,7 +11,8 @@ are hand-written CUDA C++ for Hopper:
   shared memory, factored by a 32-wide recursion: one warp factors and
   inverts each 32 x 32 sub-block in registers, all warps solve and update
   the rest), then the panel solve X = A21 W11ᵀ and the trailing update
-  A22 -= X Xᵀ as launches of the matmul kernel, and a store of X into L.
+  A22 -= X Xᵀ as launches of ``csrc/gemm.cu``'s FP32 FFMA ``npw_gemm``, and
+  a store of X into L.
 - ``csrc/trtri.cu``: ``trtri`` of an (n, n) lower-triangular fp32 tile
   by recursive doubling, 1 + 2⌈log2(n/128)⌉ launches: one launch of n/128
   CTAs inverts the 128 x 128 diagonal blocks in shared memory (a warp per
@@ -27,7 +28,7 @@ are hand-written CUDA C++ for Hopper:
   ``compiler.lower._cholqr_adaptive`` (shifted factor and inverse, the
   analytic pass-2 Gram, the Neumann or identity fold chosen on the device,
   the folded inverse and R) in one launch, then the apply of the folded
-  inverse to the tall operand in true FP32 by the matmul kernel.
+  inverse to the tall operand in true FP32 by ``npw_gemm`` (FFMA).
 - ``csrc/qr.cu``: the thin compact-WY Householder QR of an (m, n) tile with
   LAPACK geqrf signs, one cooperative launch of P = min(16, m / 32) CTAs,
   each holding its m / P rows of the working copy and of V (later of Q) in

@@ -68,10 +68,12 @@ def test_matmul_kernel(gen, m, n, k, ta, tb, dtype):
     b = _rand(gen, *((n, k) if tb else (k, n)), dtype=dtype)
     c = _rand(gen, m, n)
     kw = dict(ta=ta, tb=tb, alpha=0.5, beta=-2.0, out_dtype=torch.float32)
-    before = gemm.LAUNCHES
+    before, device_before = gemm.LAUNCHES, gemm.DEVICE_LAUNCHES
     got = gemm.matmul(a, b, c, precision="highest", **kw)
     assert gemm.LAUNCHES == before + 1
+    assert gemm.DEVICE_LAUNCHES == device_before + 3  # pack A, pack B, mainloop
     _close(got, gemm.matmul_ref(a, b, c, **kw))
+    _close(got, gemm._matmul_split_ref(a, b, c, **kw))
 
 
 def test_bf16_output_and_c_of_another_dtype(gen):
@@ -98,6 +100,65 @@ def test_strided_views_in_place(gen, kernel):
     assert out.data_ptr() == c.data_ptr()
     _close(c, want)
     assert torch.equal(buf[:, :256], keep)
+
+
+@pytest.mark.parametrize("m,n,k", [(129, 257, 1000), (1000, 777, 300), (4096, 1024, 1024)])
+def test_matmul_kernel_against_its_split_arithmetic(gen, m, n, k):
+    """Ragged and trailing-update shapes, c - a bᵀ as the Cholesky runs it:
+    the kernel against _matmul_split_ref (its own arithmetic) and matmul_ref
+    (fp32), and its error against fp64 within 2x of matmul_ref's (cuBLAS
+    in true FP32)."""
+    a, b, c = _rand(gen, m, k), _rand(gen, n, k), _rand(gen, m, n)
+    kw = dict(tb=True, alpha=-1.0, beta=1.0)
+    got = gemm.matmul(a, b, c, precision="highest", **kw)
+    _close(got, gemm._matmul_split_ref(a, b, c, **kw))
+    ref = gemm.matmul_ref(a, b, c, **kw)
+    _close(got, ref)
+    exact = c.double() - a.double() @ b.double().T
+
+    def err(x):
+        return torch.linalg.norm(x.double() - exact) / torch.linalg.norm(exact)
+
+    assert err(got) <= 2 * err(ref)
+
+
+def test_matmul_bf16_out_from_fp32(gen):
+    """fp32 operands (three planes), bf16 c and out: the kernel reads c and
+    writes out in bf16, rounded to nearest from its fp32 epilogue."""
+    a, b, c = _rand(gen, 300, 200), _rand(gen, 100, 200), _rand(gen, 300, 100)
+    c16 = c.to(torch.bfloat16)
+    got = gemm.matmul(a, b, c16, tb=True, alpha=-1.0, beta=1.0, out_dtype=torch.bfloat16,
+                      precision="highest")
+    assert got.dtype == torch.bfloat16
+    want = gemm.matmul_ref(a, b, c16, tb=True, alpha=-1.0, beta=1.0, out_dtype=torch.float32)
+    torch.testing.assert_close(got.float(), want, rtol=1e-2, atol=1e-2)  # bf16 rounding
+
+
+def test_matmul_kernel_same_bits_on_two_streams(gen):
+    """No atomics and no order that depends on timing: the same call on two
+    streams gives the same bits."""
+    a, b, c = _rand(gen, 1000, 512), _rand(gen, 640, 512), _rand(gen, 1000, 640)
+    outs = []
+    for _ in range(2):
+        s = torch.cuda.Stream()
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            outs.append(gemm.matmul(a, b, c, tb=True, alpha=-1.0, beta=1.0,
+                                    precision="highest"))
+        torch.cuda.current_stream().wait_stream(s)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_matmul_split_plan():
+    """The ring the mainloop runs: 64-deep slices, two stages of six 16 KB
+    tiles at three planes, six of two at one; all within 227 KB a CTA."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    p3, p1 = gemm.split_plan(3), gemm.split_plan(1)
+    assert p3["slice"] == p1["slice"] == gemm.SLICE
+    assert (p3["stages"], p1["stages"]) == (2, 6)
+    assert p3["smem_bytes"] >= 2 * 6 * 16384 and max(p3["smem_bytes"], p1["smem_bytes"]) <= 232448
 
 
 def test_non_unit_column_stride_is_copied(gen):
