@@ -15,20 +15,27 @@ executors on both storage tiers (P15-P16):
   P1  each kernel vs its plain version: relative Frobenius error <= 1e-5
       (same fp32, bf16x3 or bf16x6 arithmetic, summation order only) and the
       mean time of >= 10 warm launches, kernel and plain in turns (CUDA
-      events); the matmul kernel (bf16x6 on the tensor cores) also vs
-      _matmul_split_ref (its own arithmetic) <= 1e-5, its device launches
-      (pack A, pack B, mainloop: 3 a call), its pack and mainloop device time
-      at the trailing update (torch.profiler) with the ring's stages and
-      shared bytes, and the error against fp64 of matmul, addmm (true FP32)
-      and matmul3 at K = 1024 and 8192: matmul's within 2x of addmm's
+      events); the GEMM kernels (csrc/gemm_split.cu: matmul at three bf16
+      planes, matmul3 at two) also vs _matmul_split_ref (their own
+      arithmetic; matmul <= 1e-5, matmul3 <= 1e-6), their device launches
+      (pack A, pack B, mainloop: 3 a call), their pack and mainloop device
+      time at the trailing update (torch.profiler) with the ring's stages
+      and shared bytes; matmul3's panel route (gemm3.Panel: one pack, then
+      the mainloop alone at offsets 0 and 1024 of a 31744 x 1024 panel)
+      bit for bit against the per-call route, both timed; and the error
+      against fp64 of matmul, addmm (true FP32) and matmul3 at K = 1024 and
+      8192: matmul's within 2x of addmm's, matmul3's <= 1e-5
   P2  cholesky(TrapezoidMatrix, storage="trapezoid") + run_program with
-      NpwConfig.compensated: every GEMM through the matmul3 kernel
+      NpwConfig.compensated: every GEMM through the matmul3 kernel, each
+      panel packed once; its calls and device launches as the panel route
+      implies (panel_route_counts); then one compensated factorization
+      under torch.profiler: device ms by kernel group and the idle share
   P3  cholesky_trapezoid(t, precision="highest"): the matmul kernel, its
       device launches 3 a call
   P4  the default configuration (torch.matmul, true FP32), the plain
       reference, and ||L_P2 - L_P4|| / ||L_P4|| <= 1e-4
   P5  the flat entry point cholesky(shard_matrix(A)) + run_program at
-      N=16384, compensated
+      N=16384, compensated, matmul3's counts as in P2
   P6  potrf's diagonal step alone at 128² vs its plain version
       (_factor_block_rec_ref, rel <= 1e-5); potrf, potrf_inv, trtri, trsm
       kernels vs their plain versions at n = 128..1024, trtri and potrf_inv
@@ -100,6 +107,8 @@ import time
 PANEL = 1024
 RESID_BAR = 1e-4
 KERNEL_BAR = 1e-5
+SPLIT_BAR = 1e-6   # matmul3 against _matmul_split_ref(planes=2), its own arithmetic
+MATMUL3_FP64_BAR = 1e-5  # matmul3's error against fp64 (bf16x3: ~4.4e-6)
 FP64_RATIO_BAR = 2.0  # matmul's error against fp64 over addmm's (true FP32)
 INV_BAR = 1e-4     # ||L W - I||_max of a factor kernel
 CHAIN_Q_BAR = 3e-5  # max |q - q_plain| of the chain (tests/test_pallas_factor.py:180)
@@ -193,6 +202,7 @@ def p1_kernels(torch, gen):
 
     r = 31744  # rows below the first panel at N=32768, panel 1024
     launches0 = (gemm.LAUNCHES, gemm.DEVICE_LAUNCHES)
+    launches3 = (gemm3.LAUNCHES, gemm3.DEVICE_LAUNCHES)
     cases = [  # (name, m, k, n, with c)
         ("trailing", r, 1024, 1024, True),
         ("rtrsm_512", r, 512, 512, False),
@@ -218,7 +228,9 @@ def p1_kernels(torch, gen):
                 plain = lambda: gemm.matmul_ref(a, b, c, **kw)  # noqa: E731
             if kern == "matmul3":
                 b_ms, b_by = bound(3 * flops, nbytes, PEAK_BF16)
-                extra = {}
+                kw = dict(tb=True, alpha=-1.0, beta=1.0) if with_c else dict(tb=True)
+                extra = dict(split_ref=lambda: gemm._matmul_split_ref(a, b, c, planes=2, **kw),
+                             split_bar=SPLIT_BAR)
             else:  # six bf16 products; the FFMA bound of the same fp32 product beside it
                 b_ms, b_by = bound(6 * flops, nbytes, PEAK_BF16)
                 extra = dict(ffma_bound_ms=bound(flops, nbytes, PEAK_FP32)[0],
@@ -238,12 +250,16 @@ def p1_kernels(torch, gen):
          lambda: gemm.matmul_ref(a, b, c, tb=True, alpha=-1.0, beta=1.0)),
     ):
         row = _check(f"{kern}:trailing_in_place", run(c.clone()), plain())
-        if kern == "matmul":
-            row["rel_err_split_ref"] = _check(
-                "matmul:trailing_in_place vs split", run(c.clone()),
-                gemm._matmul_split_ref(a, b, c, tb=True, alpha=-1.0, beta=1.0))["rel_err"]
+        planes, bar = (2, SPLIT_BAR) if kern == "matmul3" else (3, KERNEL_BAR)
+        row["rel_err_split_ref"] = _check(
+            f"{kern}:trailing_in_place vs split", run(c.clone()),
+            gemm._matmul_split_ref(a, b, c, tb=True, alpha=-1.0, beta=1.0, planes=planes),
+            bar)["rel_err"]
         emit({"phase": "P1", **row})
         results[kern].append(row)
+    calls = gemm3.LAUNCHES - launches3[0]
+    device = gemm3.DEVICE_LAUNCHES - launches3[1]
+    require(device == 3 * calls, f"P1 matmul3: {device} device launches for {calls} calls, not 3 each")
 
     # matmul only: op(A) transposed, alpha/beta, and bf16 inputs (one plane)
     a, b, c = rand(300, 1000), rand(300, 777), rand(1000, 777)
@@ -265,24 +281,32 @@ def p1_kernels(torch, gen):
     calls = gemm.LAUNCHES - launches0[0]
     device = gemm.DEVICE_LAUNCHES - launches0[1]
     require(device == 3 * calls, f"P1 matmul: {device} device launches for {calls} calls, not 3 each")
-    results["matmul_split"] = matmul_split_profile(torch, gen, r)
+    results["matmul_split"] = split_profile(torch, gen, "matmul", r)
+    results["matmul3_split"] = split_profile(torch, gen, "matmul3", r)
+    results["matmul3_panel"] = matmul3_panel_rows(torch, gen, r)
     results["fp64"] = p1_fp64_errors(torch, gen)
     return results
 
 
-def matmul_split_profile(torch, gen, m: int, k: int = 1024, n: int = 1024, sessions: int = 3):
-    """One warm trailing update c - a bᵀ through the matmul kernel under
-    torch.profiler: the device ms of the two pack launches and of the
-    mainloop, with the ring the mainloop runs (slice depth, stages, dynamic
-    shared bytes a CTA). A session that recorded other than three of the
-    kernel's launches is taken again; after `sessions` the split is None."""
+def split_profile(torch, gen, kern: str, m: int, k: int = 1024, n: int = 1024,
+                  sessions: int = 3):
+    """One warm trailing update c - a bᵀ through the matmul (three planes)
+    or matmul3 (two) kernel under torch.profiler: the device ms of the two
+    pack launches and of the mainloop, with the ring the mainloop runs
+    (slice depth, stages, dynamic shared bytes a CTA). A session that
+    recorded other than three of the kernel's launches is taken again;
+    after `sessions` the split is None."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from numpywren_tpu_torch.ops import gemm3
 
     gemm = gemm_module()
     a, b, c = (torch.randn(*s, generator=gen, device="cuda") for s in ((m, k), (n, k), (m, n)))
 
     def run():
+        if kern == "matmul3":
+            return gemm3.matmul3(a, b, c, tb=True)
         return gemm.matmul(a, b, c, tb=True, alpha=-1.0, beta=1.0, precision="highest")
 
     run()
@@ -301,12 +325,53 @@ def matmul_split_profile(torch, gen, m: int, k: int = 1024, n: int = 1024, sessi
                 split[step] += e.time_range.elapsed_us() / 1e3
             break
     if split is None:
-        print(f"chip_smoke: matmul's pack/mainloop split not measured ({sessions} sessions)",
+        print(f"chip_smoke: {kern}'s pack/mainloop split not measured ({sessions} sessions)",
               file=sys.stderr, flush=True)
-    row = {"case": "matmul:trailing_split", "shape": [m, k, n], "device_ms": split,
-           "sessions": attempt, **gemm.split_plan(3)}
+    row = {"case": f"{kern}:trailing_split", "shape": [m, k, n], "device_ms": split,
+           "sessions": attempt, **gemm.split_plan(2 if kern == "matmul3" else 3)}
     emit({"phase": "P1", **row})
     return row
+
+
+def matmul3_panel_rows(torch, gen, r: int, w: int = 1024):
+    """The Cholesky's panel route at the trailing update: one pack of an
+    r x w panel b (gemm3.Panel), then c - b[off:] b[off:off + w]ᵀ for
+    off = 0 (the trailing update's shape) and off = w, each against the
+    per-call matmul3 on the same inputs, bit for bit (the same planes and
+    mainloop). Times the pack, the update alone and the per-call route,
+    in turns (CUDA events)."""
+    from numpywren_tpu_torch.ops import gemm3
+
+    def counts():
+        return gemm3.LAUNCHES, gemm3.DEVICE_LAUNCHES
+
+    b = torch.randn(r, w, generator=gen, device="cuda")
+    calls, device = counts()
+    panel = gemm3.Panel(b)
+    require(counts() == (calls, device + 1), f"P1 matmul3 panel: the pack counted {counts()}")
+    pack_ms = in_turns(torch, lambda: gemm3.Panel(b))[0]
+    rows = []
+    for off in (0, w):
+        c = torch.randn(r - off, w, generator=gen, device="cuda")
+        calls, device = counts()
+        got = panel.sub_update(c, off, w)
+        require(counts() == (calls + 1, device + 1),
+                f"P1 matmul3 panel: an update counted {counts()} after {(calls, device)}")
+        per_call = gemm3.matmul3(b[off:], b[off:off + w], c, tb=True)
+        torch.cuda.synchronize()
+        require(torch.equal(got, per_call),
+                f"P1 matmul3 panel off={off}: differs from the per-call route")
+        row = _check(f"matmul3:panel_off{off}", got, gemm3.matmul3_ref(b[off:], b[off:off + w],
+                                                                       c, tb=True))
+        ms, per_call_ms = in_turns(torch, lambda: panel.sub_update(c, off, w, out=c),
+                                   lambda: gemm3.matmul3(b[off:], b[off:off + w], c, tb=True))
+        m = r - off
+        row.update(shape=[m, w, w], bitwise_equal_per_call=True, update_ms=ms,
+                   per_call_ms=per_call_ms, pack_ms=pack_ms,
+                   update_bf16_tflops=3 * 2 * m * w * w / ms / 1e9)
+        emit({"phase": "P1", **row})
+        rows.append(row)
+    return rows
 
 
 def p1_fp64_errors(torch, gen, m: int = 4096, n: int = 1024):
@@ -333,27 +398,30 @@ def p1_fp64_errors(torch, gen, m: int = 4096, n: int = 1024):
         require(errs["matmul"] <= FP64_RATIO_BAR * errs["addmm"],
                 f"P1 K={k}: matmul's error {errs['matmul']} > {FP64_RATIO_BAR} x addmm's "
                 f"{errs['addmm']}")
+        require(errs["matmul3"] <= MATMUL3_FP64_BAR,
+                f"P1 K={k}: matmul3's error {errs['matmul3']} > {MATMUL3_FP64_BAR}")
         rows.append(row)
     return rows
 
 
-def _check(name, got, want):
+def _check(name, got, want, bar=KERNEL_BAR):
     import torch
 
     torch.cuda.synchronize()
     rel = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
     mx = float((got - want).abs().max())
     require(bool(torch.isfinite(got).all()), f"{name}: non-finite kernel output")
-    require(rel <= KERNEL_BAR, f"{name}: relative error {rel} > {KERNEL_BAR}")
+    require(rel <= bar, f"{name}: relative error {rel} > {bar}")
     return {"case": name, "rel_err": rel, "max_abs_err": mx}
 
 
-def _compare(torch, name, m, k, n, run, plain, split_ref=None, **extra):
+def _compare(torch, name, m, k, n, run, plain, split_ref=None, split_bar=KERNEL_BAR, **extra):
     """`run` against `plain` (and against `split_ref`, the kernel's own
-    arithmetic, when given), then both timed in turns."""
+    arithmetic, when given, within `split_bar`), then both timed in turns."""
     row = _check(name, run(), plain())
     if split_ref is not None:
-        row["rel_err_split_ref"] = _check(f"{name} vs split", run(), split_ref())["rel_err"]
+        row["rel_err_split_ref"] = _check(f"{name} vs split", run(), split_ref(),
+                                          split_bar)["rel_err"]
     ms, plain_ms = in_turns(torch, run, plain)
     row.update(shape=[m, k, n], ms=ms, plain_ms=plain_ms,
                kernel_tflops=2 * m * n * k / ms / 1e9, **extra)
@@ -412,6 +480,91 @@ def run_entry(torch, drive):
     return out, time.perf_counter() - t0, start.elapsed_time(end) / 1e3
 
 
+def rtrsm_products(w: int, tile: int) -> int:
+    """The products of _rtrsm on a w-wide panel (compiler/lower.py): one a
+    tile-wide leaf; else the two halves' and the update between them."""
+    if w <= tile:
+        return 1
+    h = (w // 2 + tile - 1) // tile * tile
+    return rtrsm_products(h, tile) + 1 + rtrsm_products(w - h, tile)
+
+
+def panel_route_counts(n: int, panel: int, tile: int):
+    """(gemm3.LAUNCHES, gemm3.DEVICE_LAUNCHES) that one compensated Cholesky
+    of n (a multiple of panel) implies: each panel with rows below runs its
+    solve's products as matmul3 calls (three device launches each), one
+    pack, and one mainloop per later column block (one launch, one call)."""
+    nb = n // panel
+    solves = (nb - 1) * rtrsm_products(panel, tile)
+    updates = nb * (nb - 1) // 2
+    return solves + updates, 3 * solves + (nb - 1) + updates
+
+
+def cholesky_profile(torch, npw, a, sessions: int = 3):
+    """One warm compensated cholesky_trapezoid of `a` under torch.profiler:
+    device ms by kernel group, the ten largest kernels by name, and the
+    idle share: 1 - (union of the kernels' intervals) / (first kernel start
+    to last kernel end). Groups: the matmul3 calls of the panel solves
+    (pack A, pack B, mainloop in a row), the panel packs and the trailing
+    updates (a lone pack, a lone mainloop), cholesky_ex (cuSOLVER's
+    getrf/potrf kernels), solve_triangular (trsm) and the rest. A session
+    that recorded no mainloop is taken again; after `sessions` the row says
+    not measured."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    library = (("cholesky_ex", ("getrf", "potrf")), ("solve_triangular", ("trsm",)))
+    row = {"phase": "P2_profile", "n": a.shape[0], "config": "compensated",
+           "entry": "cholesky_trapezoid", "device_ms": None}
+    for attempt in range(1, sessions + 1):
+        t = npw.TrapezoidMatrix.from_array(a, panel=PANEL)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            npw.cholesky_trapezoid(t)
+            torch.cuda.synchronize()
+        del t
+        kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                         key=lambda e: e.time_range.start)
+        if not any("gemm_split_mainloop" in e.name for e in kernels):
+            continue
+        groups = dict.fromkeys(("solve_products", "panel_pack", "panel_updates",
+                                "cholesky_ex", "solve_triangular", "other"), 0.0)
+        by_name, split = {}, []
+        for e in kernels:
+            ms = e.time_range.elapsed_us() / 1e3
+            count, total = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (count + 1, total + ms)
+            if "gemm_split_" in e.name:
+                split.append(("pack" if "gemm_split_pack" in e.name else "mainloop", ms))
+                continue
+            group = next((g for g, keys in library if any(k in e.name for k in keys)), "other")
+            groups[group] += ms
+        i = 0
+        while i < len(split):  # a call's pack A, pack B, mainloop; else a panel's steps
+            if [kind for kind, _ in split[i:i + 3]] == ["pack", "pack", "mainloop"]:
+                groups["solve_products"] += sum(ms for _, ms in split[i:i + 3])
+                i += 3
+            else:
+                groups["panel_pack" if split[i][0] == "pack" else "panel_updates"] += split[i][1]
+                i += 1
+        busy, end = 0.0, kernels[0].time_range.start
+        for e in kernels:
+            busy += max(0.0, e.time_range.end - max(e.time_range.start, end))
+            end = max(end, e.time_range.end)
+        window = end - kernels[0].time_range.start
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+        row.update(device_ms=groups, window_ms=window / 1e3, busy_ms=busy / 1e3,
+                   idle_share=1 - busy / window, kernel_launches=len(kernels),
+                   top=[{"name": k[:120], "launches": c, "ms": ms} for k, (c, ms) in top])
+        break
+    row["sessions"] = attempt
+    if row["device_ms"] is None:
+        print(f"chip_smoke: P2's profile not measured ({sessions} sessions)", file=sys.stderr,
+              flush=True)
+    emit(row)
+    return row
+
+
 def main_path(torch, npw, n: int, n_flat: int, seed: int):
     from numpywren_tpu_torch.matrix_init import shard_matrix
     from numpywren_tpu_torch.ops import gemm3
@@ -425,6 +578,14 @@ def main_path(torch, npw, n: int, n_flat: int, seed: int):
         gemm.LAUNCHES = 0
         gemm.DEVICE_LAUNCHES = 0
         gemm3.LAUNCHES = 0
+        gemm3.DEVICE_LAUNCHES = 0
+
+    def check_matmul3(phase, n_, tile):
+        want = panel_route_counts(n_, PANEL, tile)
+        got = (gemm3.LAUNCHES, gemm3.DEVICE_LAUNCHES)
+        require(got == want, f"{phase}: matmul3 (calls, device launches) {got}, the panel "
+                             f"route implies {want}")
+        return got[1]
 
     def counts():
         return {"matmul": gemm.LAUNCHES, "matmul3": gemm3.LAUNCHES}
@@ -464,12 +625,14 @@ def main_path(torch, npw, n: int, n_flat: int, seed: int):
     _, host_s, dev_s = run_entry(torch, lambda: npw.run_program(prog))
     c2 = counts()
     require(c2["matmul3"] > 0 and c2["matmul"] == 0, f"P2 launches {c2}")
+    device2 = check_matmul3("P2", n, min(128, PANEL))
     launches["matmul3"] += c2["matmul3"]
     p2_row = report("P2", o2.trap, host_s, dev_s,
                     {"config": "compensated", "entry": "cholesky+run_program",
-                     "bind_seconds": bind_s, "launches": c2})
+                     "bind_seconds": bind_s, "launches": c2, "matmul3_device_launches": device2})
     l2 = o2.trap
     del trap, o2, prog
+    p2_row["profile"] = cholesky_profile(torch, npw, a)  # still compensated
 
     # P3: precision="highest", the matmul kernel
     cfg.compensated = False
@@ -516,13 +679,14 @@ def main_path(torch, npw, n: int, n_flat: int, seed: int):
     _, host_s, dev_s = run_entry(torch, lambda: npw.run_program(prog))
     c5 = counts()
     require(c5["matmul3"] > 0, f"P5 launches {c5}")
+    device5 = check_matmul3("P5", n_flat, 128)  # the flat lowering's inner tile
     launches["matmul3"] += c5["matmul3"]
     l5 = o5.array[:n_flat, :n_flat]
     resid = residual(torch, a5, l5)
     emit({"phase": "P5", "n": n_flat, "seconds": dev_s, "host_seconds": host_s,
           "tflops": n_flat ** 3 / 3 / dev_s / 1e12, "residual": resid,
           "config": "compensated", "entry": "cholesky(shard_matrix)+run_program",
-          "bind_seconds": bind_s, "launches": c5})
+          "bind_seconds": bind_s, "launches": c5, "matmul3_device_launches": device5})
     require(resid <= RESID_BAR, f"P5: residual {resid} > {RESID_BAR}")
     cfg.compensated = False
     return launches, (p2_row, p3_row, p4_row)
@@ -1246,7 +1410,7 @@ def main(argv=None) -> int:
     kernels = []
     for name, src, replaces in (
         ("matmul", "numpywren_tpu_torch/csrc/gemm_split.cu", "numpywren_tpu/ops/gemm.py:145"),
-        ("matmul3", "numpywren_tpu_torch/csrc/gemm3.cu", "numpywren_tpu/ops/gemm3.py:120"),
+        ("matmul3", "numpywren_tpu_torch/csrc/gemm_split.cu", "numpywren_tpu/ops/gemm3.py:120"),
     ):
         main_case = p1[name][0]  # the trailing update, 31744x1024 by 1024x1024
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -19,7 +19,9 @@ region is a strided view:
   NPW_PALLAS_CHAIN).
 
 Cholesky's and GEMM's products go through `_matmul` / `_sub_matmul`, which
-pick the kernel by precision and NpwConfig.compensated (see ops/common.py).
+pick the kernel by precision and NpwConfig.compensated (see ops/common.py);
+in compensated mode each Cholesky panel is packed once for all of its
+trailing updates (`ops.gemm3.Panel`).
 TSQR's builders take the reference's ``precision`` and map it onto two
 routes (`_tsqr_matmul`): "high" in compensated mode is the matmul3 kernel
 for a 2-D apply; every other product (the Grams, the batched tree
@@ -45,7 +47,7 @@ import torch
 from numpywren_tpu_torch.config import default_config
 from numpywren_tpu_torch.ops.common import cdiv, check_precision, default_precision
 from numpywren_tpu_torch.ops.gemm import matmul as kernel_matmul
-from numpywren_tpu_torch.ops.gemm3 import matmul3
+from numpywren_tpu_torch.ops.gemm3 import Panel, matmul3
 from numpywren_tpu_torch.ops.pallas_factor import (
     chain_supported,
     cholqr2_chain_pallas,
@@ -170,10 +172,16 @@ def _chol_columns(cols: List[torch.Tensor], panel: int, tile: int, precision: st
             continue
         b = colp[wp:]
         _rtrsm(b, ld, tile, precision, inv_panel)
+        # compensated: b is packed once for all of its updates, which write
+        # only into later columns
+        packed = Panel(b) if _use_compensated(b, precision) else None
         for c in range(p + 1, nb):
-            off = (c - p - 1) * panel
-            _sub_matmul(cols[c], b[off:], b[off:off + cols[c].shape[1]], tb=True,
-                        precision=precision, out=cols[c])
+            off, w = (c - p - 1) * panel, cols[c].shape[1]
+            if packed is not None:
+                packed.sub_update(cols[c], off, w, out=cols[c])
+            else:
+                _sub_matmul(cols[c], b[off:], b[off:off + w], tb=True, precision=precision,
+                            out=cols[c])
     _raise_if_not_spd(infos)
 
 

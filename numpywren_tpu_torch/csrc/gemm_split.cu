@@ -1,23 +1,26 @@
-// out = alpha * op(A) @ op(B) + beta * C as the TPU computes it at precision
-// HIGHEST: a bf16x6 split product on the bf16 tensor cores.
+// out = alpha * op(A) @ op(B) + beta * C on Hopper's bf16 tensor cores, as
+// the TPU computes it: a split product of P bf16 planes an operand.
 //
-// Replaces the Pallas kernel numpywren_tpu/ops/gemm.py::matmul (_mm_kernel).
-// HIGHEST on the MXU is not an fp32 product: each fp32 operand is split into
-// three bf16 planes, hi = rn(x), mid = rn(x - hi), lo = rn(x - hi - mid)
-// (hi + mid + lo = x exactly while lo is a normal bf16, |x| >= ~2^-110),
-// and the plane pairs (i, j) with i + j <= 2 are multiplied: hh, hm, mh,
-// hl, mm, lh, six products. The dropped ml, lm and ll terms are below 2^-24
-// relative. bf16 x bf16 products
-// are exact in fp32. A bf16 operand is one plane, one product (the TPU's
-// DEFAULT on bf16: one MXU pass). P, the number of planes, is a template
-// parameter; P = 2 is matmul3's bf16x3.
+// Replaces two Pallas kernels of the JAX package:
+// - numpywren_tpu/ops/gemm.py::matmul (_mm_kernel): P = 3 for fp32 at
+//   precision HIGHEST (bf16x6), P = 1 for bf16 (DEFAULT: one MXU pass);
+// - numpywren_tpu/ops/gemm3.py::matmul3 (_kernel, _split): P = 2 (bf16x3),
+//   with alpha = -1, beta = 1 for the Cholesky trailing update c - a bᵀ.
+// Plane p of x is rn(x - the planes before it): at P = 3 hi, mid, lo
+// (hi + mid + lo = x exactly while lo is a normal bf16, |x| >= ~2^-110), at
+// P = 2 hi and lo, exactly matmul3's _split. The plane pairs (i, j) with
+// i + j < P are multiplied: hh, hm, mh, hl, mm, lh at P = 3 (the dropped
+// ml, lm, ll are below 2^-24 relative), hh, hl, lh at P = 2 (ll is below
+// fp32's epsilon; lo's rounding leaves ~2^-16 relative a product). bf16 x
+// bf16 products are exact in fp32.
 //
 // Bound: bf16 tensor-core issue, P(P+1)/2 products (989 TFLOP/s dense bf16
-// on an H100 SXM; six products of 31744x1024 by 1024 take 0.404 ms, under
-// the FP32 FFMA bound of 0.994 ms for the same product). At 128 x 128 tiles
-// a slice of depth 64 loads 2 * 128 * 64 * 2 * P bytes for
-// 2 * 128 * 128 * 64 * P(P+1)/2 flops, 64 (P+1) flops a byte of shared
-// memory, so loads must overlap the products.
+// on an H100 SXM): at 31744x1024 by 1024 six products take 0.404 ms, three
+// 0.202, both under the FP32 FFMA bound of 0.994 ms for the same product.
+// At 128 x 128 tiles a slice of depth 64 loads 2 * 128 * 64 * 2 * P bytes
+// for 2 * 128 * 128 * 64 * P(P+1)/2 flops, 64 (P+1) flops a byte of shared
+// memory, so loads must overlap the products: a producer warpgroup keeps
+// TMA loads in flight while two consumer warpgroups multiply.
 //
 // Design:
 // - Two passes. `gemm_split_pack_*` writes each operand's planes, K-major
@@ -25,18 +28,28 @@
 //   and tb are, the leading dimension folded in), K zero-padded to a
 //   multiple of the slice depth. The mainloop then sees one layout. The
 //   planes cost one extra read of each operand and a write of P bf16 per
-//   element (~0.1 ms at 31744x1024).
+//   element (~0.1 ms for both operands at 31744x1024, P = 3).
+// - The mainloop's entry takes each operand's plane stride apart from its
+//   row count. So one packed panel serves many products: the Cholesky packs
+//   each panel b once at P = 2, and every trailing update c -= b[off:]
+//   b[off:off+w]ᵀ maps rows [off, R) as A and [off, off + w) as B of the
+//   same planes, R * kp apart (the base stays 128-byte aligned: kp is a
+//   multiple of 64). TMA zero-fills rows past each map's count.
 // - `gemm_split_mainloop`: one 128 x 128 output tile per CTA of three
 //   warpgroups. Warpgroup 0 is the producer (setmaxnreg down to 40): one
 //   thread issues TMA loads (cp.async.bulk.tensor over a CUtensorMap passed
 //   as a __grid_constant__ parameter) of every plane's A and B tile for a
 //   K slice into a ring of stages with full/empty mbarriers. Warpgroups 1-2
 //   (setmaxnreg up to 232) each own 64 rows and issue wgmma m64n128k16 from
-//   shared memory, 2 P(P+1)/2 per slice, smallest products first.
+//   shared memory, 2 P(P+1) per slice (four k16 steps a pair), smallest
+//   products first.
 // - Slices are 64 deep: one 128 x 64 plane tile is 16 KB with 128-byte
-//   rows (TMA's and wgmma's 128-byte swizzle). At P = 3 a stage holds six
-//   tiles, 96 KB, and the ring two stages (192 KB); at P = 1 a stage is
-//   32 KB and the ring six. Measured at 31744x1024 by 1024 on an H100
+//   rows (TMA's and wgmma's 128-byte swizzle). The ring has 192 KB: at
+//   P = 3 a stage holds six tiles (96 KB) and the ring two; at P = 2 four
+//   tiles (64 KB) and three stages, 197,680 bytes of dynamic shared memory
+//   with the barriers and the alignment slack, of the 232,448 a block may
+//   use; at P = 1 a stage is 32 KB and the ring six. Measured at
+//   31744x1024 by 1024, P = 3, on an H100
 //   (numpywren_tpu_torch/experiments/gemm_slice_depth.py), 32-deep
 //   slices (64-byte swizzle, four 48 KB stages) took the same time within
 //   1% and had a larger error against fp64 (2.96e-7 against 2.21e-7 at
@@ -44,20 +57,21 @@
 //   truncated slice sum.
 // - Each slice's products start from zero (scale-d 0) and the slice's sum
 //   is added into a register fp32 sum with round-to-nearest adds once its
-//   MMAs finish. The tensor cores' accumulation truncates (gemm3.cu: over all
-//   of K in one accumulator the error grew to 2.9e-5 at K = 8192, against
-//   4.4e-6 rounded to nearest). Within a slice the small products go first
-//   (pair outer, k16 step inner), so only the four hh steps truncate at
-//   the slice's full magnitude.
+//   MMAs finish. The tensor cores' accumulation truncates (over all of K
+//   in one accumulator the bf16x3 error grew to 2.9e-5 at K = 8192 on an
+//   H100, against 4.4e-6 rounded to nearest). Within a slice the small
+//   products go first (pair outer, k16 step inner), so only the four hh
+//   steps truncate at the slice's full magnitude.
 // - The flush doubles the accumulator registers (64 + 64 a thread at
 //   n = 128), so 128 x 256 tiles do not fit a consumer's 232 registers.
 // - Epilogue: alpha * acc + beta * C from registers, masked at ragged M and
 //   N, written as fp32 or bf16 (__float2bfloat16_rn), two neighbouring
 //   columns a store where the layout allows. `out` may alias `c`: each
-//   element is read and written once, by one thread.
+//   element is read and written once, by one thread. With alpha = -1 and
+//   beta = 1 it is c - acc, rounded once, as matmul3_ref computes.
 // - The tensor maps are encoded on the host with cuTensorMapEncodeTiled,
 //   reached through cudaGetDriverEntryPoint (the library does not link
-//   libcuda). TMA zero-fills rows past M and N.
+//   libcuda).
 // - A barrier wait that has not completed after ~10 s of clock traps, so a
 //   pipeline fault becomes a launch error instead of a hang.
 #include <cuda.h>
@@ -394,13 +408,13 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// The (kp, rows, planes) bf16 planes as a 3-D tensor map with (64, 128, 1)
-// boxes in the 128-byte swizzle.
-int encode(CUtensorMap* map, const void* planes, int rows, int kp, int p) {
+// The (kp, rows, planes) bf16 planes, `plane_stride` elements apart, as a
+// 3-D tensor map with (64, 128, 1) boxes in the 128-byte swizzle.
+int encode(CUtensorMap* map, const void* planes, int rows, int kp, int64_t plane_stride, int p) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[3] = {(cuuint64_t)kp, (cuuint64_t)rows, (cuuint64_t)p};
-  const cuuint64_t strides[2] = {(cuuint64_t)kp * 2, (cuuint64_t)rows * kp * 2};
+  const cuuint64_t strides[2] = {(cuuint64_t)kp * 2, (cuuint64_t)plane_stride * 2};
   const cuuint32_t box[3] = {BK, BM, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(planes), dims,
@@ -429,9 +443,9 @@ int launch_pack(int trans, const void* xv, int64_t ldx, int rows, int cols, int 
 }
 
 template <int P, typename TOut>
-int launch_mainloop(const void* a_planes, const void* b_planes, int kp, const void* cv,
-                    int64_t ldc, void* outv, int64_t ldo, int m, int n, float alpha, float beta,
-                    cudaStream_t s) {
+int launch_mainloop(const void* a_planes, int64_t a_stride, const void* b_planes,
+                    int64_t b_stride, int kp, const void* cv, int64_t ldc, void* outv,
+                    int64_t ldo, int m, int n, float alpha, float beta, cudaStream_t s) {
   auto kernel = gemm_split_mainloop<P, TOut>;
   static int ready = -1;  // the kernel's set-up, once per process (host time)
   if (ready != 0) {
@@ -448,8 +462,8 @@ int launch_mainloop(const void* a_planes, const void* b_planes, int kp, const vo
     if (ready != 0) return ready;
   }
   CUtensorMap map_a, map_b;
-  int rc = encode(&map_a, a_planes, m, kp, P);
-  if (rc == 0) rc = encode(&map_b, b_planes, n, kp, P);
+  int rc = encode(&map_a, a_planes, m, kp, a_stride, P);
+  if (rc == 0) rc = encode(&map_b, b_planes, n, kp, b_stride, P);
   if (rc != 0) return rc;
   const TOut* c = static_cast<const TOut*>(cv);
   TOut* out = static_cast<TOut*>(outv);
@@ -467,58 +481,69 @@ int launch_mainloop(const void* a_planes, const void* b_planes, int kp, const vo
 extern "C" {
 
 // The slice depth, the ring's stages and the mainloop's dynamic shared
-// bytes at `planes` (1 or 3) planes; returns 0, or an error for another P.
+// bytes at `planes` (1, 2 or 3) planes; returns 0, or an error for another P.
 int npw_gemm_split_plan(int planes, int* slice, int* stages, int* smem_bytes) {
-  if (planes != 1 && planes != 3) return static_cast<int>(cudaErrorInvalidValue);
   *slice = BK;
-  *stages = planes == 1 ? Ring<1>::STAGES : Ring<3>::STAGES;
-  *smem_bytes = planes == 1 ? Ring<1>::SMEM : Ring<3>::SMEM;
-  return 0;
+  switch (planes) {
+    case 1: *stages = Ring<1>::STAGES, *smem_bytes = Ring<1>::SMEM; return 0;
+    case 2: *stages = Ring<2>::STAGES, *smem_bytes = Ring<2>::SMEM; return 0;
+    case 3: *stages = Ring<3>::STAGES, *smem_bytes = Ring<3>::SMEM; return 0;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Pack x into bf16 planes (rows, kp) each, K-major: op(x)(r, k) is
-// x[r * ldx + k], or x[k * ldx + r] with `trans`; cols <= kp, kp a
-// multiple of the slice depth, zeros past cols. fp32 x gives three planes
-// (hi, mid, lo), bf16 x one. `planes` is 16-byte aligned. Launches once on
-// `stream` (none for rows == 0) and adds each launch enqueued to
-// *launches (when not null); returns cudaGetLastError() (0 on success).
-int npw_gemm_pack(int in_bf16, int trans, const void* x, long long ldx, int rows, int cols,
-                  int kp, void* planes, void* stream, int* launches) {
+// Pack x into `planes` bf16 planes (rows, kp) each, rows * kp apart,
+// K-major: op(x)(r, k) is x[r * ldx + k], or x[k * ldx + r] with `trans`;
+// cols <= kp, kp a multiple of the slice depth, zeros past cols. fp32 x
+// gives 2 (hi, lo) or 3 (hi, mid, lo) planes, bf16 x one. `planes_out` is
+// 16-byte aligned. Launches once on `stream` (none for rows == 0) and adds
+// each launch enqueued to *launches (when not null); returns
+// cudaGetLastError() (0 on success).
+int npw_gemm_pack(int in_bf16, int planes, int trans, const void* x, long long ldx, int rows,
+                  int cols, int kp, void* planes_out, void* stream, int* launches) {
   if (rows <= 0) return 0;
-  if (kp <= 0 || kp % BK || kp < cols || cols < 0 || kp / 32 > 65535)
+  if (kp <= 0 || kp % BK || kp < cols || cols < 0 || kp / 32 > 65535 ||
+      (in_bf16 ? planes != 1 : planes != 2 && planes != 3))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  bf16* out = static_cast<bf16*>(planes);
-  const int err = in_bf16 ? launch_pack<bf16, 1>(trans, x, ldx, rows, cols, kp, out, s)
-                          : launch_pack<float, 3>(trans, x, ldx, rows, cols, kp, out, s);
+  bf16* out = static_cast<bf16*>(planes_out);
+  const int err = in_bf16       ? launch_pack<bf16, 1>(trans, x, ldx, rows, cols, kp, out, s)
+                  : planes == 2 ? launch_pack<float, 2>(trans, x, ldx, rows, cols, kp, out, s)
+                                : launch_pack<float, 3>(trans, x, ldx, rows, cols, kp, out, s);
   if (err == 0 && launches) ++*launches;
   return err;
 }
 
-// out = alpha * acc + beta * c over npw_gemm_pack's planes of op(A)
-// ((planes, m, kp)) and op(B) ((planes, n, kp)), acc the sum of the plane
-// pairs (i, j) with i + j < planes; planes 1 or 3. c (may be null, may
-// equal out) and out are fp32, or bf16 with out_bf16. Launches once on
-// `stream` (none for m or n == 0) and adds each launch enqueued to
-// *launches (when not null); returns the first CUDA error (0 on success).
-int npw_gemm_split(int planes, int out_bf16, const void* a_planes, const void* b_planes, int kp,
-                   const void* c, long long ldc, void* out, long long ldo, int m, int n,
-                   float alpha, float beta, void* stream, int* launches) {
+// out = alpha * acc + beta * c over npw_gemm_pack's planes: op(A)'s m rows
+// of kp at a_planes, its planes a_stride elements apart, op(B)'s n rows at
+// b_planes, b_stride apart (a stride may exceed rows * kp: rows of a larger
+// packed panel); acc is the sum of the plane pairs (i, j) with
+// i + j < planes, planes 1, 2 or 3. c (may be null, may equal out) and out
+// are fp32, or bf16 with out_bf16. Launches once on `stream` (none for m or
+// n == 0) and adds each launch enqueued to *launches (when not null);
+// returns the first CUDA error (0 on success).
+int npw_gemm_split(int planes, int out_bf16, const void* a_planes, long long a_stride,
+                   const void* b_planes, long long b_stride, int kp, const void* c,
+                   long long ldc, void* out, long long ldo, int m, int n, float alpha,
+                   float beta, void* stream, int* launches) {
   if (m <= 0 || n <= 0) return 0;
-  if (kp <= 0 || kp % BK || (planes != 1 && planes != 3) || npw::cdiv(m, BM) > 65535)
+  if (kp <= 0 || kp % BK || planes < 1 || planes > 3 || npw::cdiv(m, BM) > 65535 ||
+      a_stride < (long long)m * kp || b_stride < (long long)n * kp)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define NPW_MAINLOOP(P, T)                                                                   \
+  launch_mainloop<P, T>(a_planes, a_stride, b_planes, b_stride, kp, c, ldc, out, ldo, m, n, \
+                        alpha, beta, s)
   int err;
-  if (planes == 3)
-    err = out_bf16 ? launch_mainloop<3, bf16>(a_planes, b_planes, kp, c, ldc, out, ldo, m, n,
-                                              alpha, beta, s)
-                   : launch_mainloop<3, float>(a_planes, b_planes, kp, c, ldc, out, ldo, m, n,
-                                               alpha, beta, s);
-  else
-    err = out_bf16 ? launch_mainloop<1, bf16>(a_planes, b_planes, kp, c, ldc, out, ldo, m, n,
-                                              alpha, beta, s)
-                   : launch_mainloop<1, float>(a_planes, b_planes, kp, c, ldc, out, ldo, m, n,
-                                               alpha, beta, s);
+  switch (planes * 2 + (out_bf16 != 0)) {
+    case 2: err = NPW_MAINLOOP(1, float); break;
+    case 3: err = NPW_MAINLOOP(1, bf16); break;
+    case 4: err = NPW_MAINLOOP(2, float); break;
+    case 5: err = NPW_MAINLOOP(2, bf16); break;
+    case 6: err = NPW_MAINLOOP(3, float); break;
+    default: err = NPW_MAINLOOP(3, bf16); break;
+  }
+#undef NPW_MAINLOOP
   if (err == 0 && launches) ++*launches;
   return err;
 }

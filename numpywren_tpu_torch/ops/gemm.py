@@ -9,7 +9,9 @@ planes (three for fp32: hi, mid, lo; one for bf16), K-major with the
 transposes folded in, then a TMA-fed wgmma mainloop sums the plane pairs
 (i, j) with i + j < P (six products for fp32, one for bf16) with the
 epilogue fused, so the Cholesky trailing update ``S - L Lᵀ`` writes ``S`` in
-place (``out=`` may be ``c``).
+place (``out=`` may be ``c``). The same two passes at P = 2 (hi, lo: three
+products) are ``ops/gemm3.py``'s matmul3; `_split_launch` runs them for
+both wrappers, each of which keeps its own launch counters.
 
 Routing mirrors the JAX package: precision ``"high"`` is the library GEMM
 (``torch.matmul`` in true FP32, TF32 off, as JAX hands HIGH to XLA's dot);
@@ -125,8 +127,8 @@ def _lib():
     if not getattr(lib, "_npw_gemm_typed", False):
         p, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
         ip = ctypes.POINTER(ctypes.c_int)
-        lib.npw_gemm_pack.argtypes = [i, i, p, ll, i, i, i, p, p, ip]
-        lib.npw_gemm_split.argtypes = [i, i, p, p, i, p, ll, p, ll, i, i, f, f, p, ip]
+        lib.npw_gemm_pack.argtypes = [i, i, i, p, ll, i, i, i, p, p, ip]
+        lib.npw_gemm_split.argtypes = [i, i, p, ll, p, ll, i, p, ll, p, ll, i, i, f, f, p, ip]
         lib.npw_gemm_split_plan.argtypes = [i, ip, ip, ip]
         for fn in (lib.npw_gemm_pack, lib.npw_gemm_split, lib.npw_gemm_split_plan):
             fn.restype = i
@@ -145,54 +147,84 @@ def _strided(t: torch.Tensor):
 
 def split_plan(planes: int) -> dict:
     """The mainloop's slice depth, ring stages and dynamic shared bytes per
-    CTA at `planes` planes (1 or 3), as csrc/gemm_split.cu sets them."""
+    CTA at `planes` planes (1, 2 or 3), as csrc/gemm_split.cu sets them."""
     vals = [ctypes.c_int(0) for _ in range(3)]
     _build.check(_lib().npw_gemm_split_plan(planes, *map(ctypes.byref, vals)), "split plan")
     return dict(zip(("slice", "stages", "smem_bytes"), (v.value for v in vals)))
 
 
+def _check_devices(a, **others) -> None:
+    for name, t in others.items():
+        if t is not None and t.device != a.device:
+            raise ValueError(f"{name} on {t.device}, a on {a.device}")
+
+
+def _out_ld(out: torch.Tensor, m: int, n: int) -> int:
+    ldo = leading_dim(out)
+    if ldo is None or tuple(out.shape) != (m, n):
+        raise ValueError(f"out must be ({m}, {n}) with unit column stride, got "
+                         f"{tuple(out.shape)} strides {out.stride()}")
+    return ldo
+
+
+def _pack(lib, x, ldx, trans, rows, k, kp, planes, dst, stream, launched) -> int:
+    """Enqueue the pack of op(x) (rows x k) into `planes` planes at `dst`."""
+    return lib.npw_gemm_pack(int(x.dtype == torch.bfloat16), planes, int(trans), x.data_ptr(),
+                             ldx, rows, k, kp, dst, stream, ctypes.byref(launched))
+
+
+def _mainloop(lib, planes, a_planes, a_stride, b_planes, b_stride, kp, c, ldc, out, ldo,
+              m, n, alpha, beta, stream, launched) -> int:
+    """Enqueue the mainloop over packed planes (strides in elements)."""
+    return lib.npw_gemm_split(planes, int(out.dtype == torch.bfloat16), a_planes, a_stride,
+                              b_planes, b_stride, kp,
+                              c.data_ptr() if c is not None else None, ldc, out.data_ptr(), ldo,
+                              m, n, float(alpha), float(beta), stream, ctypes.byref(launched))
+
+
+def _split_launch(a, b, c, out, ta, tb, alpha, beta, m, n, k, planes):
+    """Pack op(A) and op(B) into `planes` bf16 planes, then the mainloop:
+    three device launches on the current stream. Returns (device launches
+    enqueued, the C entries' return code, the step it came from); the
+    caller counts and raises."""
+    _check_devices(a, b=b, c=c, out=out)
+    a, lda = _strided(a)
+    b, ldb = _strided(b)
+    ldc = 0
+    if c is not None:
+        c, ldc = _strided(c)
+    ldo = _out_ld(out, m, n)
+    kp = _depth(k)
+    # op(A)'s planes (planes, m, kp), then op(B)'s (planes, n, kp), in one buffer
+    buf = torch.empty(planes * (m + n) * kp, dtype=torch.bfloat16, device=a.device)
+    a_planes, b_planes = buf.data_ptr(), buf.data_ptr() + 2 * planes * m * kp
+    lib, launched = _lib(), ctypes.c_int(0)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        what, rc = "pack A", _pack(lib, a, lda, ta, m, k, kp, planes, a_planes, stream, launched)
+        if rc == 0:
+            what, rc = "pack B", _pack(lib, b, ldb, not tb, n, k, kp, planes, b_planes, stream,
+                                       launched)
+        if rc == 0:
+            what, rc = "mainloop", _mainloop(lib, planes, a_planes, m * kp, b_planes, n * kp, kp,
+                                             c, ldc, out, ldo, m, n, alpha, beta, stream,
+                                             launched)
+    return launched.value, rc, what
+
+
 def _launch(a, b, c, out, ta, tb, alpha, beta, m, n, k):
-    """Pack op(A) and op(B) into bf16 planes, then the mainloop: three
-    device launches on the current stream, counted as one call."""
+    """The matmul kernel: `_split_launch` at the operands' planes, counted
+    as one call."""
     global LAUNCHES, DEVICE_LAUNCHES
     if a.dtype not in _KERNEL_DTYPES or b.dtype != a.dtype:
         raise TypeError(f"matmul kernel takes fp32 or bf16 A and B of one dtype, got "
                         f"{a.dtype} and {b.dtype}")
     if out.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"matmul kernel writes fp32 or bf16, not {out.dtype}")
-    dev = a.device
-    for name, t in (("b", b), ("c", c), ("out", out)):
-        if t is not None and t.device != dev:
-            raise ValueError(f"{name} on {t.device}, a on {dev}")
-    a, lda = _strided(a)
-    b, ldb = _strided(b)
-    ldc = 0
-    if c is not None:
-        c, ldc = _strided(c)
-    ldo = leading_dim(out)
-    if ldo is None or tuple(out.shape) != (m, n):
-        raise ValueError(f"out must be ({m}, {n}) with unit column stride, got "
-                         f"{tuple(out.shape)} strides {out.stride()}")
-    planes, kp, in_bf16 = _planes_of(a.dtype), _depth(k), int(a.dtype == torch.bfloat16)
-    # op(A)'s planes (planes, m, kp), then op(B)'s (planes, n, kp), in one buffer
-    buf = torch.empty(planes * (m + n) * kp, dtype=torch.bfloat16, device=dev)
-    a_planes, b_planes = buf.data_ptr(), buf.data_ptr() + 2 * planes * m * kp
-    lib, launched = _lib(), ctypes.c_int(0)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        what, rc = "pack A", lib.npw_gemm_pack(in_bf16, int(ta), a.data_ptr(), lda, m, k, kp,
-                                               a_planes, stream, ctypes.byref(launched))
-        if rc == 0:
-            what, rc = "pack B", lib.npw_gemm_pack(in_bf16, int(not tb), b.data_ptr(), ldb, n,
-                                                   k, kp, b_planes, stream,
-                                                   ctypes.byref(launched))
-        if rc == 0:
-            what, rc = "mainloop", lib.npw_gemm_split(
-                planes, int(out.dtype == torch.bfloat16), a_planes, b_planes, kp,
-                c.data_ptr() if c is not None else None, ldc, out.data_ptr(), ldo, m, n,
-                float(alpha), float(beta), stream, ctypes.byref(launched))
+    launched, rc, what = _split_launch(a, b, c, out, ta, tb, alpha, beta, m, n, k,
+                                       _planes_of(a.dtype))
     LAUNCHES += 1
-    DEVICE_LAUNCHES += launched.value
+    DEVICE_LAUNCHES += launched
     _build.check(rc, f"matmul kernel ({what})")
     return out
 

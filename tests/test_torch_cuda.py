@@ -8,7 +8,9 @@ These need an NVIDIA GPU (sm_90a) and nvcc; without one every test skips.
 Run on the card: python -m pytest tests/test_torch_cuda.py -q
 
 Tolerance: relative Frobenius error 1e-5, both sides doing the same fp32
-(or bf16x3) arithmetic in another summation order; the chain's own bars
+(or bf16x3) arithmetic in another summation order; 1e-6 against the GEMM
+kernels' own arithmetic (_matmul_split_ref), which differs only by the
+tensor cores' truncating sums inside a 64-deep slice; the chain's own bars
 are in its test.
 """
 
@@ -35,12 +37,12 @@ def _rand(gen, *shape, dtype=torch.float32):
     return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
 
-def _close(got, want):
+def _close(got, want, bar=BAR):
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     den = torch.linalg.norm(want.float())
     err = torch.linalg.norm((got - want).float())
-    assert err <= BAR * den if den > 0 else err == 0
+    assert err <= bar * den if den > 0 else err == 0
 
 
 SHAPES = [(1, 1, 1), (1, 130, 7), (129, 1, 3), (130, 70, 9), (200, 257, 0), (256, 128, 128),
@@ -51,13 +53,81 @@ SHAPES = [(1, 1, 1), (1, 130, 7), (129, 1, 3), (130, 70, 9), (200, 257, 0), (256
 @pytest.mark.parametrize("tb", [False, True])
 @pytest.mark.parametrize("m,n,k", SHAPES)
 def test_matmul3_kernel(gen, m, n, k, tb, with_c):
+    """gemm_split.cu at two planes: against matmul3_ref (1e-5) and its own
+    arithmetic, _matmul_split_ref at P = 2 (1e-6); three device launches."""
     a = _rand(gen, m, k)
     b = _rand(gen, n, k) if tb else _rand(gen, k, n)
     c = _rand(gen, m, n) if with_c else None
-    before = gemm3.LAUNCHES
+    before, device_before = gemm3.LAUNCHES, gemm3.DEVICE_LAUNCHES
     got = gemm3.matmul3(a, b, c, tb=tb)
     assert gemm3.LAUNCHES == before + 1
+    assert gemm3.DEVICE_LAUNCHES == device_before + 3  # pack A, pack B, mainloop
     _close(got, gemm3.matmul3_ref(a, b, c, tb=tb))
+    kw = dict(alpha=-1.0, beta=1.0) if with_c else {}
+    _close(got, gemm._matmul_split_ref(a, b, c, tb=tb, planes=2, **kw), bar=1e-6)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "trapezoid", "flat"])
+def test_matmul3_panel_route_is_the_per_call_route(gen, layout):
+    """A panel packed once, then updates at several offsets (the last one
+    ragged): the same bits as matmul3 per call, one device launch an
+    update, one for the pack; the panel is read, never written."""
+    rows, w = 1000, 200
+    if layout == "contiguous":
+        b = _rand(gen, rows, w)
+    elif layout == "trapezoid":  # a column block's rows below its diagonal block
+        b = _rand(gen, w + rows, w)[w:]
+    else:  # columns of one flat padded matrix
+        b = _rand(gen, rows, 3 * w)[:, w:2 * w]
+    keep = b.clone()
+    before, device_before = gemm3.LAUNCHES, gemm3.DEVICE_LAUNCHES
+    panel = gemm3.Panel(b)
+    assert (gemm3.LAUNCHES, gemm3.DEVICE_LAUNCHES) == (before, device_before + 1)
+    for off, n in ((0, w), (w, w), (300, 77), (4 * w, w), (rows - 1, 1)):
+        c = _rand(gen, rows - off, n)
+        want = gemm3.matmul3(b[off:], b[off:off + n], c, tb=True)
+        before, device_before = gemm3.LAUNCHES, gemm3.DEVICE_LAUNCHES
+        got = panel.sub_update(c, off, n, out=c)
+        assert got is c
+        assert (gemm3.LAUNCHES, gemm3.DEVICE_LAUNCHES) == (before + 1, device_before + 1)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (layout, off, n)
+    assert torch.equal(b, keep)
+
+
+def test_compensated_cholesky_panel_route_is_the_per_call_route(gen, monkeypatch):
+    """One compensated factorization with each panel packed once, and the
+    same with every update as its own matmul3 call: the same bits, and
+    the launch counts the two routes imply."""
+    from numpywren_tpu_torch import config as pconfig
+    from numpywren_tpu_torch.compiler import lower
+    from numpywren_tpu_torch.trapezoid import TrapezoidMatrix, cholesky_trapezoid
+
+    monkeypatch.setattr(pconfig, "_default", pconfig.NpwConfig(compensated=True))
+    n, panel = 1280, 256  # five panels; 128-wide leaves, three products a panel's solve
+    x = _rand(gen, n, n)
+    a = x @ x.T / n + 2 * torch.eye(n, device="cuda")
+
+    class PerCall:  # the per-call route behind the Panel interface
+        def __init__(self, b):
+            self.b = b
+
+        def sub_update(self, c, off, n, out=None):
+            return gemm3.matmul3(self.b[off:], self.b[off:off + n], c, tb=True, out=out)
+
+    results = {}
+    for route in ("panel", "per_call"):
+        if route == "per_call":
+            monkeypatch.setattr(lower, "Panel", PerCall)
+        gemm3.LAUNCHES = gemm3.DEVICE_LAUNCHES = 0
+        results[route] = (cholesky_trapezoid(TrapezoidMatrix.from_array(a, panel=panel)).numpy(),
+                          gemm3.LAUNCHES, gemm3.DEVICE_LAUNCHES)
+    nb, products = n // panel, 3
+    updates = nb * (nb - 1) // 2
+    calls = (nb - 1) * products + updates
+    assert results["panel"][1:] == (calls, 3 * (nb - 1) * products + (nb - 1) + updates)
+    assert results["per_call"][1:] == (calls, 3 * calls)
+    assert (results["panel"][0] == results["per_call"][0]).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -152,13 +222,18 @@ def test_matmul_kernel_same_bits_on_two_streams(gen):
 
 def test_matmul_split_plan():
     """The ring the mainloop runs: 64-deep slices, two stages of six 16 KB
-    tiles at three planes, six of two at one; all within 227 KB a CTA."""
+    tiles at three planes, three of four at two (matmul3), six of two at
+    one; all within 227 KB a CTA."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    p3, p1 = gemm.split_plan(3), gemm.split_plan(1)
-    assert p3["slice"] == p1["slice"] == gemm.SLICE
-    assert (p3["stages"], p1["stages"]) == (2, 6)
-    assert p3["smem_bytes"] >= 2 * 6 * 16384 and max(p3["smem_bytes"], p1["smem_bytes"]) <= 232448
+    plans = {p: gemm.split_plan(p) for p in (1, 2, 3)}
+    assert all(plan["slice"] == gemm.SLICE for plan in plans.values())
+    assert [plans[p]["stages"] for p in (1, 2, 3)] == [6, 3, 2]
+    for p, plan in plans.items():
+        assert plan["stages"] * 2 * p * 16384 <= plan["smem_bytes"] <= 232448
+    assert plans[2]["smem_bytes"] == 197680
+    with pytest.raises(RuntimeError):
+        gemm.split_plan(4)
 
 
 def test_non_unit_column_stride_is_copied(gen):

@@ -214,6 +214,21 @@ def test_matmul_split_ref_two_planes_is_matmul3(rng):
     torch.testing.assert_close(got, gemm3.matmul3_ref(a, b, c, tb=True), rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("k", [1, 64, 100, 130])
+@pytest.mark.parametrize("trans", [False, True])
+def test_pack_ref_two_planes_is_matmul3_split(rng, trans, k):
+    """P = 2, matmul3's route: plane 0 is exactly gemm3._split's hi and
+    plane 1 its lo, of op(x), K zero-padded to whole slices."""
+    rows = 48
+    x = torch.from_numpy((rng.standard_normal((k, rows) if trans else (rows, k)) * 1e3).astype(
+        np.float32))
+    p = gemm._pack_ref(x, trans=trans, planes=2)
+    hi, lo = gemm3._split(x.T if trans else x)
+    assert p.shape == (2, rows, gemm._depth(k))
+    assert torch.equal(p[0, :, :k].float(), hi) and torch.equal(p[1, :, :k].float(), lo)
+    assert not p[:, :, k:].any()
+
+
 def test_matmul_split_ref_bf16_is_one_plane(rng):
     """bf16 operands: one plane, one product, exact bf16 products summed in
     fp32, as matmul_ref computes."""

@@ -4,9 +4,12 @@ JAX Pallas kernel body, on the CPU.
 The JAX package's matmul3 runs plain fp32 on the CPU, so the test builds
 the pallas_call around its kernel body (gemm3._kernel) and interprets it:
 that is the bf16 split and the three products as the TPU runs them. The
-port's matmul3_ref (the CUDA kernel csrc/gemm3.cu's plain version, which a
-CPU tensor takes) must agree with it to 1e-6 relative: the same split, the
-same exact bf16 products, fp32 sums in another order.
+port's matmul3_ref (the plain version of the CUDA kernel, csrc/gemm_split.cu
+at two planes, which a CPU tensor takes) must agree with it to 1e-6
+relative: the same split, the same exact bf16 products, fp32 sums in
+another order. gemm3.Panel (one Cholesky panel packed once for all of its
+trailing updates) takes the same plain version on the CPU, over row
+slices of its panel.
 """
 
 import importlib
@@ -91,3 +94,58 @@ def test_in_place_and_errors(rng):
         gemm3.matmul3(a.double(), b.double(), tb=True)
     with pytest.raises(ValueError, match="contraction"):
         gemm3.matmul3(a, b)
+
+
+# (rows, w, off, n): the panel's rows and width, the update's first row and
+# column count (a trailing update reads b[off:] and b[off:off + n])
+PANEL_CASES = [
+    (256, 96, 0, 96),     # the first update: the whole panel against its first block
+    (256, 96, 96, 96),    # a later block
+    (256, 96, 192, 64),   # the ragged last block
+    (300, 70, 17, 130),   # offsets off the tile grid, K off the slice
+    (130, 64, 0, 1),      # one column
+]
+
+
+@pytest.mark.parametrize("out_is_c", [False, True])
+@pytest.mark.parametrize("rows,w,off,n", PANEL_CASES)
+def test_panel_matches_matmul3_ref_on_row_slices(rng, rows, w, off, n, out_is_c):
+    b = torch.from_numpy(rng.standard_normal((rows, w)).astype(np.float32))
+    c = torch.from_numpy(rng.standard_normal((rows - off, n)).astype(np.float32))
+    want = gemm3.matmul3_ref(b[off:], b[off:off + n], c, tb=True)
+    keep = b.clone()
+    panel = gemm3.Panel(b)
+    got = panel.sub_update(c, off, n, out=c if out_is_c else None)
+    assert (got is c) == out_is_c
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert torch.equal(b, keep)  # the panel is read, never written
+
+
+@pytest.mark.parametrize("off", [0, 256])
+def test_panel_matches_pallas_body(rng, off):
+    """A trailing update through the panel against JAX's matmul3 body,
+    interpreted: rows [off, off + M) of a panel of width K, their first N
+    as B."""
+    b = rng.standard_normal((off + M, K)).astype(np.float32)
+    c = rng.standard_normal((M, N)).astype(np.float32)
+    want = _pallas_body(b[off:], b[off:off + N], c, True)
+    got = gemm3.Panel(torch.from_numpy(b)).sub_update(torch.from_numpy(c), off, N).numpy()
+    assert _rel(got, want) <= BODY_BAR
+
+
+@pytest.mark.parametrize("what", ["fp64 panel", "1-D panel", "rows past the panel",
+                                  "negative offset", "c of another shape", "fp64 c"])
+def test_panel_errors(rng, what):
+    b = torch.from_numpy(rng.standard_normal((64, 32)).astype(np.float32))
+    c = torch.from_numpy(rng.standard_normal((48, 16)).astype(np.float32))
+    cases = {
+        "fp64 panel": (TypeError, lambda: gemm3.Panel(b.double())),
+        "1-D panel": (TypeError, lambda: gemm3.Panel(b[0])),
+        "rows past the panel": (ValueError, lambda: gemm3.Panel(b).sub_update(c, 56, 16)),
+        "negative offset": (ValueError, lambda: gemm3.Panel(b).sub_update(c, -1, 16)),
+        "c of another shape": (ValueError, lambda: gemm3.Panel(b).sub_update(c, 0, 16)),
+        "fp64 c": (TypeError, lambda: gemm3.Panel(b).sub_update(c.double(), 16, 16)),
+    }
+    err, call = cases[what]
+    with pytest.raises(err):
+        call()

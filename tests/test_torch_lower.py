@@ -16,7 +16,10 @@ from numpywren_tpu.compiler import lower as jlower
 from numpywren_tpu.matrix_init import random_spd
 from numpywren_tpu_torch import config as pconfig
 from numpywren_tpu_torch.compiler import lower
+from numpywren_tpu_torch.ops.common import cdiv
 from numpywren_tpu_torch.ops.gemm3 import matmul3_ref
+from numpywren_tpu_torch.trapezoid import TrapezoidMatrix, cholesky_trapezoid
+from test_torch_trapezoid import count_panel_route
 
 RTOL, ATOL = 1e-4, 1e-5
 
@@ -73,3 +76,53 @@ def test_sub_matmul_routes(compensated):
     assert lower._use_compensated(a, "high") is compensated
     assert not lower._use_compensated(a, "highest")
     assert not lower._use_compensated(a.double(), "high")
+
+
+@pytest.mark.parametrize("n,panel_tiles", [(224, 2), (416, 3)])
+def test_chol_cols_panel_route_matches_jax(monkeypatch, n, panel_tiles):
+    """Compensated chol_cols on strided views of one buffer: each column
+    block's panel packed once, a ragged last column block, the result
+    JAX's."""
+    monkeypatch.setattr(config, "_default", config.NpwConfig(compensated=True))
+    monkeypatch.setattr(pconfig, "_default", pconfig.NpwConfig(compensated=True))
+    calls = count_panel_route(monkeypatch)
+    tile = 32
+    a = random_spd(n, seed=n)
+    want = np.asarray(jlower.fused_cholesky(jnp.asarray(a), tile, panel_tiles=panel_tiles))
+    got = lower.fused_cholesky(torch.from_numpy(a.copy()), tile, panel_tiles=panel_tiles)
+    nb = cdiv(n, panel_tiles * tile)
+    assert calls == {"packs": nb - 1, "updates": nb * (nb - 1) // 2}
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+def _factor(tier, a, precision):
+    if tier == "flat":
+        return lower.fused_cholesky(torch.from_numpy(a.copy()), 32, panel_tiles=2,
+                                    precision=precision)
+    return cholesky_trapezoid(TrapezoidMatrix.from_array(a, panel=64, device="cpu"),
+                              precision=precision)
+
+
+@pytest.mark.parametrize("tier", ["flat", "trapezoid"])
+def test_panel_route_counts_as_the_per_call_route(monkeypatch, tier):
+    """What gemm3.LAUNCHES counts on the card for one compensated
+    factorization (matmul3 calls and panel updates) equals the product
+    calls of the per-call route, which "highest" still takes (one matmul
+    call a product); one pack a panel with updates."""
+    def counted(fn, calls):
+        def call(*args, **kw):
+            calls.append(1)
+            return fn(*args, **kw)
+        return call
+
+    a = random_spd(352, seed=3)
+    per_call, matmul3_calls = [], []
+    monkeypatch.setattr(lower, "kernel_matmul", counted(lower.kernel_matmul, per_call))
+    _factor(tier, a, "highest")
+    monkeypatch.setattr(lower, "matmul3", counted(lower.matmul3, matmul3_calls))
+    monkeypatch.setattr(pconfig, "_default", pconfig.NpwConfig(compensated=True))
+    calls = count_panel_route(monkeypatch)
+    _factor(tier, a, None)
+    nb = cdiv(352, 64)
+    assert calls["packs"] == nb - 1 and calls["updates"] == nb * (nb - 1) // 2
+    assert len(matmul3_calls) + calls["updates"] == len(per_call) > 0

@@ -19,6 +19,8 @@ from numpywren_tpu import trapezoid as jtrap
 from numpywren_tpu.matrix_init import random_spd
 from numpywren_tpu_torch import config as pconfig
 from numpywren_tpu_torch import convert
+from numpywren_tpu_torch.ops import gemm3
+from numpywren_tpu_torch.ops.common import cdiv
 from numpywren_tpu_torch.trapezoid import TrapezoidMatrix, cholesky_trapezoid
 
 RTOL, ATOL = 1e-4, 1e-5
@@ -52,6 +54,40 @@ def test_cholesky_trapezoid_matches_jax(set_config, n, panel, cfg):
                                     precision=jprec).numpy()
     t = TrapezoidMatrix.from_array(a, panel=panel, device="cpu")
     got = cholesky_trapezoid(t, precision=prec).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    assert _resid(a, got) < 1e-5
+
+
+def count_panel_route(monkeypatch):
+    """Count the gemm3.Panel packs and updates the run makes."""
+    calls = {"packs": 0, "updates": 0}
+    init, sub_update = gemm3.Panel.__init__, gemm3.Panel.sub_update
+
+    def counted_init(self, b):
+        calls["packs"] += 1
+        init(self, b)
+
+    def counted_sub_update(self, *args, **kw):
+        calls["updates"] += 1
+        return sub_update(self, *args, **kw)
+
+    monkeypatch.setattr(gemm3.Panel, "__init__", counted_init)
+    monkeypatch.setattr(gemm3.Panel, "sub_update", counted_sub_update)
+    return calls
+
+
+@pytest.mark.parametrize("n,panel", [(352, 64), (200, 64)])
+def test_compensated_panel_route_matches_jax(set_config, monkeypatch, n, panel):
+    """Compensated, each panel is packed once and every trailing update,
+    the ragged last panel's included, runs through it: the factor is
+    JAX's."""
+    set_config(True)
+    calls = count_panel_route(monkeypatch)
+    a = random_spd(n, seed=n + 1)
+    want = jtrap.cholesky_trapezoid(jtrap.TrapezoidMatrix.from_array(a, panel=panel)).numpy()
+    got = cholesky_trapezoid(TrapezoidMatrix.from_array(a, panel=panel, device="cpu")).numpy()
+    nb = cdiv(n, panel)
+    assert calls == {"packs": nb - 1, "updates": nb * (nb - 1) // 2}
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
     assert _resid(a, got) < 1e-5
 
