@@ -50,9 +50,19 @@ executors on both storage tiers (P15-P16):
       off-envelope n=1000 call launches nothing; then the ops entry points
       potrf_pallas + trsm_pallas on the first Cholesky panel (1024
       diagonal block, 31744 x 1024 below it)
-  P7  the CholeskyQR2 chain kernel vs its plain version at 1,048,576 x 256
-      (columns) and 256 x 1,048,576 (rows), kappa 10: max|q - q_plain|
-      <= 3e-5, total rel <= 1e-5, the same conv flag, dev2 rel <= 1e-4
+  P7  the CholeskyQR2 chain (csrc/cholqr_chain.cu's launch sequence, the
+      apply on gemm_split.cu at three bf16 planes) at 1,048,576 x 256
+      (columns) and 256 x 1,048,576 (rows), kappa 10, vs its plain versions:
+      cholqr2_chain_ref (fp32) and _cholqr2_chain_steps_ref (its own
+      arithmetic): max|q - q_plain| <= 3e-5 against each, q rel <= 1e-5
+      against the steps, total rel <= 1e-5, the same conv flag, dev2 rel
+      <= 1e-4; its device launches (pallas_factor.device_launches); both
+      folds (shift_c = 1: the identity, dev2 >= 0.1, conv False; a
+      hundredth of the shift: the Neumann cleanup, dev2 < 0.1) finite and
+      within 1e-5 of its steps; ms of the kernel, the plain version and
+      passes 1-2 by the library and by the chain, in turns; device ms of
+      step 0, the packs and the mainloop (torch.profiler); the bound at
+      three planes beside the FFMA bound
   P8  tsqr(X 1,048,576 x 512, tile_rows=4096, "cholqr3s", compute_q) +
       run_program with NPW_PALLAS_FACTOR=1 (potrf_inv kernel), then the
       library route (both flags off)
@@ -919,28 +929,107 @@ def kappa_panel(torch, gen, m, b, kappa):
     return (u * s) @ v.T
 
 
+def chain_split(torch, fn, want: int, sessions: int = 3):
+    """One warm chain call under torch.profiler: (device ms of step 0, of
+    the apply's two packs and of its mainloop, each launch's device µs in
+    order, the port's launches the session recorded, sessions taken). Step
+    0 is every launch before the first pack; PyTorch's own kernels (the
+    conv flag's comparison) are left out. A session that recorded another
+    number of the port's launches than the call enqueued (`want`) is taken
+    again; after `sessions` such sessions the split and the list are None."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, sessions + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        recs = sorted((e for e in prof.events()
+                       if e.device_type == DeviceType.CUDA and "at::" not in e.name),
+                      key=lambda e: e.time_range.start)
+        if len(recs) == want:
+            break
+    else:
+        return None, None, len(recs), sessions
+    split, packed = {"step0": 0.0, "pack": 0.0, "mainloop": 0.0}, False
+    for e in recs:
+        packed = packed or "gemm_split_pack" in e.name
+        step = ("mainloop" if "gemm_split_mainloop" in e.name else "pack" if packed else "step0")
+        split[step] += e.time_range.elapsed_us() / 1e3
+    return split, [e.time_range.elapsed_us() for e in recs], len(recs), attempt
+
+
 def p7_chain(torch, gen, m: int, b: int = 256):
+    """The chain at (m, b), kappa 10, both forms: against cholqr2_chain_ref
+    (q max abs <= 3e-5, total rel <= 1e-5, conv, dev2 rel <= 1e-4) and
+    _cholqr2_chain_steps_ref (the same, q rel <= 1e-5); its device
+    launches; its device time by part and by launch; both folds (the
+    identity at shift_c = 1, not converged; the Neumann cleanup at a
+    hundredth of the shift) finite and as its plain version; ms of the
+    kernel, its plain version and passes 1-2 of _cholqr_adaptive by the
+    library and by the chain (with the Gram), in turns; the bound at three
+    bf16 planes (the apply's products) beside the FFMA bound."""
     from numpywren_tpu_torch.compiler import lower
     from numpywren_tpu_torch.ops import pallas_factor as pf
 
     out = {}
+    want = pf.device_launches("cholqr2_chain", b)
     base = kappa_panel(torch, gen, m, b, 10.0)
     for rows in (False, True):
         p = base.T.contiguous() if rows else base
         g = p @ p.T if rows else p.T @ p
         kw = dict(rows=rows, shift_c=4.0 * float(torch.finfo(torch.float32).eps) * (m * b) ** 0.5,
                   conv_gate=min(2.0 * 1e-4 ** 0.5, 1e-1))
-        q, total, conv, dev2 = pf.cholqr2_chain_pallas(g, p, **kw)
-        qr_, tr, convr, dev2r = pf.cholqr2_chain_ref(g, p, **kw)
-        torch.cuda.synchronize()
-        qerr = float((q - qr_).abs().max())
-        terr = rel_err(torch, total, tr)
-        derr = abs(float(dev2) - float(dev2r)) / float(dev2r)
         case = f"chain:{'rows' if rows else 'cols'}"
-        require(qerr <= CHAIN_Q_BAR, f"P7 {case}: max|q - q_plain| {qerr} > {CHAIN_Q_BAR}")
-        require(terr <= KERNEL_BAR, f"P7 {case}: total rel {terr} > {KERNEL_BAR}")
-        require(bool(conv) == bool(convr), f"P7 {case}: conv {bool(conv)} vs {bool(convr)}")
-        require(derr <= DEV2_BAR, f"P7 {case}: dev2 {float(dev2)} vs {float(dev2r)}")
+        before = pf.DEVICE_LAUNCHES["cholqr2_chain"]
+        q, total, conv, dev2 = pf.cholqr2_chain_pallas(g, p, **kw)
+        torch.cuda.synchronize()
+        launched = pf.DEVICE_LAUNCHES["cholqr2_chain"] - before
+        require(launched == want, f"P7 {case}: {launched} device launches, expected {want}")
+        row = {"phase": "P7", "case": case, "shape": list(p.shape), "kappa": 10.0,
+               "dev2": float(dev2), "conv": bool(conv), "device_launches": launched}
+        for name, plain in (("plain", pf.cholqr2_chain_ref), ("steps", pf._cholqr2_chain_steps_ref)):
+            qr_, tr, convr, dev2r = plain(g, p, **kw)
+            torch.cuda.synchronize()
+            qerr = float((q - qr_).abs().max())
+            errs = {"max_abs_err": qerr, "q_rel_err": rel_err(torch, q, qr_),
+                    "total_rel_err": rel_err(torch, total, tr),
+                    "dev2_rel_err": abs(float(dev2) - float(dev2r)) / float(dev2r)}
+            require(qerr <= CHAIN_Q_BAR, f"P7 {case}: max|q - q_{name}| {qerr} > {CHAIN_Q_BAR}")
+            if name == "steps":
+                require(errs["q_rel_err"] <= KERNEL_BAR,
+                        f"P7 {case}: q rel {errs['q_rel_err']} vs its steps > {KERNEL_BAR}")
+            require(errs["total_rel_err"] <= KERNEL_BAR,
+                    f"P7 {case}: total rel {errs['total_rel_err']} vs {name} > {KERNEL_BAR}")
+            require(bool(conv) == bool(convr), f"P7 {case}: conv {bool(conv)} vs {bool(convr)}")
+            require(errs["dev2_rel_err"] <= DEV2_BAR,
+                    f"P7 {case}: dev2 {float(dev2)} vs {name}'s {float(dev2r)}")
+            row.update({f"{k}_vs_{name}" if name == "steps" else k: v for k, v in errs.items()})
+            del qr_
+        del q
+
+        # both folds at this size, whichever the operand's own shift takes:
+        # the identity (shift_c = 1: dev2 >= 0.1, conv False) and the
+        # Neumann cleanup (a hundredth of the shift: dev2 < 0.1)
+        for branch, shift_c in (("identity", 1.0), ("neumann", kw["shift_c"] / 100)):
+            bkw = dict(kw, shift_c=shift_c)
+            qi, ti, convi, dev2i = pf.cholqr2_chain_pallas(g, p, **bkw)
+            qs, ts, convs, dev2s = pf._cholqr2_chain_steps_ref(g, p, **bkw)
+            torch.cuda.synchronize()
+            finite = all(bool(torch.isfinite(x).all()) for x in (qi, ti, dev2i))
+            res = row[branch] = {"dev2": float(dev2i), "conv": bool(convi), "finite": finite,
+                                 "q_rel_err": rel_err(torch, qi, qs),
+                                 "total_rel_err": rel_err(torch, ti, ts)}
+            taken = float(dev2i) >= 0.1 if branch == "identity" else float(dev2i) < 0.1
+            require(finite and taken and bool(convi) == bool(convs)
+                    and (branch == "neumann" or not bool(convi)),
+                    f"P7 {case} {branch} branch: {res}")
+            require(res["q_rel_err"] <= KERNEL_BAR and res["total_rel_err"] <= KERNEL_BAR,
+                    f"P7 {case} {branch} branch vs its steps: {res}")
+            del qi, qs
+
         set_flags()
         ms, plain_ms, lib_ms, chained_ms = in_turns(
             torch,
@@ -949,16 +1038,26 @@ def p7_chain(torch, gen, m: int, b: int = 256):
             lambda: lower._cholqr_adaptive(p, rows=rows, max_passes=2),
             lambda: lower._cholqr_adaptive(p, rows=rows, max_passes=2, pallas_chain=True),
             iters=5)
-        small = (2 * b ** 3 / 3 + 2 * b ** 3 * (7 if float(dev2) < 0.1 else 3))
-        b_ms, b_by = bound(2 * m * b * b + small, 4 * (2 * m * b + 2 * b * b + 2), PEAK_FP32)
-        row = {"phase": "P7", "case": case, "shape": list(p.shape), "kappa": 10.0,
-               "max_abs_err": qerr, "total_rel_err": terr, "dev2": float(dev2),
-               "dev2_plain": float(dev2r), "conv": bool(conv), "ms": ms, "plain_ms": plain_ms,
-               "library_passes12_ms": lib_ms, "chain_passes12_ms": chained_ms,
-               "bound_ms": b_ms, "bound_by": b_by}
+        split, by_launch, recorded, sessions = chain_split(
+            torch, lambda: pf.cholqr2_chain_pallas(g, p, **kw), want)
+        if split is None:
+            print(f"chip_smoke: P7 {case}: the profiler recorded {recorded} of {want} launches "
+                  f"in {sessions} sessions; split not measured", file=sys.stderr)
+        # step 0: potrf_inv (2 b^3 / 3) and seven b x b products, FP32
+        small = 2 * b ** 3 / 3 + 7 * 2 * b ** 3
+        nbytes = 4 * (2 * m * b + 2 * b * b + 2)
+        # six bf16 products of the apply on the tensor cores, step 0 on FFMA
+        b_ms, b_by = max(((6 * 2 * m * b * b / PEAK_BF16 + small / PEAK_FP32) * 1e3,
+                          "operations"), (nbytes / PEAK_HBM * 1e3, "bytes"))
+        ffma_ms, ffma_by = bound(2 * m * b * b + small, nbytes, PEAK_FP32)
+        row.update(ms=ms, plain_ms=plain_ms, library_passes12_ms=lib_ms,
+                   chain_passes12_ms=chained_ms, bound_ms=b_ms, bound_by=b_by,
+                   ffma_bound_ms=ffma_ms, ffma_bound_by=ffma_by, device_ms_by_part=split,
+                   device_us_by_launch=by_launch, profiled_launches=recorded,
+                   profile_sessions=sessions)
         emit(row)
         out[rows] = row
-        del p, g, q, qr_
+        del p, g
     return out
 
 
@@ -1435,7 +1534,8 @@ def main(argv=None) -> int:
                         "library_ms": row["library_ms"]})
     chain = p7[False]  # the columns form at 1,048,576 x 256 (P9's shape)
     kernels.append({"name": "cholqr2_chain", "route": "cuda",
-                    "source": "numpywren_tpu_torch/csrc/cholqr_chain.cu",
+                    "source": "numpywren_tpu_torch/csrc/cholqr_chain.cu + gemm_split.cu + "
+                              "potrf.cu + trtri.cu + gemm.cu",
                     "replaces": "numpywren_tpu/ops/pallas_factor.py:544",
                     "launches": launches["cholqr2_chain"],
                     "max_abs_err": max(r["max_abs_err"] for r in p7.values()),

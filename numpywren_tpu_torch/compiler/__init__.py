@@ -1,1 +1,7 @@
-"""Lowering of compiled DSL programs onto the CUDA store (fused Cholesky)."""
+"""Compiler: the static schedule (DSL loop-nest IR -> wavefront levels) and
+the fused lowering of compiled programs onto the CUDA store
+(``compiler.lower``: Cholesky, GEMM, TSQR)."""
+
+from numpywren_tpu_torch.compiler.schedule import compile_schedule
+
+__all__ = ["compile_schedule"]

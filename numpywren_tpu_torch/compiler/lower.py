@@ -318,7 +318,7 @@ def _cholqr_adaptive(p: torch.Tensor, rows: bool = False, max_passes: int = 16,
     Opt-ins, read at each call: NPW_PALLAS_FACTOR=1 factors each shifted
     pass with the potrf_inv kernel (its input 0.5 (Gs + Gsᵀ)); on a CPU
     tensor the wrapper runs its plain version. NPW_PALLAS_CHAIN=1 (or
-    pallas_chain=True) runs passes 1-2 as the one-launch chain kernel
+    pallas_chain=True) runs passes 1-2 as the chain kernel's launch sequence
     inside its envelope (its input G1 unsymmetrized); NPW_GEMM_INV=1 swaps
     the library triangular solve for _trtri_gemm.
 

@@ -1,8 +1,8 @@
 // out = alpha * op(A) @ op(B) + beta * C in true FP32, on the CUDA cores.
 //
 // The FP32 product engine that potrf.cu's launch sequence and the CholeskyQR2
-// chain's apply (cholqr_chain.cu) call from C; their plain versions are fp32
-// and their error bars were set on this kernel. It is no longer the kernel of
+// chain's b x b products (cholqr_chain.cu) call from C; their plain versions
+// are fp32 and their error bars were set on this kernel. It is no longer the kernel of
 // ops/gemm.py::matmul: the Pallas kernel there (numpywren_tpu/ops/gemm.py,
 // _mm_kernel) computes HIGHEST as a bf16x6 split on the MXU, which
 // gemm_split.cu does on the tensor cores, under this kernel's FFMA bound.

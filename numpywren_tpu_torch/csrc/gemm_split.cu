@@ -6,6 +6,8 @@
 //   precision HIGHEST (bf16x6), P = 1 for bf16 (DEFAULT: one MXU pass);
 // - numpywren_tpu/ops/gemm3.py::matmul3 (_kernel, _split): P = 2 (bf16x3),
 //   with alpha = -1, beta = 1 for the Cholesky trailing update c - a bᵀ.
+// It is also the apply of the CholeskyQR2 chain (cholqr_chain.cu, P = 3 as
+// the TPU's HIGHEST), called from C.
 // Plane p of x is rn(x - the planes before it): at P = 3 hi, mid, lo
 // (hi + mid + lo = x exactly while lo is a normal bf16, |x| >= ~2^-110), at
 // P = 2 hi and lo, exactly matmul3's _split. The plane pairs (i, j) with

@@ -1,5 +1,5 @@
 """Factorization tile kernels: potrf, (potrf, its inverse), trtri, trsm,
-the one-launch CholeskyQR2 chain and the blocked-Householder QR.
+the CholeskyQR2 chain and the blocked-Householder QR.
 
 Counterpart of numpywren_tpu/ops/pallas_factor.py. Module and function
 names are the JAX package's, so callers and tests read alike; the kernels
@@ -25,10 +25,16 @@ are hand-written CUDA C++ for Hopper:
   in the inverse's diagonal block, then ``trtri.cu``'s levels from h = 128
   (``npw_potrf_inv``): (4n/128 − 3) + 2⌈log2(n/128)⌉ launches.
 - ``csrc/cholqr_chain.cu``: CholeskyQR2 passes 1-2 of
-  ``compiler.lower._cholqr_adaptive`` (shifted factor and inverse, the
-  analytic pass-2 Gram, the Neumann or identity fold chosen on the device,
-  the folded inverse and R) in one launch, then the apply of the folded
-  inverse to the tall operand in true FP32 by ``npw_gemm`` (FFMA).
+  ``compiler.lower._cholqr_adaptive`` as one launch sequence (15 + the
+  potrf_inv sequence's launches, ``device_launches("cholqr2_chain", b)``):
+  the shift, ``npw_potrf_inv`` for the shifted factor and its inverse, the
+  analytic pass-2 Gram and the Neumann products as FFMA ``npw_gemm``
+  launches, the Neumann or identity fold chosen on the device, the folded
+  inverse and R; then the apply of the folded inverse to the tall operand
+  as ``csrc/gemm_split.cu``'s pack and mainloop at the planes ``precision``
+  routes to (bf16x6, as the TPU computes HIGHEST). Its plain versions:
+  ``cholqr2_chain_ref`` (fp32 throughout, the CPU route) and
+  ``_cholqr2_chain_steps_ref`` (the sequence's own arithmetic).
 - ``csrc/qr.cu``: the thin compact-WY Householder QR of an (m, n) tile with
   LAPACK geqrf signs, one cooperative launch of P = min(16, m / 32) CTAs,
   each holding its m / P rows of the working copy and of V (later of Q) in
@@ -59,8 +65,8 @@ from typing import Optional
 import torch
 
 from numpywren_tpu_torch.ops import _build
-from numpywren_tpu_torch.ops.common import on_cuda
-from numpywren_tpu_torch.ops.gemm import matmul
+from numpywren_tpu_torch.ops.common import check_precision, on_cuda
+from numpywren_tpu_torch.ops.gemm import _matmul_split_ref, kernel_planes, matmul
 
 _B = 128  # the diagonal block one CTA factors in shared memory
 _R = 32   # the potrf diagonal step's sub-block: one warp's rows
@@ -73,20 +79,28 @@ sequence of device launches (DEVICE_LAUNCHES); "potrf_diag" counts the
 potrf diagonal step run alone, for its comparison with
 _factor_block_rec_ref."""
 
-DEVICE_LAUNCHES = {"potrf": 0, "potrf_inv": 0, "trtri": 0}
+DEVICE_LAUNCHES = {"potrf": 0, "potrf_inv": 0, "trtri": 0, "cholqr2_chain": 0}
 """Device kernels that the launch sequences enqueued in this process, as
-csrc/potrf.cu and csrc/trtri.cu count them: device_launches(kind, n) a
-call."""
+csrc/potrf.cu, csrc/trtri.cu and csrc/cholqr_chain.cu count them:
+device_launches(kind, n) a call."""
+
+_CHAIN_OWN = 15
+"""The chain's own launches (csrc/cholqr_chain.cu): the row sums, the
+shift, P = W1 W1ᵀ, the fold's preparation, the four Neumann products and
+the "+ I" between the first two, the select, linv, R, and the apply's two
+packs and mainloop; npw_potrf_inv's sequence comes on top."""
 
 
 def device_launches(kind: str, n: int) -> int:
     """Device launches of one `kind` call at n (128 | n): potrf's diagonal
     step and three multi-CTA launches per panel after the first, trtri's
     diagonal launch and two launches per doubling level; potrf_inv is
-    potrf's sequence and trtri's levels."""
+    potrf's sequence and trtri's levels; the chain at b = n is its own
+    launches and potrf_inv's sequence."""
     levels = 2 * (n // _B - 1).bit_length()  # 2 ceil(log2(n / 128))
-    return {"potrf": 4 * n // _B - 3, "trtri": 1 + levels,
-            "potrf_inv": 4 * n // _B - 3 + levels}[kind]
+    potrf = 4 * n // _B - 3
+    return {"potrf": potrf, "trtri": 1 + levels, "potrf_inv": potrf + levels,
+            "cholqr2_chain": _CHAIN_OWN + potrf + levels}[kind]
 
 
 def reset_launches() -> None:
@@ -268,8 +282,12 @@ def _lib():
         lib.npw_trtri.restype = i
         lib.npw_potrf_diag.argtypes = [p, p, p, p]
         lib.npw_potrf_diag.restype = i
-        lib.npw_cholqr2_chain.argtypes = [i, i, i, p, p, p, p, p, p, f, f, p]
+        lib.npw_cholqr2_chain.argtypes = [i, i, i, i, p, p, p, p, p, p, p, f, f, p,
+                                          ctypes.POINTER(i)]
         lib.npw_cholqr2_chain.restype = i
+        lib.npw_cholqr2_chain_plan.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_longlong),
+                                               ctypes.POINTER(ctypes.c_longlong)]
+        lib.npw_cholqr2_chain_plan.restype = None
         lib.npw_qr.argtypes = [i, i, p, p, p, p, p]
         lib.npw_qr.restype = i
         lib.npw_qr_plan.argtypes = [i, i, ctypes.POINTER(i), ctypes.POINTER(i),
@@ -393,7 +411,9 @@ def trsm_pallas(a: torch.Tensor, l: torch.Tensor, *,
 
 def neumann_fold(e2: torch.Tensor):
     """(l2, li2) of the first-order cleanup: M = tril(E, -1) + diag(E)/2,
-    li2 = (I + M²)(I - M), l2 = (I + M⁴)(I + M)."""
+    li2 = (I + M²)(I - M), l2 = (I + M⁴)(I + M), in the chain kernel's
+    order: M², I + M², li2 = (I + M²) - (I + M²) M, then M⁴ + I and
+    l2 = (M⁴ + I)(I + M)."""
     eye = torch.eye(e2.shape[0], dtype=e2.dtype, device=e2.device)
     m_ = torch.tril(e2, -1) + torch.diag(0.5 * torch.diagonal(e2))
     m2 = m_ @ m_
@@ -403,15 +423,16 @@ def neumann_fold(e2: torch.Tensor):
     return (eye + m4) @ (eye + m_), li2
 
 
-def cholqr2_chain_ref(g: torch.Tensor, p: torch.Tensor, *, rows: bool,
-                      shift_c: float, conv_gate: float):
-    """Plain version of the chain kernel: (q, total, conv, dev2) with conv
-    and dev2 0-d tensors. The fold is chosen with torch.where, on the
-    tensors' device, as the kernel chooses it: no host read."""
+def _chain_step0_ref(g: torch.Tensor, *, rows: bool, shift_c: float):
+    """Step 0 of the chain in plain PyTorch, in the kernels' order:
+    (linv, total, dev2). The shift floor = shift_c max row sum |g|, (L1, W1)
+    of g + floor I by potrf_inv_ref (the kernels' blocked and doubling
+    order), E2 = -floor W1 W1ᵀ, dev2 = max |E2|, the Neumann products
+    (neumann_fold), the fold chosen with torch.where on the tensors' device
+    (no host read), linv = LI2 W1 and R."""
     b = g.shape[0]
     eye = torch.eye(b, dtype=g.dtype, device=g.device)
-    rs_g = torch.max(torch.sum(torch.abs(g), dim=1))
-    floor = shift_c * rs_g
+    floor = shift_c * torch.max(torch.sum(torch.abs(g), dim=1))
     l1, w1 = potrf_inv_ref(g + floor * eye)
     e2 = (-floor) * (w1 @ w1.T)
     dev2 = torch.max(torch.abs(e2))
@@ -419,25 +440,65 @@ def cholqr2_chain_ref(g: torch.Tensor, p: torch.Tensor, *, rows: bool,
     cleanup = dev2 < 1e-1
     l2 = torch.where(cleanup, l2, eye)
     li2 = torch.where(cleanup, li2, eye)
-    linv = li2 @ w1
     total = l1 @ l2 if rows else l2.T @ l1.T
+    return li2 @ w1, total, dev2
+
+
+def cholqr2_chain_ref(g: torch.Tensor, p: torch.Tensor, *, rows: bool,
+                      shift_c: float, conv_gate: float):
+    """Plain version of the chain: (q, total, conv, dev2) with conv and dev2
+    0-d tensors, fp32 throughout (as JAX on the CPU computes the reference
+    kernel): step 0 (_chain_step0_ref), then the apply in fp32."""
+    linv, total, dev2 = _chain_step0_ref(g, rows=rows, shift_c=shift_c)
     q = linv @ p if rows else p @ linv.T
     return q, total, dev2 < conv_gate, dev2
+
+
+def _cholqr2_chain_steps_ref(g: torch.Tensor, p: torch.Tensor, *, rows: bool,
+                             shift_c: float, conv_gate: float, planes: int = 3):
+    """The chain's launch sequence in plain PyTorch, the kernels' own
+    arithmetic in another summation order: step 0 (_chain_step0_ref), then
+    the apply through `planes` bf16 planes (gemm._matmul_split_ref). Used
+    by the tests and the card's check of the kernel; on no path."""
+    linv, total, dev2 = _chain_step0_ref(g, rows=rows, shift_c=shift_c)
+    if rows:
+        q = _matmul_split_ref(linv, p, planes=planes)
+    else:
+        q = _matmul_split_ref(p, linv, tb=True, planes=planes)
+    return q, total, dev2 < conv_gate, dev2
+
+
+def _chain_planes(precision: Optional[str]) -> int:
+    """The apply's bf16 planes for `precision`: the reference's coercion
+    (None and "high" run at "highest"), then ops.gemm.matmul's route for
+    that string and fp32 operands."""
+    precision = check_precision(precision or "highest")
+    return kernel_planes("highest" if precision == "high" else precision, torch.float32)
+
+
+def _chain_plan(m: int, b: int, planes: int):
+    """(fp32 floats, bf16 elements) of the chain's scratch, as
+    csrc/cholqr_chain.cu lays it out. Reads the built library."""
+    floats, halves = ctypes.c_longlong(0), ctypes.c_longlong(0)
+    _lib().npw_cholqr2_chain_plan(m, b, planes, ctypes.byref(floats), ctypes.byref(halves))
+    return floats.value, halves.value
 
 
 def cholqr2_chain_pallas(g: torch.Tensor, p: torch.Tensor, *, rows: bool,
                          shift_c: float, conv_gate: float,
                          precision: Optional[str] = None):
-    """One-launch CholeskyQR2 pass-1-2 chain: (q, total, conv, dev2) with
+    """CholeskyQR2 pass-1-2 chain: (q, total, conv, dev2) with
     p = q @ total (rows=False) or p = total @ q (rows=True), the fold-path
     semantics of compiler.lower._cholqr_adaptive; the extras loop stays
     with the caller. conv and dev2 are 0-d tensors on p's device.
 
-    `precision` is accepted for the reference's signature: the apply is
-    always true FP32 (the reference coerces HIGH to HIGHEST). Raises
-    ValueError outside the envelope (fp32, 128 | b <= 256, the reference's
-    stream tile dividing m >= b); callers gate on chain_supported()."""
-    del precision
+    `precision` routes the apply as ops.gemm.matmul routes it, after the
+    reference's coercion of None and "high" to "highest" (_chain_planes);
+    the CPU route is fp32 throughout. Raises ValueError outside the
+    envelope (fp32, 128 | b <= 256, the reference's stream tile dividing
+    m >= b) and for an unknown precision; callers gate on
+    chain_supported()."""
+    planes = _chain_planes(precision)
     b = p.shape[0] if rows else p.shape[1]
     m = p.shape[1] if rows else p.shape[0]
     if not _chain_supported(m, b, p.dtype) or tuple(g.shape) != (b, b):
@@ -453,13 +514,18 @@ def cholqr2_chain_pallas(g: torch.Tensor, p: torch.Tensor, *, rows: bool,
     q = torch.empty_like(p)
     total = torch.empty((b, b), dtype=torch.float32, device=dev)
     stat = torch.empty(2, dtype=torch.float32, device=dev)
-    scratch = torch.empty(12 * b * b, dtype=torch.float32, device=dev)
+    floats, halves = _chain_plan(m, b, planes)
+    scratch = torch.empty(floats, dtype=torch.float32, device=dev)
+    plane_buf = torch.empty(halves, dtype=torch.bfloat16, device=dev)
+    launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _lib().npw_cholqr2_chain(
-            int(rows), m, b, g.data_ptr(), p.data_ptr(), q.data_ptr(), total.data_ptr(),
-            stat.data_ptr(), scratch.data_ptr(), float(shift_c), float(conv_gate), stream)
+            int(rows), m, b, planes, g.data_ptr(), p.data_ptr(), q.data_ptr(),
+            total.data_ptr(), stat.data_ptr(), scratch.data_ptr(), plane_buf.data_ptr(),
+            float(shift_c), float(conv_gate), stream, ctypes.byref(launched))
     LAUNCHES["cholqr2_chain"] += 1
+    DEVICE_LAUNCHES["cholqr2_chain"] += launched.value
     _build.check(rc, "cholqr2_chain kernel")
     return q, total, stat[1] > 0.5, stat[0]
 

@@ -2,7 +2,8 @@
 kernels at small and awkward shapes: ragged edges, K not a multiple of 8,
 K = 0, one row or column, transposed and strided operands, bf16, and out
 aliasing c. Factor kernels at n = 128..1024 and outside their envelope;
-the CholeskyQR2 chain in both forms at κ up to 1e6.
+the CholeskyQR2 chain in both forms at κ up to 1e6, its identity branch
+and its run with no host synchronisation.
 
 These need an NVIDIA GPU (sm_90a) and nvcc; without one every test skips.
 Run on the card: python -m pytest tests/test_torch_cuda.py -q
@@ -397,8 +398,12 @@ def _panel(gen, m, b, kappa):
 @pytest.mark.parametrize("rows", [False, True])
 @pytest.mark.parametrize("b,kappa", [(128, 10.0), (256, 10.0), (256, 1e4), (256, 1e6)])
 def test_cholqr2_chain_kernel(gen, b, kappa, rows):
-    """The chain against its plain version: q to 3e-5 (max abs), total to
-    rel 1e-5, the same conv flag, dev2 to rel 1e-4 (two summation orders)."""
+    """The chain against its plain versions: against cholqr2_chain_ref (fp32
+    throughout) q to 3e-5 (max abs), total to rel 1e-5, the same conv flag,
+    dev2 to rel 1e-4 (two summation orders); against
+    _cholqr2_chain_steps_ref (the sequence's own arithmetic, the apply at
+    three bf16 planes) the same, and q to rel 1e-5 at kappa = 10. One call
+    enqueues device_launches("cholqr2_chain", b) device launches."""
     from numpywren_tpu_torch.ops import pallas_factor as pf
 
     p = _panel(gen, 4096, b, kappa)
@@ -407,16 +412,63 @@ def test_cholqr2_chain_kernel(gen, b, kappa, rows):
     g = p @ p.T if rows else p.T @ p
     kw = dict(rows=rows, shift_c=4.0 * 1.1920929e-07 * (4096 * b) ** 0.5, conv_gate=0.02)
     before = pf.LAUNCHES["cholqr2_chain"]
+    device_before = pf.DEVICE_LAUNCHES["cholqr2_chain"]
     q, total, conv, dev2 = pf.cholqr2_chain_pallas(g, p, **kw)
     assert pf.LAUNCHES["cholqr2_chain"] == before + 1
-    qr, tr, convr, dev2r = pf.cholqr2_chain_ref(g, p, **kw)
-    torch.cuda.synchronize()
-    assert float((q - qr).abs().max()) <= 3e-5
-    _close(total, tr)
-    assert bool(conv) == bool(convr)
-    assert abs(float(dev2) - float(dev2r)) <= 1e-4 * float(dev2r)
+    assert (pf.DEVICE_LAUNCHES["cholqr2_chain"]
+            == device_before + pf.device_launches("cholqr2_chain", b))
+    for plain in (pf.cholqr2_chain_ref, pf._cholqr2_chain_steps_ref):
+        qr, tr, convr, dev2r = plain(g, p, **kw)
+        torch.cuda.synchronize()
+        assert float((q - qr).abs().max()) <= 3e-5
+        _close(total, tr)
+        assert bool(conv) == bool(convr)
+        assert abs(float(dev2) - float(dev2r)) <= 1e-4 * float(dev2r)
+    if kappa == 10.0:
+        _close(q, qr)
     with pytest.raises(ValueError):
         pf.cholqr2_chain_pallas(g, p[:, :100] if rows else p[:100], **kw)
+
+
+@pytest.mark.parametrize("rows", [False, True])
+def test_cholqr2_chain_identity_branch(gen, rows):
+    """dev2 >= 0.1 (a shift as large as the Gram's row sums): the select
+    makes the fold the identity, so every output is finite, conv is False
+    and R is the shifted factor, as in the sequence's plain version."""
+    from numpywren_tpu_torch.ops import pallas_factor as pf
+
+    p = _panel(gen, 4096, 256, 10.0)
+    if rows:
+        p = p.T.contiguous()
+    g = p @ p.T if rows else p.T @ p
+    kw = dict(rows=rows, shift_c=1.0, conv_gate=0.02)
+    q, total, conv, dev2 = pf.cholqr2_chain_pallas(g, p, **kw)
+    qs, ts, _, dev2s = pf._cholqr2_chain_steps_ref(g, p, **kw)
+    torch.cuda.synchronize()
+    for x in (q, total, dev2):
+        assert bool(torch.isfinite(x).all())
+    assert float(dev2) >= 0.1 and not bool(conv)
+    _close(q, qs)
+    _close(total, ts)
+    assert abs(float(dev2) - float(dev2s)) <= 1e-4 * float(dev2s)
+
+
+def test_cholqr2_chain_has_no_host_synchronisation(gen):
+    """The whole sequence is enqueued with no host read: the call runs
+    under torch's sync debug mode set to raise on a synchronising op."""
+    from numpywren_tpu_torch.ops import pallas_factor as pf
+
+    p = _panel(gen, 4096, 256, 10.0)
+    g = p.T @ p
+    kw = dict(rows=False, shift_c=4.0 * 1.1920929e-07 * (4096 * 256) ** 0.5, conv_gate=0.02)
+    pf.cholqr2_chain_pallas(g, p, **kw)  # builds and sets up outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        q, total, conv, dev2 = pf.cholqr2_chain_pallas(g, p, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _close(q, pf.cholqr2_chain_ref(g, p, **kw)[0])
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,10 @@ Tolerances are tests/test_pallas_factor.py's: potrf rtol 1e-4 with atol
 exactly 0; the chain's q within 3e-6·max(κ, 10) (its agreement bar between
 two routes of the same math: roundoff grows with κ), total within
 1e-6·max(κ, 10) relative, dev2 rel 1e-4 (two summation orders of the same
-products) and conv equal at κ = 10.
+products) and conv equal at κ = 10. The chain's launch sequence in plain
+PyTorch (_cholqr2_chain_steps_ref: its blocked factor and doubling
+inverse, its product order, the apply through three bf16 planes) holds the
+same bars against the JAX kernel.
 """
 
 import jax.numpy as jnp
@@ -18,6 +21,7 @@ import torch
 from numpywren_tpu.matrix_init import random_spd
 from numpywren_tpu.ops import pallas_factor as jpf
 from numpywren_tpu_torch.ops import pallas_factor as pf
+from numpywren_tpu_torch.ops.gemm import kernel_planes
 
 
 def _t(x):
@@ -164,3 +168,93 @@ def test_chain_envelope_raises():
                                 shift_c=1e-3, conv_gate=0.02)
     assert pf.chain_supported(1024, 256, torch.float32)
     assert not pf.chain_supported(1000, 256, torch.float32)
+
+
+def _chain_inputs(seed, m, b, kappa, rows):
+    p = _panel(np.random.default_rng(seed), m, b, kappa)
+    if rows:
+        p = p.T.copy()
+    g = p @ p.T if rows else p.T @ p
+    return g, p
+
+
+def _chain_kw(m, b, rows):
+    return dict(rows=rows, shift_c=4.0 * float(np.finfo(np.float32).eps) * (m * b) ** 0.5,
+                conv_gate=0.02)
+
+
+@pytest.mark.parametrize("rows", [False, True])
+@pytest.mark.parametrize("kappa", [10.0, 1e4])
+@pytest.mark.parametrize("b", [128, 256])
+def test_chain_steps_ref_matches_jax(b, kappa, rows):
+    """The launch sequence's arithmetic (the kernel's plain version on the
+    card) against the JAX kernel: the bars of the chain's CPU route."""
+    m = 1024
+    g, p = _chain_inputs(17, m, b, kappa, rows)
+    kw = _chain_kw(m, b, rows)
+    jq, jtot, jconv, jdev2 = jpf.cholqr2_chain_pallas(jnp.asarray(g), jnp.asarray(p),
+                                                      interpret=True, **kw)
+    q, tot, conv, dev2 = pf._cholqr2_chain_steps_ref(_t(g), _t(p), **kw)
+    assert np.max(np.abs(q.numpy() - np.asarray(jq))) < 3e-6 * max(kappa, 10.0)
+    assert (np.linalg.norm(tot.numpy() - np.asarray(jtot))
+            <= 1e-6 * max(kappa, 10.0) * np.linalg.norm(np.asarray(jtot)))
+    assert abs(float(dev2) - float(jdev2)) <= 1e-4 * abs(float(jdev2))
+    if kappa == 10.0:
+        assert bool(conv) == bool(jconv)
+    rec = tot.numpy() @ q.numpy() if rows else q.numpy() @ tot.numpy()
+    assert np.linalg.norm(rec - p) / np.linalg.norm(p) < 5e-6
+
+
+@pytest.mark.parametrize("rows", [False, True])
+def test_chain_identity_branch_matches_jax(rows):
+    """A shift so large that dev2 >= 0.1: the fold is the identity (R = L1,
+    linv = W1), conv is False, every output finite, in both plain versions
+    as in the JAX kernel."""
+    m, b = 1024, 128
+    g, p = _chain_inputs(5, m, b, 10.0, rows)
+    kw = dict(rows=rows, shift_c=1.0, conv_gate=0.02)
+    jq, jtot, jconv, jdev2 = jpf.cholqr2_chain_pallas(jnp.asarray(g), jnp.asarray(p),
+                                                      interpret=True, **kw)
+    assert float(jdev2) >= 0.1 and not bool(jconv)
+    for fn in (pf.cholqr2_chain_ref, pf._cholqr2_chain_steps_ref):
+        q, tot, conv, dev2 = fn(_t(g), _t(p), **kw)
+        assert float(dev2) >= 0.1 and not bool(conv)
+        for x in (q, tot, dev2):
+            assert bool(torch.isfinite(x).all())
+        np.testing.assert_allclose(q.numpy(), np.asarray(jq), rtol=0,
+                                   atol=3e-6 * np.abs(np.asarray(jq)).max())
+        np.testing.assert_allclose(tot.numpy(), np.asarray(jtot), rtol=0,
+                                   atol=1e-5 * np.abs(np.asarray(jtot)).max())
+        assert abs(float(dev2) - float(jdev2)) <= 1e-4 * abs(float(jdev2))
+        floor = kw["shift_c"] * torch.max(torch.sum(torch.abs(_t(g)), dim=1))
+        l1, _ = pf.potrf_inv_ref(_t(g) + floor * torch.eye(b))
+        assert torch.equal(tot, l1 if rows else l1.T)  # R = L1: the fold is I
+
+
+@pytest.mark.parametrize("b", [128, 256])
+def test_chain_device_launches(b):
+    """One chain call's device launches, from the sequence's structure
+    (csrc/cholqr_chain.cu): the row sums and the shift, npw_potrf_inv's
+    sequence, P, the fold's preparation, four Neumann products and one
+    "+ I", the select, linv and R, two packs and one mainloop."""
+    potrf_inv = (4 * b // 128 - 3) + 2 * int(np.ceil(np.log2(b // 128)))
+    want = 2 + potrf_inv + 1 + 1 + 5 + 1 + 2 + 3
+    assert pf.device_launches("cholqr2_chain", b) == want == {128: 16, 256: 22}[b]
+    assert pf.device_launches("potrf_inv", b) == potrf_inv
+
+
+@pytest.mark.parametrize("precision", [None, "high", "highest", "default", "bogus"])
+def test_chain_apply_precision(precision):
+    """The apply's planes: None and "high" run at "highest" (the
+    reference's coercion), three bf16 planes; "default" as ops.gemm.matmul
+    routes it for fp32; an unknown string raises, on the CPU route too."""
+    if precision == "bogus":
+        with pytest.raises(ValueError):
+            pf._chain_planes(precision)
+        g, p = _chain_inputs(3, 256, 128, 10.0, False)
+        with pytest.raises(ValueError):
+            pf.cholqr2_chain_pallas(_t(g), _t(p), precision=precision,
+                                    **_chain_kw(256, 128, False))
+        return
+    want = kernel_planes("default", torch.float32) if precision == "default" else 3
+    assert pf._chain_planes(precision) == want == 3
