@@ -59,10 +59,14 @@ executors on both storage tiers (P15-P16):
       <= 1e-4; its device launches (pallas_factor.device_launches); both
       folds (shift_c = 1: the identity, dev2 >= 0.1, conv False; a
       hundredth of the shift: the Neumann cleanup, dev2 < 0.1) finite and
-      within 1e-5 of its steps; ms of the kernel, the plain version and
+      within 1e-5 of its steps; a failed factor (g's last diagonal entry
+      negated: dev2 NaN, conv False, the identity fold, R's NaN in its
+      failed row or column alone); ms of the kernel, the plain version and
       passes 1-2 by the library and by the chain, in turns; device ms of
-      step 0, the packs and the mainloop (torch.profiler); the bound at
-      three planes beside the FFMA bound
+      step 0, the packs and the mainloop (torch.profiler, required, in a
+      new process of its own), beside the profiled call's ms by CUDA
+      events and the profiler's span; the bound at three planes beside the
+      FFMA bound
   P8  tsqr(X 1,048,576 x 512, tile_rows=4096, "cholqr3s", compute_q) +
       run_program with NPW_PALLAS_FACTOR=1 (potrf_inv kernel), then the
       library route (both flags off)
@@ -929,45 +933,95 @@ def kappa_panel(torch, gen, m, b, kappa):
     return (u * s) @ v.T
 
 
-def chain_split(torch, fn, want: int, sessions: int = 3):
-    """One warm chain call under torch.profiler: (device ms of step 0, of
-    the apply's two packs and of its mainloop, each launch's device µs in
-    order, the port's launches the session recorded, sessions taken). Step
-    0 is every launch before the first pack; PyTorch's own kernels (the
-    conv flag's comparison) are left out. A session that recorded another
-    number of the port's launches than the call enqueued (`want`) is taken
-    again; after `sessions` such sessions the split and the list are None."""
+def chain_split(torch, fn, want=None, sessions: int = 3):
+    """One warm chain call under torch.profiler, as a dict: device ms by
+    part, each launch's device µs in order, the port's launches the
+    session recorded, sessions taken, the call's ms by CUDA events in that
+    session and the profiler's span from the first launch's start to the
+    last one's end. The parts: step 0 (every launch before the apply), the
+    apply's two packs and its mainloop (gemm_split.cu), or "apply_ffma",
+    the last launch, in a tree whose apply is one FFMA launch (no pack).
+    PyTorch's own kernels (the conv flag's comparison) are left out. The
+    span against the events' time shows whether the profiler's
+    timestamps run on the events' clock. A session that recorded another
+    number of the port's launches than `want` (when given) is taken
+    again; after `sessions` such sessions the split and the list are
+    None."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     for attempt in range(1, sessions + 1):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start.record()
             fn()
+            end.record()
             torch.cuda.synchronize()
         recs = sorted((e for e in prof.events()
                        if e.device_type == DeviceType.CUDA and "at::" not in e.name),
                       key=lambda e: e.time_range.start)
-        if len(recs) == want:
+        if want is None or len(recs) == want:
             break
     else:
-        return None, None, len(recs), sessions
-    split, packed = {"step0": 0.0, "pack": 0.0, "mainloop": 0.0}, False
-    for e in recs:
-        packed = packed or "gemm_split_pack" in e.name
-        step = ("mainloop" if "gemm_split_mainloop" in e.name else "pack" if packed else "step0")
-        split[step] += e.time_range.elapsed_us() / 1e3
-    return split, [e.time_range.elapsed_us() for e in recs], len(recs), attempt
+        return {"device_ms_by_part": None, "device_us_by_launch": None,
+                "profiled_launches": len(recs), "profile_sessions": sessions}
+    first = next((i for i, e in enumerate(recs) if "gemm_split_pack" in e.name), len(recs) - 1)
+    split = {"step0": 0.0, "pack": 0.0, "mainloop": 0.0}
+    for i, e in enumerate(recs):
+        part = ("step0" if i < first else "pack" if "gemm_split_pack" in e.name
+                else "mainloop" if "gemm_split_mainloop" in e.name else "apply_ffma")
+        split[part] = split.get(part, 0.0) + e.time_range.elapsed_us() / 1e3
+    return {"device_ms_by_part": split,
+            "device_us_by_launch": [e.time_range.elapsed_us() for e in recs],
+            "profiled_launches": len(recs), "profile_sessions": attempt,
+            "profiled_call_ms": start.elapsed_time(end),
+            "device_span_ms": (recs[-1].time_range.end - recs[0].time_range.start) / 1e3}
+
+
+def chain_kw(m: int, b: int, rows: bool) -> dict:
+    """P7's chain arguments: the shift of _cholqr_adaptive's fold path."""
+    return dict(rows=rows, shift_c=4.0 * 2.0 ** -23 * (m * b) ** 0.5,
+                conv_gate=min(2.0 * 1e-4 ** 0.5, 1e-1))
+
+
+def fresh_chain_split(torch, m: int, b: int, rows: int, want: int):
+    """chain_split of one chain call on a kappa 10 operand of P7's shape, in
+    the process that calls it: the body of chain_split_new_process."""
+    from numpywren_tpu_torch.ops import pallas_factor as pf
+
+    p = kappa_panel(torch, torch.Generator(device="cuda").manual_seed(0), m, b, 10.0)
+    if rows:
+        p = p.T.contiguous()
+    g = p @ p.T if rows else p.T @ p
+    kw = chain_kw(m, b, bool(rows))
+    return chain_split(torch, lambda: pf.cholqr2_chain_pallas(g, p, **kw), want)
+
+
+def chain_split_new_process(m: int, b: int, rows: bool, want: int):
+    """chain_split in a process of its own, whose profiler has recorded
+    nothing before. A process's later profiler sessions can lose device
+    records (P6's sessions in one full run, the second form's in a short
+    one), a first session in a new process has not."""
+    code = ("import json, sys, torch, chip_smoke; print(json.dumps("
+            "chip_smoke.fresh_chain_split(torch, *map(int, sys.argv[1:]))))")
+    proc = subprocess.run([sys.executable, "-c", code, str(m), str(b), str(int(rows)), str(want)],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=300)
+    require(proc.returncode == 0, f"P7 split process: {proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 def p7_chain(torch, gen, m: int, b: int = 256):
     """The chain at (m, b), kappa 10, both forms: against cholqr2_chain_ref
     (q max abs <= 3e-5, total rel <= 1e-5, conv, dev2 rel <= 1e-4) and
     _cholqr2_chain_steps_ref (the same, q rel <= 1e-5); its device
-    launches; its device time by part and by launch; both folds (the
+    launches; its device time by part and by launch (required; taken in a
+    new process, whose profiler has recorded nothing before); both folds (the
     identity at shift_c = 1, not converged; the Neumann cleanup at a
-    hundredth of the shift) finite and as its plain version; ms of the
+    hundredth of the shift) finite and as its plain version; a failed
+    factor (dev2 NaN, conv False, the identity fold); ms of the
     kernel, its plain version and passes 1-2 of _cholqr_adaptive by the
     library and by the chain (with the Gram), in turns; the bound at three
     bf16 planes (the apply's products) beside the FFMA bound."""
@@ -980,8 +1034,7 @@ def p7_chain(torch, gen, m: int, b: int = 256):
     for rows in (False, True):
         p = base.T.contiguous() if rows else base
         g = p @ p.T if rows else p.T @ p
-        kw = dict(rows=rows, shift_c=4.0 * float(torch.finfo(torch.float32).eps) * (m * b) ** 0.5,
-                  conv_gate=min(2.0 * 1e-4 ** 0.5, 1e-1))
+        kw = chain_kw(m, b, rows)
         case = f"chain:{'rows' if rows else 'cols'}"
         before = pf.DEVICE_LAUNCHES["cholqr2_chain"]
         q, total, conv, dev2 = pf.cholqr2_chain_pallas(g, p, **kw)
@@ -1030,6 +1083,23 @@ def p7_chain(torch, gen, m: int, b: int = 256):
                     f"P7 {case} {branch} branch vs its steps: {res}")
             del qi, qs
 
+        # a failed factor (g's last diagonal entry negated, so the last
+        # pivot is negative): dev2 NaN, conv False and the identity fold, so
+        # R's NaN is its failed row (rows) or column (columns) alone
+        gf = g.clone()
+        gf[-1, -1] = -gf[-1, -1]
+        _, tf, convf, dev2f = pf.cholqr2_chain_pallas(gf, p, **kw)
+        _, tfs, _ = pf._chain_step0_ref(gf, rows=rows, shift_c=kw["shift_c"])
+        failed = torch.isnan(tfs)
+        res = row["failed_factor"] = {
+            "dev2_is_nan": bool(torch.isnan(dev2f)), "conv": bool(convf),
+            "nan_in_total": int(torch.isnan(tf).sum()), "nan_in_steps": int(failed.sum()),
+            "total_rel_err": rel_err(torch, tf[~failed], tfs[~failed])}
+        require(res["dev2_is_nan"] and not res["conv"] and res["nan_in_steps"] == b
+                and bool(torch.equal(torch.isnan(tf), failed))
+                and res["total_rel_err"] <= KERNEL_BAR, f"P7 {case} failed factor: {res}")
+        del gf, tf, tfs
+
         set_flags()
         ms, plain_ms, lib_ms, chained_ms = in_turns(
             torch,
@@ -1038,11 +1108,10 @@ def p7_chain(torch, gen, m: int, b: int = 256):
             lambda: lower._cholqr_adaptive(p, rows=rows, max_passes=2),
             lambda: lower._cholqr_adaptive(p, rows=rows, max_passes=2, pallas_chain=True),
             iters=5)
-        split, by_launch, recorded, sessions = chain_split(
-            torch, lambda: pf.cholqr2_chain_pallas(g, p, **kw), want)
-        if split is None:
-            print(f"chip_smoke: P7 {case}: the profiler recorded {recorded} of {want} launches "
-                  f"in {sessions} sessions; split not measured", file=sys.stderr)
+        prof = chain_split_new_process(m, b, rows, want)
+        require(prof["device_ms_by_part"] is not None,
+                f"P7 {case}: the profiler recorded {prof['profiled_launches']} of {want} "
+                f"launches in {prof['profile_sessions']} sessions")
         # step 0: potrf_inv (2 b^3 / 3) and seven b x b products, FP32
         small = 2 * b ** 3 / 3 + 7 * 2 * b ** 3
         nbytes = 4 * (2 * m * b + 2 * b * b + 2)
@@ -1052,9 +1121,8 @@ def p7_chain(torch, gen, m: int, b: int = 256):
         ffma_ms, ffma_by = bound(2 * m * b * b + small, nbytes, PEAK_FP32)
         row.update(ms=ms, plain_ms=plain_ms, library_passes12_ms=lib_ms,
                    chain_passes12_ms=chained_ms, bound_ms=b_ms, bound_by=b_by,
-                   ffma_bound_ms=ffma_ms, ffma_bound_by=ffma_by, device_ms_by_part=split,
-                   device_us_by_launch=by_launch, profiled_launches=recorded,
-                   profile_sessions=sessions)
+                   ffma_bound_ms=ffma_ms, ffma_bound_by=ffma_by, **prof,
+                   device_ms_sum=sum(prof["device_ms_by_part"].values()))
         emit(row)
         out[rows] = row
         del p, g

@@ -18,27 +18,29 @@
 //      (unsymmetrized, as the reference passes it);
 //   3. npw_potrf_inv (potrf.cu, trtri.cu's levels): (L1, W1) of gs;
 //   4. P = W1 W1^T;
-//   5. chain_fold: E2 = -floor P, each CTA's max |E2| (dev2's parts),
+//   5. chain_fold: E2 = -floor P, each CTA's max |E2| (dev2's parts; a NaN
+//      carries through every max, as the reference's max does),
 //      M = tril(E2, -1) + diag(E2)/2, I + M and I;
 //   6. the Neumann products: M2 = M M; chain_plus_eye: IP2 = M2 + I;
 //      LI2 = IP2 - IP2 M; IP4 = M2 M2 + I (I as the product's c);
 //      L2 = IP4 (I + M);
 //   7. chain_select: dev2 = the max of the parts, stat = (dev2,
-//      dev2 < conv_gate); unless dev2 < 0.1, L2 and LI2 become I. It
+//      dev2 < conv_gate); unless dev2 < 0.1, L2 and LI2 become I (so a
+//      failed factor, dev2 NaN, takes the identity fold, conv false). It
 //      branches, never multiplies by a mask: with a large dev2 the unused
 //      products may be inf or NaN, and none of that may reach linv or R;
 //   8. linv = LI2 W1, total = L1 L2 (rows) or L2^T L1^T (columns);
 //   9. the apply as the TPU computes HIGHEST, a bf16 split on the tensor
-//      cores (gemm_split.cu at `planes` planes, 3 for bf16x6): pack linv,
+//      cores (gemm_split.cu at three planes, bf16x6): pack linv,
 //      pack p (transposed in the rows form, where op(B) is p's m columns),
 //      one mainloop: q = p linv^T (columns) or q = linv p (rows).
 // The b x b products (steps 4, 6 and 8) are gemm.cu's FFMA npw_gemm over
 // (b / 128)^2 CTAs each, in true FP32: at least as accurate as the
 // reference's HIGHEST, and 2 b^3 flops, microseconds, a product.
 //
-// Bound: the apply is 2 m b^2 flops a bf16 product, planes (planes + 1) / 2
-// of them, over 2 m b x 4 bytes of p and q: at m = 2^20, b = 256 and three
-// planes 0.834 ms at 989 TFLOP/s (bf16), against 0.641 ms of bytes at
+// Bound: the apply is 2 m b^2 flops a bf16 product, six of them, over
+// 2 m b x 4 bytes of p and q: at m = 2^20, b = 256 0.834 ms at
+// 989 TFLOP/s (bf16), against 0.641 ms of bytes at
 // 3.35 TB/s, so bound by operations (the FFMA apply's bound was 2.05 ms at
 // 67 TFLOP/s). The pack's read of p and write of its planes (1.6 GB at
 // three planes) are outside that bound, as the planes are the kernel's
@@ -64,8 +66,9 @@ int npw_gemm_split(int planes, int out_bf16, const void* a_planes, long long a_s
 
 namespace {
 
-constexpr int NT = 256;  // threads of every kernel below: one b x b entry each
-constexpr int B = 128;   // b is a multiple of it, at most 2 B
+constexpr int NT = 256;    // threads of every kernel below: one b x b entry each
+constexpr int B = 128;     // b is a multiple of it, at most 2 B
+constexpr int PLANES = 3;  // the apply's bf16 planes an operand (bf16x6)
 
 // The b x b scratch buffers, in this order, then potrf_inv's scratch
 // (b x 128 floats), then the small area: the row sums (NT), dev2's parts
@@ -73,15 +76,19 @@ constexpr int B = 128;   // b is a multiple of it, at most 2 B
 enum { GS, L1, W1, PP, MM, IPM, EYE, M2, IP2, LI2, IP4, L2, LINV, NBUF };
 constexpr int SMALL = 2 * NT + 4;
 
-// The max over the CTA of each thread's non-negative v, in every thread.
+// The max over the CTA of each thread's |v|, in every thread. It takes the
+// max of the bit patterns, which orders non-negative floats as their values
+// and puts a NaN above every number: a NaN anywhere gives NaN, as
+// torch.max and jnp.max do (fmaxf would drop it).
 __device__ float block_max(float v) {
-  __shared__ float red[NT / 32];
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __shared__ unsigned red[NT / 32];
+  unsigned u = __float_as_uint(v) & 0x7fffffffu;
+  for (int o = 16; o > 0; o >>= 1) u = max(u, __shfl_xor_sync(0xffffffffu, u, o));
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = u;
   __syncthreads();
-  v = red[0];
-  for (int w = 1; w < NT / 32; ++w) v = fmaxf(v, red[w]);
-  return v;
+  u = red[0];
+  for (int w = 1; w < NT / 32; ++w) u = max(u, red[w]);
+  return __uint_as_float(u);
 }
 
 // rsum[r] = sum_c |g[r, c]|, one warp a row (NT / 32 rows a CTA).
@@ -164,7 +171,7 @@ int launched(int& done) {
   return err;
 }
 
-int chain(int rows, int m, int b, int planes, const float* g, const float* p, float* q,
+int chain(int rows, int m, int b, const float* g, const float* p, float* q,
           float* total, float* stat, float* scr, void* planes_buf, float shift_c,
           float conv_gate, void* stream, int& done) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -200,19 +207,19 @@ int chain(int rows, int m, int b, int planes, const float* g, const float* p, fl
     err = product(b, 1, 1, buf[L2], buf[L1], nullptr, 1.f, total, s, done);
   if (err) return err;
 
-  // the apply: linv's planes (planes, b, b), then p's (planes, m, b), K-major
+  // the apply: linv's planes (PLANES, b, b), then p's (PLANES, m, b), K-major
   __nv_bfloat16* pl_linv = static_cast<__nv_bfloat16*>(planes_buf);
-  __nv_bfloat16* pl_p = pl_linv + planes * bb;
+  __nv_bfloat16* pl_p = pl_linv + PLANES * bb;
   const int64_t p_stride = static_cast<int64_t>(m) * b;
-  if ((err = npw_gemm_pack(0, planes, 0, buf[LINV], b, b, b, b, pl_linv, stream, &done)))
+  if ((err = npw_gemm_pack(0, PLANES, 0, buf[LINV], b, b, b, b, pl_linv, stream, &done)))
     return err;
-  if ((err = npw_gemm_pack(0, planes, rows, p, rows ? m : b, m, b, b, pl_p, stream, &done)))
+  if ((err = npw_gemm_pack(0, PLANES, rows, p, rows ? m : b, m, b, b, pl_p, stream, &done)))
     return err;
   if (rows)  // q (b, m) = linv p: op(A) = linv, op(B) = p (m rows of b)
-    return npw_gemm_split(planes, 0, pl_linv, bb, pl_p, p_stride, b, nullptr, 0, q, m, b, m,
+    return npw_gemm_split(PLANES, 0, pl_linv, bb, pl_p, p_stride, b, nullptr, 0, q, m, b, m,
                           1.f, 0.f, stream, &done);
   // q (m, b) = p linv^T: op(A) = p, op(B) = linv^T (linv's b rows)
-  return npw_gemm_split(planes, 0, pl_p, p_stride, pl_linv, bb, b, nullptr, 0, q, b, m, b, 1.f,
+  return npw_gemm_split(PLANES, 0, pl_p, p_stride, pl_linv, bb, b, nullptr, 0, q, b, m, b, 1.f,
                         0.f, stream, &done);
 }
 
@@ -220,29 +227,28 @@ int chain(int rows, int m, int b, int planes, const float* g, const float* p, fl
 
 extern "C" {
 
-// The scratch of npw_cholqr2_chain at (m, b, planes): fp32 floats and bf16
-// elements (the apply's planes: planes x (b + m) x b, 1.6 GB at m = 2^20,
-// b = 256, three planes).
-void npw_cholqr2_chain_plan(int m, int b, int planes, long long* floats, long long* halves) {
+// The scratch of npw_cholqr2_chain at (m, b): fp32 floats and bf16
+// elements (the apply's planes: 3 x (b + m) x b, 1.6 GB at m = 2^20,
+// b = 256).
+void npw_cholqr2_chain_plan(int m, int b, long long* floats, long long* halves) {
   const long long bb = static_cast<long long>(b) * b;
   *floats = NBUF * bb + static_cast<long long>(b) * B + SMALL;
-  *halves = static_cast<long long>(planes) * (b + m) * b;
+  *halves = static_cast<long long>(PLANES) * (b + m) * b;
 }
 
 // p is (m, b) (rows == 0) or (b, m) (rows == 1), q the same shape; g, total
 // (b, b); stat 2 floats; scratch and planes_buf as npw_cholqr2_chain_plan
 // gives them. All fp32 (planes_buf bf16), row-major, contiguous, 16-byte
-// aligned. `planes` is the apply's bf16 planes an operand (2 or 3).
-// Enqueues the sequence on `stream` (15 launches plus npw_potrf_inv's at b)
-// and adds each launch enqueued to *launches (when not null); returns the
-// first CUDA error (0 on success).
-int npw_cholqr2_chain(int rows, int m, int b, int planes, const void* g, const void* p, void* q,
+// aligned. Enqueues the sequence on `stream` (15 launches plus
+// npw_potrf_inv's at b) and adds each launch enqueued to *launches (when
+// not null); returns the first CUDA error (0 on success).
+int npw_cholqr2_chain(int rows, int m, int b, const void* g, const void* p, void* q,
                       void* total, void* stat, void* scratch, void* planes_buf, float shift_c,
                       float conv_gate, void* stream, int* launches) {
-  if (b % B || b <= 0 || b > 2 * B || m < b || (planes != 2 && planes != 3))
+  if (b % B || b <= 0 || b > 2 * B || m < b)
     return static_cast<int>(cudaErrorInvalidValue);
   int done = 0;
-  const int err = chain(rows, m, b, planes, static_cast<const float*>(g),
+  const int err = chain(rows, m, b, static_cast<const float*>(g),
                         static_cast<const float*>(p), static_cast<float*>(q),
                         static_cast<float*>(total), static_cast<float*>(stat),
                         static_cast<float*>(scratch), planes_buf, shift_c, conv_gate, stream,

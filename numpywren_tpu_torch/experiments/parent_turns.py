@@ -23,9 +23,11 @@ NpwConfig.compensated):
 - the CholeskyQR2 chain (pallas_factor.cholqr2_chain_pallas) at
   chip_smoke.py P7's 1,048,576 x 256, kappa 10, in both forms: mean ms a
   call (CUDA events, 10 warm calls) and one warm call's device ms under
-  torch.profiler, split into step 0 (every launch before the apply), the
-  apply's pack and mainloop (csrc/gemm_split.cu) or its one FFMA launch
-  (csrc/gemm.cu, trees before the bf16x6 apply), and the launches recorded.
+  torch.profiler by this checkout's chip_smoke.chain_split (in both
+  trees): step 0 (every launch before the apply), the apply's pack and
+  mainloop (csrc/gemm_split.cu) or its one FFMA launch (csrc/gemm.cu,
+  trees before the bf16x6 apply), the launches recorded, the profiled
+  call's ms by CUDA events and the profiler's span of its launches.
 With --smoke, then each tree's own chip_smoke.py in turns, printing its
 P2-P5, P7, P9, P10 and P12 lines and its kernels line. Prints one JSON
 line a run, then the card's name and power limit.
@@ -120,29 +122,13 @@ for _ in range(2):
 row.update(n_flat=n5, flat_seconds=secs5)
 del a5
 
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+import importlib.util
 from numpywren_tpu_torch.ops import pallas_factor as pf
 
-def chain_split(fn):
-    # the port's own launches of one warm call (PyTorch's kernels, such as
-    # the conv flag's comparison, left out), in order; the apply starts at
-    # the first pack, or is the last launch when there is no pack
-    fn(); torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn(); torch.cuda.synchronize()
-    recs = sorted((e for e in prof.events()
-                   if e.device_type == DeviceType.CUDA and "at::" not in e.name),
-                  key=lambda e: e.time_range.start)
-    names = [e.name for e in recs]
-    first = next((i for i, nm in enumerate(names) if "gemm_split_pack" in nm), len(names) - 1)
-    split = {"step0": 0.0, "pack": 0.0, "mainloop": 0.0, "apply_ffma": 0.0}
-    for i, e in enumerate(recs):
-        key = ("step0" if i < first else "pack" if "gemm_split_pack" in e.name
-               else "mainloop" if "gemm_split_mainloop" in e.name else "apply_ffma")
-        split[key] += e.time_range.elapsed_us() / 1e3
-    split["launches"] = len(recs)
-    return split
+# this checkout's chip_smoke.py (not the tree's own): one chain_split for both trees
+spec = importlib.util.spec_from_file_location("chip_smoke_here", sys.argv[3])
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
 
 m, b = 1 << 20, 256
 u, _ = torch.linalg.qr(torch.randn(m, b, device="cuda", generator=gen))
@@ -153,10 +139,14 @@ row["chain_ms"], row["chain_device_ms"] = {}, {}
 for form, rows in (("cols", False), ("rows", True)):
     p = base.T.contiguous() if rows else base
     g = p @ p.T if rows else p.T @ p
-    kw = dict(rows=rows, shift_c=4.0 * 1.1920929e-07 * (m * b) ** 0.5, conv_gate=0.02)
+    kw = smoke.chain_kw(m, b, rows)
     fn = lambda: pf.cholqr2_chain_pallas(g, p, **kw)
     row["chain_ms"][form] = ms(fn, iters=10)
-    row["chain_device_ms"][form] = chain_split(fn)
+    prof = smoke.chain_split(torch, fn)
+    row["chain_device_ms"][form] = dict(prof["device_ms_by_part"],
+                                        launches=prof["profiled_launches"],
+                                        profiled_call_ms=prof["profiled_call_ms"],
+                                        device_span_ms=prof["device_span_ms"])
     del p, g
 print(json.dumps(row), flush=True)
 """
@@ -172,7 +162,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     trees = {"other": args.other.resolve(), "this": ROOT}
     for name in ("other", "this", "this", "other"):
-        proc = subprocess.run([sys.executable, "-c", TIMING, str(args.n), name],
+        proc = subprocess.run([sys.executable, "-c", TIMING, str(args.n), name,
+                               str(ROOT / "chip_smoke.py")],
                               cwd=trees[name], capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             print(proc.stderr[-4000:], file=sys.stderr)

@@ -74,13 +74,6 @@ def _planes_of(dtype) -> int:
     return 1 if dtype == torch.bfloat16 else 3
 
 
-def kernel_planes(precision: str, dtype) -> Optional[int]:
-    """matmul's route for a checked `precision` and operands of `dtype`:
-    None for the library ("high": torch.matmul in true FP32), else the
-    kernel's planes an operand."""
-    return None if precision == "high" else _planes_of(dtype)
-
-
 def _pairs(planes: int):
     """The product schedule: plane pairs (i, j) with i + j < planes, smallest
     products first, in the kernel's order (hl, mm, lh, hm, mh, hh at 3)."""
@@ -248,7 +241,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = None, *
     m, n, k = _shape(a, b, ta, tb)
     out_dtype = out_dtype or (out.dtype if out is not None else a.dtype)
     precision = check_precision(precision or default_precision(a.dtype))
-    if kernel_planes(precision, a.dtype) is None or not on_cuda(a):
+    if precision == "high" or not on_cuda(a):
         res = matmul_ref(a, b, c, ta=ta, tb=tb, alpha=alpha, beta=beta, out_dtype=out_dtype)
         return res if out is None else out.copy_(res)
     if c is not None and c.dtype != out_dtype:

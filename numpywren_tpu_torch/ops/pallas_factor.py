@@ -31,8 +31,8 @@ are hand-written CUDA C++ for Hopper:
   analytic pass-2 Gram and the Neumann products as FFMA ``npw_gemm``
   launches, the Neumann or identity fold chosen on the device, the folded
   inverse and R; then the apply of the folded inverse to the tall operand
-  as ``csrc/gemm_split.cu``'s pack and mainloop at the planes ``precision``
-  routes to (bf16x6, as the TPU computes HIGHEST). Its plain versions:
+  as ``csrc/gemm_split.cu``'s pack and mainloop at three bf16 planes
+  (bf16x6, as the TPU computes HIGHEST). Its plain versions:
   ``cholqr2_chain_ref`` (fp32 throughout, the CPU route) and
   ``_cholqr2_chain_steps_ref`` (the sequence's own arithmetic).
 - ``csrc/qr.cu``: the thin compact-WY Householder QR of an (m, n) tile with
@@ -66,7 +66,7 @@ import torch
 
 from numpywren_tpu_torch.ops import _build
 from numpywren_tpu_torch.ops.common import check_precision, on_cuda
-from numpywren_tpu_torch.ops.gemm import _matmul_split_ref, kernel_planes, matmul
+from numpywren_tpu_torch.ops.gemm import _matmul_split_ref, matmul
 
 _B = 128  # the diagonal block one CTA factors in shared memory
 _R = 32   # the potrf diagonal step's sub-block: one warp's rows
@@ -282,10 +282,10 @@ def _lib():
         lib.npw_trtri.restype = i
         lib.npw_potrf_diag.argtypes = [p, p, p, p]
         lib.npw_potrf_diag.restype = i
-        lib.npw_cholqr2_chain.argtypes = [i, i, i, i, p, p, p, p, p, p, p, f, f, p,
+        lib.npw_cholqr2_chain.argtypes = [i, i, i, p, p, p, p, p, p, p, f, f, p,
                                           ctypes.POINTER(i)]
         lib.npw_cholqr2_chain.restype = i
-        lib.npw_cholqr2_chain_plan.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_longlong),
+        lib.npw_cholqr2_chain_plan.argtypes = [i, i, ctypes.POINTER(ctypes.c_longlong),
                                                ctypes.POINTER(ctypes.c_longlong)]
         lib.npw_cholqr2_chain_plan.restype = None
         lib.npw_qr.argtypes = [i, i, p, p, p, p, p]
@@ -455,32 +455,24 @@ def cholqr2_chain_ref(g: torch.Tensor, p: torch.Tensor, *, rows: bool,
 
 
 def _cholqr2_chain_steps_ref(g: torch.Tensor, p: torch.Tensor, *, rows: bool,
-                             shift_c: float, conv_gate: float, planes: int = 3):
+                             shift_c: float, conv_gate: float):
     """The chain's launch sequence in plain PyTorch, the kernels' own
     arithmetic in another summation order: step 0 (_chain_step0_ref), then
-    the apply through `planes` bf16 planes (gemm._matmul_split_ref). Used
-    by the tests and the card's check of the kernel; on no path."""
+    the apply through three bf16 planes (gemm._matmul_split_ref). Used by
+    the tests and the card's check of the kernel; on no path."""
     linv, total, dev2 = _chain_step0_ref(g, rows=rows, shift_c=shift_c)
     if rows:
-        q = _matmul_split_ref(linv, p, planes=planes)
+        q = _matmul_split_ref(linv, p, planes=3)
     else:
-        q = _matmul_split_ref(p, linv, tb=True, planes=planes)
+        q = _matmul_split_ref(p, linv, tb=True, planes=3)
     return q, total, dev2 < conv_gate, dev2
 
 
-def _chain_planes(precision: Optional[str]) -> int:
-    """The apply's bf16 planes for `precision`: the reference's coercion
-    (None and "high" run at "highest"), then ops.gemm.matmul's route for
-    that string and fp32 operands."""
-    precision = check_precision(precision or "highest")
-    return kernel_planes("highest" if precision == "high" else precision, torch.float32)
-
-
-def _chain_plan(m: int, b: int, planes: int):
+def _chain_plan(m: int, b: int):
     """(fp32 floats, bf16 elements) of the chain's scratch, as
     csrc/cholqr_chain.cu lays it out. Reads the built library."""
     floats, halves = ctypes.c_longlong(0), ctypes.c_longlong(0)
-    _lib().npw_cholqr2_chain_plan(m, b, planes, ctypes.byref(floats), ctypes.byref(halves))
+    _lib().npw_cholqr2_chain_plan(m, b, ctypes.byref(floats), ctypes.byref(halves))
     return floats.value, halves.value
 
 
@@ -492,13 +484,14 @@ def cholqr2_chain_pallas(g: torch.Tensor, p: torch.Tensor, *, rows: bool,
     semantics of compiler.lower._cholqr_adaptive; the extras loop stays
     with the caller. conv and dev2 are 0-d tensors on p's device.
 
-    `precision` routes the apply as ops.gemm.matmul routes it, after the
-    reference's coercion of None and "high" to "highest" (_chain_planes);
-    the CPU route is fp32 throughout. Raises ValueError outside the
-    envelope (fp32, 128 | b <= 256, the reference's stream tile dividing
-    m >= b) and for an unknown precision; callers gate on
-    chain_supported()."""
-    planes = _chain_planes(precision)
+    `precision` is checked: the reference coerces None and "high" to
+    "highest", and on the card every precision runs the apply at three
+    bf16 planes (bf16x6), as ops.gemm.matmul routes "highest" and
+    "default" for fp32 operands; the CPU route is fp32 throughout. Raises
+    ValueError outside the envelope (fp32, 128 | b <= 256, the reference's
+    stream tile dividing m >= b) and for an unknown precision; callers gate
+    on chain_supported()."""
+    check_precision(precision or "highest")
     b = p.shape[0] if rows else p.shape[1]
     m = p.shape[1] if rows else p.shape[0]
     if not _chain_supported(m, b, p.dtype) or tuple(g.shape) != (b, b):
@@ -514,14 +507,14 @@ def cholqr2_chain_pallas(g: torch.Tensor, p: torch.Tensor, *, rows: bool,
     q = torch.empty_like(p)
     total = torch.empty((b, b), dtype=torch.float32, device=dev)
     stat = torch.empty(2, dtype=torch.float32, device=dev)
-    floats, halves = _chain_plan(m, b, planes)
+    floats, halves = _chain_plan(m, b)
     scratch = torch.empty(floats, dtype=torch.float32, device=dev)
     plane_buf = torch.empty(halves, dtype=torch.bfloat16, device=dev)
     launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _lib().npw_cholqr2_chain(
-            int(rows), m, b, planes, g.data_ptr(), p.data_ptr(), q.data_ptr(),
+            int(rows), m, b, g.data_ptr(), p.data_ptr(), q.data_ptr(),
             total.data_ptr(), stat.data_ptr(), scratch.data_ptr(), plane_buf.data_ptr(),
             float(shift_c), float(conv_gate), stream, ctypes.byref(launched))
     LAUNCHES["cholqr2_chain"] += 1

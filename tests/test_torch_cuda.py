@@ -453,6 +453,31 @@ def test_cholqr2_chain_identity_branch(gen, rows):
     assert abs(float(dev2) - float(dev2s)) <= 1e-4 * float(dev2s)
 
 
+@pytest.mark.parametrize("b", [128, 256])
+@pytest.mark.parametrize("rows", [False, True])
+def test_cholqr2_chain_failed_factor(gen, rows, b):
+    """g with its last diagonal entry negated: the factor's last pivot is
+    negative, so E2 holds NaN. dev2 is NaN (the parts' max carries it),
+    conv False and the fold the identity, as in the sequence's plain
+    version: R's NaN is its failed row (rows) or column (columns) alone."""
+    from numpywren_tpu_torch.ops import pallas_factor as pf
+
+    p = _panel(gen, 4096, b, 10.0)
+    if rows:
+        p = p.T.contiguous()
+    g = p @ p.T if rows else p.T @ p
+    g[-1, -1] = -g[-1, -1]
+    kw = dict(rows=rows, shift_c=4.0 * 1.1920929e-07 * (4096 * b) ** 0.5, conv_gate=0.02)
+    q, total, conv, dev2 = pf.cholqr2_chain_pallas(g, p, **kw)
+    _, ts, _, _ = pf._cholqr2_chain_steps_ref(g, p, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(dev2)) and not bool(conv)
+    failed = torch.isnan(ts)
+    assert int(failed.sum()) == b
+    assert torch.equal(torch.isnan(total), failed)
+    _close(total[~failed], ts[~failed])
+
+
 def test_cholqr2_chain_has_no_host_synchronisation(gen):
     """The whole sequence is enqueued with no host read: the call runs
     under torch's sync debug mode set to raise on a synchronising op."""

@@ -21,7 +21,7 @@ import torch
 from numpywren_tpu.matrix_init import random_spd
 from numpywren_tpu.ops import pallas_factor as jpf
 from numpywren_tpu_torch.ops import pallas_factor as pf
-from numpywren_tpu_torch.ops.gemm import kernel_planes
+from numpywren_tpu_torch.ops.gemm import _planes_of
 
 
 def _t(x):
@@ -231,6 +231,36 @@ def test_chain_identity_branch_matches_jax(rows):
         assert torch.equal(tot, l1 if rows else l1.T)  # R = L1: the fold is I
 
 
+@pytest.mark.parametrize("rows", [False, True])
+def test_chain_failed_factor_takes_the_identity_fold(rows):
+    """g with its last diagonal entry negated: the shifted factor's last
+    pivot is negative, so L1, W1 and E2 hold NaN. dev2 is NaN (the max
+    carries it) and conv False, as in the JAX kernel; the plain versions
+    then take the identity fold (dev2 < 0.1 does not hold), so R = L1 and
+    only its failed row (rows) or column (columns) is NaN: the Neumann
+    fold would spread the NaN over all of R."""
+    m, b = 1024, 128
+    g, p = _chain_inputs(5, m, b, 10.0, rows)
+    g[-1, -1] = -g[-1, -1]
+    kw = _chain_kw(m, b, rows)
+    _, _, jconv, jdev2 = jpf.cholqr2_chain_pallas(jnp.asarray(g), jnp.asarray(p),
+                                                  interpret=True, **kw)
+    assert np.isnan(float(jdev2)) and not bool(jconv)
+    floor = kw["shift_c"] * torch.max(torch.sum(torch.abs(_t(g)), dim=1))
+    l1, _ = pf.potrf_inv_ref(_t(g) + floor * torch.eye(b))
+    want = l1 if rows else l1.T
+    failed = torch.zeros(b, b, dtype=torch.bool)
+    if rows:
+        failed[-1] = True
+    else:
+        failed[:, -1] = True
+    for fn in (pf.cholqr2_chain_ref, pf._cholqr2_chain_steps_ref):
+        _, tot, conv, dev2 = fn(_t(g), _t(p), **kw)
+        assert torch.isnan(dev2) and not bool(conv)
+        assert torch.equal(torch.isnan(tot), failed)
+        assert torch.equal(tot[~failed], want[~failed])
+
+
 @pytest.mark.parametrize("b", [128, 256])
 def test_chain_device_launches(b):
     """One chain call's device launches, from the sequence's structure
@@ -245,16 +275,18 @@ def test_chain_device_launches(b):
 
 @pytest.mark.parametrize("precision", [None, "high", "highest", "default", "bogus"])
 def test_chain_apply_precision(precision):
-    """The apply's planes: None and "high" run at "highest" (the
-    reference's coercion), three bf16 planes; "default" as ops.gemm.matmul
-    routes it for fp32; an unknown string raises, on the CPU route too."""
+    """precision= is checked and routes nothing apart: None and "high" are
+    the reference's "highest", and every string runs the apply at three
+    bf16 planes on the card, as ops.gemm.matmul runs "highest" and
+    "default" for fp32 operands; on the CPU the call is cholqr2_chain_ref
+    bit for bit. An unknown string raises, on the CPU route too."""
+    g, p = _chain_inputs(3, 256, 128, 10.0, False)
+    kw = _chain_kw(256, 128, False)
     if precision == "bogus":
         with pytest.raises(ValueError):
-            pf._chain_planes(precision)
-        g, p = _chain_inputs(3, 256, 128, 10.0, False)
-        with pytest.raises(ValueError):
-            pf.cholqr2_chain_pallas(_t(g), _t(p), precision=precision,
-                                    **_chain_kw(256, 128, False))
+            pf.cholqr2_chain_pallas(_t(g), _t(p), precision=precision, **kw)
         return
-    want = kernel_planes("default", torch.float32) if precision == "default" else 3
-    assert pf._chain_planes(precision) == want == 3
+    assert _planes_of(torch.float32) == 3
+    got = pf.cholqr2_chain_pallas(_t(g), _t(p), precision=precision, **kw)
+    for x, y in zip(got, pf.cholqr2_chain_ref(_t(g), _t(p), **kw)):
+        assert torch.equal(x, y)
