@@ -8,8 +8,9 @@ against its plain PyTorch version at its path's shapes, then drives the
 user entry points (operands made on the card from seeded generators):
 blocked Cholesky at N=32768 (P2-P5), the factor ops (P6), TSQR at
 BASELINE config 3's 1,048,576 x 512 and beside it (P8-P11), GEMM at 8192
-(P12), the QR kernel and ops.qr_leaf (P13-P14), and the generic DSL
-executors on both storage tiers (P15-P16):
+(P12), the QR kernel and ops.qr_leaf (P13-P14), the generic DSL
+executors on both storage tiers (P15-P16), and the out-of-core Cholesky
+(P17):
 
   P0  the card, its power limit, the kernel build
   P1  each kernel vs its plain version: relative Frobenius error <= 1e-5
@@ -97,6 +98,20 @@ executors on both storage tiers (P15-P16):
   P16 SpillTaskExecutor (executor="spill") on a host-tier cholesky
       16384/1024 (device seconds, host<->device bytes), and LocalExecutor
       (executor="local") at 2048/256 with fault_rate = duplicate_rate = 0.1
+  P17 the out-of-core Cholesky (runtime/spill.py), compensated, tile 512,
+      W = 2048, cache_bytes 0: matmul3 and matmul at its tallest update
+      (65536 x 2048 by 2048ᵀ, in place) vs their plain versions and addmm;
+      one pinned 512 MiB copy each way (the link's yardstick); put_block's
+      host cost; then N=65536 (8 GiB of lower tiles on the host tier)
+      through cholesky + run_program with NpwConfig.hbm_budget_bytes
+      lowered into the spill branch, and N=32768 called directly at
+      pipeline_width 1 and 2 by shape_mode exact and pow2 in turns, and at
+      "highest": device and host seconds, TFLOP/s, residual, L on the host
+      tier, spill_stats, H2D/D2H bytes (SpillTraffic, from the events and
+      shapes) and GB/s, one matmul3 (or matmul) call per update, device
+      memory growth within spill_memory_bound; a checkpoint run stopped
+      after two panels and continued equals the uninterrupted factor bit
+      for bit
 
 Residuals ||A - L Lᵀ||_F / ||A||_F are computed on the card in fp64 and
 must be <= 1e-4. TSQR phases hold ||QᵀQ - I||_F/sqrt(b) <= 1e-4,
@@ -1513,6 +1528,385 @@ def p16_host_tier(torch, npw, gen, n: int, n_local: int):
     require(resid <= RESID_BAR, f"P16 local cholesky: residual {resid}")
 
 
+# ---------------------------------------------------------------------------
+# P17: the out-of-core Cholesky (runtime/spill.py)
+# ---------------------------------------------------------------------------
+
+SPILL_TILE = 512
+SPILL_PANEL_TILES = 4  # W = 2048
+SPILL_RANK = 2048
+
+
+def spill_operand(torch, n: int, seed: int):
+    """A = X Xᵀ/k + 2I on the card, X (n x k, k = SPILL_RANK) ~ N(0,1) from a
+    seeded CUDA generator: SPD with eigenvalues in [2, ~2 + (sqrt(n/k) + 1)²],
+    made in one GEMM of 2n²k flops."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(n, SPILL_RANK, generator=gen, device="cuda")
+    a = x @ x.T
+    a.mul_(1.0 / SPILL_RANK).diagonal().add_(2.0)
+    return a
+
+
+def spill_memory_bound(n_pad: int, tile: int, panel_tiles: int, width: int, planes: int,
+                       cache_bytes: int = 0) -> int:
+    """Device bytes out_of_core_cholesky may add (its docstring): 2 * width
+    panel buffers of (n_pad + W) x W fp32, two strips of n_pad x W, the
+    GEMM's packed bf16 planes 2 * planes * (n_pad + W) * W bytes,
+    cache_bytes, and 16 W² bytes for the W x W factor's workspace."""
+    w = panel_tiles * tile
+    return (2 * width * (n_pad + w) * w * 4 + 2 * n_pad * w * 4
+            + 2 * planes * (n_pad + w) * w + cache_bytes + 16 * w * w)
+
+
+class SpillTraffic:
+    """An on_event hook of out_of_core_cholesky counting the host <-> device
+    bytes each event implies from the shapes: an upload moves panel s's
+    real tiles, a strip load panel q's rows of the panel being updated, a
+    download panel s's real rows."""
+
+    def __init__(self, g: int, tile: int, panel_tiles: int):
+        self.g, self.t, self.pt = g, tile, panel_tiles
+        self.h2d = self.d2h = self.strip_bytes = 0
+        self.counts = {}
+        self.current = 0  # the panel whose updates run (main-thread events only)
+
+    def _panel_bytes(self, s: int) -> int:
+        c0 = s * self.pt
+        return (self.g - c0) * min(self.pt, self.g - c0) * self.t * self.t * 4
+
+    def __call__(self, kind: str, s: int) -> None:
+        self.counts[kind] = self.counts.get(kind, 0) + 1
+        if kind == "upload":
+            self.h2d += self._panel_bytes(s)
+        elif kind == "download":
+            self.d2h += self._panel_bytes(s)
+        elif kind == "factor":
+            self.current = s + 1
+        elif kind == "strip_load":
+            rows_t = self.g - self.current * self.pt
+            nbytes = rows_t * min(self.pt, self.g - s * self.pt) * self.t * self.t * 4
+            self.h2d += nbytes
+            self.strip_bytes += nbytes
+
+
+def host_tiles_to_card(torch, m, n: int):
+    """The host-tier matrix `m` as one (n, n) tensor on the card (tiles that
+    do not exist read as zeros)."""
+    t = m.tile[0]
+    out = torch.zeros(m.padded_shape, device="cuda")
+    for (i, j) in m.block_idxs_exist:
+        out[i * t:(i + 1) * t, j * t:(j + 1) * t].copy_(m.get_block(i, j), non_blocking=True)
+    torch.cuda.synchronize()
+    return out[:n, :n]
+
+
+def lower_residual(torch, a, l, block: int = 4096) -> float:
+    """||A - L Lᵀ||_F / ||A||_F in fp64 on the card, for symmetric A and
+    lower L, over the lower block triangle: a diagonal block counts once, a
+    block below it twice (its mirror)."""
+    n = a.shape[0]
+    num = den = 0.0
+    for j0 in range(0, n, block):
+        j1 = min(n, j0 + block)
+        r = a[j0:, j0:j1].double()
+        for k0 in range(0, j1, block):
+            k1 = min(j1, k0 + block)
+            r -= l[j0:, k0:k1].double() @ l[j0:j1, k0:k1].double().T
+        a64 = a[j0:, j0:j1].double()
+        w = j1 - j0
+        num += float((r[:w] ** 2).sum()) + 2 * float((r[w:] ** 2).sum())
+        den += float((a64[:w] ** 2).sum()) + 2 * float((a64[w:] ** 2).sum())
+        del r, a64
+    return (num / den) ** 0.5
+
+
+def meminfo() -> dict:
+    """The host's RAM from /proc/meminfo, in GiB."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, val = line.split(":", 1)
+            if key in ("MemTotal", "MemAvailable"):
+                out[key] = int(val.split()[0]) / 2 ** 20
+    return out
+
+
+def link_yardstick(torch, nbytes: int = 512 << 20) -> dict:
+    """GB/s of one plain pinned copy of `nbytes` each way (CUDA events,
+    the mean of three after a warm-up)."""
+    host = torch.empty(nbytes // 4, pin_memory=True)
+    dev = torch.empty(nbytes // 4, device="cuda")
+    h2d = cuda_ms(torch, lambda: dev.copy_(host, non_blocking=True), 1)
+    h2d = cuda_ms(torch, lambda: dev.copy_(host, non_blocking=True), 3)
+    d2h = cuda_ms(torch, lambda: host.copy_(dev, non_blocking=True), 1)
+    d2h = cuda_ms(torch, lambda: host.copy_(dev, non_blocking=True), 3)
+    return {"bytes": nbytes, "h2d_GBps": nbytes / h2d / 1e6, "d2h_GBps": nbytes / d2h / 1e6}
+
+
+def writeback_host_cost(torch, rows: int, w: int = SPILL_PANEL_TILES * SPILL_TILE) -> dict:
+    """Host seconds of one writeback's host side at `rows` x W (1 MiB
+    tiles), each on fresh host memory: put_block of each tile from a pinned
+    panel (a fresh pinned tile a call, tiled.py) against what the writer of
+    runtime/spill.py does: one pinned slab of tiles, adopted tile by tile
+    (the device-to-host copy into it not counted)."""
+    from numpywren_tpu_torch.runtime.spill import _panel_to_host
+    from numpywren_tpu_torch.tiled import TiledMatrix
+
+    t = SPILL_TILE
+    src = torch.randn(rows, w).pin_memory()
+    m = TiledMatrix(shape=(rows, w), tile=(t, t), storage="host", device="cuda")
+    t0 = time.perf_counter()
+    _panel_to_host(m, src, 0, 0)
+    put_s = time.perf_counter() - t0
+    m = TiledMatrix(shape=(rows, w), tile=(t, t), storage="host", device="cuda")
+    t0 = time.perf_counter()
+    slab = torch.empty((rows // t, w // t, t, t), pin_memory=True)
+    for i in range(rows // t):
+        for j in range(w // t):
+            m.adopt_block(slab[i, j], i, j)
+    slab_s = time.perf_counter() - t0
+    return {"rows": rows, "w": w, "bytes": rows * w * 4, "put_block_seconds": put_s,
+            "slab_adopt_seconds": slab_s}
+
+
+def spill_kernel_check(torch, gen, n: int, card: str) -> list:
+    """matmul3 and matmul at the spill path's tallest update (n x W strip,
+    W x W top, out = the n x W panel) against their plain versions, timed in
+    turns with the library's addmm."""
+    from numpywren_tpu_torch.ops import gemm3
+
+    gemm = gemm_module()
+    w = SPILL_PANEL_TILES * SPILL_TILE
+    strip = torch.randn(n, w, generator=gen, device="cuda")
+    panel = torch.randn(n, w, generator=gen, device="cuda")
+    top = strip[:w]
+    rows = []
+    flops, nbytes = 2 * n * w * w, 4 * (n * w + w * w + 2 * n * w)
+    lib = lambda: torch.addmm(panel, strip, top.T, alpha=-1.0)  # noqa: E731
+    for name, planes, run, plain in (
+        ("matmul3", 2, lambda: gemm3.matmul3(strip, top, panel, tb=True),
+         lambda: gemm3.matmul3_ref(strip, top, panel, tb=True)),
+        ("matmul", 3, lambda: gemm.matmul(strip, top, panel, tb=True, alpha=-1.0, beta=1.0,
+                                          precision="highest"),
+         lambda: gemm.matmul_ref(strip, top, panel, tb=True, alpha=-1.0, beta=1.0)),
+    ):
+        row = _check(f"P17 {name}:spill_update", run(), plain())
+        ms, plain_ms, lib_ms = in_turns(torch, run, plain, lib, iters=5)
+        b_ms, b_by = bound(planes * (planes + 1) // 2 * flops, nbytes, PEAK_BF16)
+        row.update(kernel=name, shape=[n, w, w], ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=b_ms, bound_by=b_by, nvidia_smi=card)
+        emit({"phase": "P17", **row})
+        rows.append(row)
+    return rows
+
+
+def spill_profile(torch, run) -> dict:
+    """`run()` (one out-of-core Cholesky) under torch.profiler: the device
+    ms of each group of activities as the union of its intervals (copies
+    host to device and device to host; kernels: the GEMM kernels'
+    gemm_split_* launches, cholesky_ex's potrf, solve_triangular's trsm,
+    the rest), the span from the first device activity to the last, and
+    the shares of the span with no upload and with no kernel running.
+    Never fatal: a session that recorded no copy says so."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    acts = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    keys = (("h2d", ("HtoD",)), ("d2h", ("DtoH",)), ("gemm", ("gemm_split",)),
+            ("cholesky_ex", ("potrf", "getrf")), ("solve_triangular", ("trsm",)))
+    groups = {g: [] for g, _ in keys}
+    groups["other"] = []
+    for e in acts:
+        g = next((g for g, ks in keys if any(k in e.name for k in ks)), "other")
+        groups[g].append((e.time_range.start, e.time_range.end))
+
+    def union(iv):
+        total, end = 0.0, None
+        for a, b in sorted(iv):
+            if end is None or a > end:
+                total, end = total + (b - a), b
+            elif b > end:
+                total, end = total + (b - end), b
+        return total / 1e3
+
+    if not groups["h2d"]:
+        return {"profile": "not measured (no copy recorded)", "activities": len(acts)}
+    span = (max(e.time_range.end for e in acts) - min(e.time_range.start for e in acts)) / 1e3
+    kernels = [iv for g in ("gemm", "cholesky_ex", "solve_triangular", "other")
+               for iv in groups[g]]
+    return {"span_ms": span, "ms": {g: union(iv) for g, iv in groups.items()},
+            "count": {g: len(iv) for g, iv in groups.items()},
+            "upload_idle_share": 1 - union(groups["h2d"]) / span,
+            "kernel_idle_share": 1 - union(kernels) / span}
+
+
+def p17_spill(torch, npw, n: int, n_small: int, seed: int):
+    """The out-of-core Cholesky (runtime/spill.py), compensated, tile 512,
+    W = 2048, cache_bytes 0: N = n through cholesky + run_program with the
+    device budget lowered so that _run_fused_cholesky takes its spill
+    branch, then N = n_small called directly at pipeline_width 1 and 2 by
+    shape_mode exact and pow2 in turns, once at "highest", and a checkpoint
+    run continued to the uninterrupted factor bit for bit. Returns the
+    (matmul, matmul3) calls of the driven path and the kernel checks."""
+    import tempfile
+
+    from numpywren_tpu_torch.matrix_init import shard_matrix
+    from numpywren_tpu_torch.ops import gemm3
+    from numpywren_tpu_torch.runtime import spill
+
+    gemm = gemm_module()
+    t0_phase = time.perf_counter()
+    card = gpu_line()
+    t, pt = SPILL_TILE, SPILL_PANEL_TILES
+    cfg = npw.default_config()
+    launches = {"matmul": 0, "matmul3": 0}
+    kernel_rows = spill_kernel_check(torch, torch.Generator(device="cuda").manual_seed(seed), n,
+                                     card)
+    emit({"phase": "P17", "link": link_yardstick(torch), "nvidia_smi": card,
+          "writeback_host": writeback_host_cost(torch, 8192), "meminfo_GiB": meminfo()})
+
+    def reset():
+        gemm.LAUNCHES = gemm.DEVICE_LAUNCHES = 0
+        gemm3.LAUNCHES = gemm3.DEVICE_LAUNCHES = 0
+
+    def drive(label, a, run, n_, width, mode, planes):
+        """Run `run(traffic)` (which returns L), check and report it."""
+        g = n_ // t
+        traffic = SpillTraffic(g, t, pt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        reset()
+        l, host_s, dev_s = run_entry(torch, lambda: run(traffic))
+        c = {"matmul": gemm.LAUNCHES, "matmul3": gemm3.LAUNCHES}
+        device_launches = gemm.DEVICE_LAUNCHES + gemm3.DEVICE_LAUNCHES
+        growth = torch.cuda.max_memory_allocated() - before
+        limit = spill_memory_bound(n_, t, pt, width, planes)
+        n_panels = -(-g // pt)
+        updates = n_panels * (n_panels - 1) // 2
+        kern = "matmul3" if planes == 2 else "matmul"
+        stats = l.spill_stats
+        l_dev = host_tiles_to_card(torch, l, n_)
+        resid = lower_residual(torch, a, l_dev)
+        row = {"phase": "P17", "run": label, "n": n_, "tile": t, "w": pt * t,
+               "pipeline_width": width, "shape_mode": mode, "seconds": dev_s,
+               "host_seconds": host_s, "tflops": n_ ** 3 / 3 / dev_s / 1e12,
+               "residual": resid, "l_storage": l.storage, "spill_stats": stats,
+               "events": traffic.counts, "h2d_bytes": traffic.h2d, "d2h_bytes": traffic.d2h,
+               "strip_bytes": traffic.strip_bytes, "h2d_GBps": traffic.h2d / dev_s / 1e9,
+               "d2h_GBps": traffic.d2h / dev_s / 1e9, "launches": c,
+               "device_launches": device_launches, "memory_growth": growth,
+               "memory_bound": limit, "nvidia_smi": card}
+        emit(row)
+        require(l.storage == "host", f"P17 {label}: L on the {l.storage} tier")
+        require(resid <= RESID_BAR, f"P17 {label}: residual {resid} > {RESID_BAR}")
+        require(growth <= limit, f"P17 {label}: device memory grew {growth} B > bound {limit}")
+        require(c[kern] == updates and device_launches == 3 * updates,
+                f"P17 {label}: {kern} calls {c}, device launches {device_launches}, "
+                f"{updates} updates")
+        require(stats["host_strip_loads"] == traffic.counts.get("strip_load", 0)
+                and stats["panels"] == n_panels, f"P17 {label}: spill_stats {stats}")
+        launches[kern] += c[kern]
+        return l_dev, row
+
+    # warm-up: streams, pinned pools, the solver's handles
+    cfg.compensated = True
+    a = spill_operand(torch, 4096, seed)
+    spill.out_of_core_cholesky(shard_matrix(a, tile=(t, t), storage="host", symmetric=True),
+                               panel_tiles=pt, cache_bytes=0)
+    del a
+
+    # N = n through the DSL entry point: the spill branch of _run_fused_cholesky
+    t0 = time.perf_counter()
+    a = spill_operand(torch, n, seed)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    x_host = shard_matrix(a, tile=(t, t), storage="host", symmetric=True)
+    shard_s = time.perf_counter() - t0 - gen_s
+    prog, o, _ = npw.cholesky(x_host, storage="host")
+    bind_s = time.perf_counter() - t0 - gen_s - shard_s
+    emit({"phase": "P17", "operand": n, "seed": seed, "generate_seconds": gen_s,
+          "shard_seconds": shard_s, "bind_seconds": bind_s, "meminfo_GiB": meminfo()})
+    budget, orig = cfg.hbm_budget_bytes, spill.out_of_core_cholesky
+    calls = []
+
+    def run_dsl(traffic):
+        def traced(m, **kw):  # the branch's call, with the byte counter
+            calls.append(tuple(m.shape))
+            return orig(m, on_event=traffic, **kw)
+
+        spill.out_of_core_cholesky = traced
+        try:
+            require(npw.run_program(prog).name == "SUCCESS", "P17: run_program failed")
+        finally:
+            spill.out_of_core_cholesky = orig
+        return o
+
+    cfg.hbm_budget_bytes = 3 * n * n * 4 // 2  # under the fused path's three copies
+    try:
+        _, row = drive("run_program", a, run_dsl, n, cfg.pipeline_width, "pow2", 2)
+    finally:
+        cfg.hbm_budget_bytes = budget
+    require(calls == [(n, n)], f"P17: the spill branch ran {calls}")
+    del a, x_host, prog, o
+    torch.cuda.empty_cache()
+
+    def direct_run(x, **kw):
+        x.load_count = 0  # host_strip_loads counts from here
+        return spill.out_of_core_cholesky(x, panel_tiles=pt, cache_bytes=0, **kw)
+
+    # N = n_small called directly: width 1 and 2, exact and pow2, in turns
+    a = spill_operand(torch, n_small, seed + 1)
+    x_host = shard_matrix(a, tile=(t, t), storage="host", symmetric=True)
+    direct = {}
+    for width, mode in ((2, "pow2"), (1, "pow2"), (2, "exact"), (1, "exact"),
+                        (1, "exact"), (2, "exact"), (1, "pow2"), (2, "pow2")):
+        label = f"w{width}_{mode}"
+        _, row = drive(label, a, lambda tr: direct_run(
+            x_host, pipeline_width=width, shape_mode=mode, on_event=tr), n_small, width, mode, 2)
+        direct.setdefault(label, []).append(row["seconds"])
+    prof = spill_profile(torch, lambda: direct_run(x_host))
+    emit({"phase": "P17", "run": "profile", "n": n_small, "pipeline_width": cfg.pipeline_width,
+          "shape_mode": "pow2", **prof, "nvidia_smi": card})
+    cfg.compensated = False
+    l_hi, _ = drive("highest", a, lambda tr: direct_run(x_host, precision="highest",
+                                                       on_event=tr),
+                    n_small, cfg.pipeline_width, "pow2", 3)
+    del l_hi
+    cfg.compensated = True
+
+    # a checkpoint run: two panels, then continued; the factor is the
+    # uninterrupted one's, bit for bit
+    whole = spill.out_of_core_cholesky(x_host, panel_tiles=pt, cache_bytes=0)
+    with tempfile.TemporaryDirectory() as ck:
+        t0 = time.perf_counter()
+        first = spill.out_of_core_cholesky(x_host, panel_tiles=pt, checkpoint_dir=ck,
+                                           stop_panels=2)
+        rest = spill.out_of_core_cholesky(x_host, panel_tiles=pt, checkpoint_dir=ck)
+        ck_s = time.perf_counter() - t0
+        done = spill.SpillCheckpoint(ck).completed()
+    same = all(torch.equal(rest.get_block(i, j), whole.get_block(i, j))
+               for (i, j) in whole.block_idxs_exist)
+    emit({"phase": "P17", "run": "checkpoint", "n": n_small, "stop_panels": 2,
+          "first_panels": first.spill_stats["panels"], "rest_panels": rest.spill_stats["panels"],
+          "panels_done": done, "bitwise_equal": same, "host_seconds": ck_s, "nvidia_smi": card})
+    require(same and set(rest.block_idxs_exist) == set(whole.block_idxs_exist),
+            "P17 checkpoint: the continued factor differs from the uninterrupted one")
+    require(first.spill_stats["panels"] == 2 and done == -(-n_small // t // pt),
+            f"P17 checkpoint: {first.spill_stats}, manifest {done}")
+    cfg.compensated = False
+    del a, x_host, whole, first, rest
+    torch.cuda.empty_cache()
+    emit({"phase": "P17", "seconds_by_run": direct, "seconds": time.perf_counter() - t0_phase,
+          "meminfo_GiB": meminfo(), "nvidia_smi": card})
+    return launches, kernel_rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=32768, help="trapezoid phases' size")
@@ -1527,10 +1921,14 @@ def main(argv=None) -> int:
     ap.add_argument("--n-bdfac", type=int, default=8192, help="P15's DSL bdfac size")
     ap.add_argument("--tile-bdfac", type=int, default=1024, help="P15's DSL bdfac tile")
     ap.add_argument("--n-local", type=int, default=2048, help="P16's local-executor size")
+    ap.add_argument("--n-spill", type=int, default=65536, help="P17's run_program size")
+    ap.add_argument("--n-spill-small", type=int, default=32768, help="P17's direct runs' size")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.n % PANEL:
         raise SmokeFailure(f"--n must be a multiple of {PANEL}")
+    if args.n_spill % SPILL_TILE or args.n_spill_small % SPILL_TILE:
+        raise SmokeFailure(f"--n-spill and --n-spill-small must be multiples of {SPILL_TILE}")
 
     import torch
 
@@ -1543,6 +1941,7 @@ def main(argv=None) -> int:
     from numpywren_tpu_torch.ops import _build
 
     # P0: the card and the kernel build
+    t_run = time.perf_counter()
     card = gpu_line()
     t0 = time.perf_counter()
     so = _build.build()
@@ -1569,6 +1968,9 @@ def main(argv=None) -> int:
     p15_generic(torch, npw, gen, args.n_dsl, args.n_gemm_dsl, args.m_tsqr_dsl, args.n_bdfac,
                 args.tile_bdfac)
     p16_host_tier(torch, npw, gen, args.n_dsl, args.n_local)
+    spill_launches, _ = p17_spill(torch, npw, args.n_spill, args.n_spill_small, args.seed)
+    for name in ("matmul", "matmul3"):
+        launches[name] += spill_launches[name]
     launches["matmul"] += ops_counts["matmul"]
     launches.update(potrf=ops_counts["potrf"], trtri=ops_counts["trtri"], **tsqr_counts)
 
@@ -1621,6 +2023,7 @@ def main(argv=None) -> int:
                     "library_ms": qr_main["library_ms"]})
     for k in kernels:
         require(k["launches"] > 0, f"kernel {k['name']} was not launched on its path")
+    emit({"phase": "total", "seconds": time.perf_counter() - t_run})
     emit({"kernels": kernels})
     print(gpu_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

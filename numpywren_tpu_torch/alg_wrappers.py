@@ -180,12 +180,15 @@ def _identity_pad_diag(arr: torch.Tensor, x_t) -> torch.Tensor:
 
 
 def _spd_parent(x_t):
-    """parent_fn of the host-tier S: X's block, with 1s on the padded
-    diagonal of an edge diagonal block (the padded tile stays SPD)."""
+    """parent_fn of the host-tier S: X's block (X's own tile, read only:
+    pinned tiles stay pinned for their copies to the card), with 1s on the
+    padded diagonal of an edge diagonal block (a copy; the padded tile stays
+    SPD)."""
     def parent(m, i, j):
-        blk = x_t.get_block(i, j).clone()
+        blk = x_t.get_block(i, j)
         bm, _ = m.true_block_shape(i, j)
         if i == j and bm < m.tile[0]:
+            blk = blk.clone()
             idx = torch.arange(bm, m.tile[0])
             blk[idx, idx] = 1.0
         return blk

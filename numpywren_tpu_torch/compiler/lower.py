@@ -55,8 +55,6 @@ from numpywren_tpu_torch.ops.pallas_factor import (
     potrf_inv_pallas,
 )
 
-_SPILL = "out-of-core spill (runtime/spill.py) is not ported yet (ROADMAP Queue 1 #1)"
-
 
 def _dus(arr: torch.Tensor, update: torch.Tensor, i0: int, j0: int) -> torch.Tensor:
     """Write `update` into `arr` at (i0, j0), in place."""
@@ -153,16 +151,21 @@ def _rtrsm(b: torch.Tensor, l: torch.Tensor, tile: int, precision: str,
 
 
 def _chol_columns(cols: List[torch.Tensor], panel: int, tile: int, precision: str,
-                  stop: Optional[int] = None, inv_panel: bool = True) -> None:
+                  stop: Optional[int] = None, inv_panel: bool = True,
+                  infos: Optional[List[torch.Tensor]] = None) -> None:
     """Right-looking Cholesky over column-block buffers, in place.
 
     cols[c] holds rows [c*panel, n_pad) of columns [c*panel, c*panel + w_c):
     the trapezoid tier's own buffers, or views into one flat array. Panels
     [0, stop) are factored; later ones receive their trailing updates and
-    keep the Schur complement (the reference's truncate prefix run)."""
+    keep the Schur complement (the reference's truncate prefix run). With
+    `infos`, the diagonal blocks' factor statuses are appended to it for the
+    caller to check (`_raise_if_not_spd`); else they are checked here, which
+    waits for the device."""
     nb = len(cols)
     stop = nb if stop is None else min(int(stop), nb)
-    infos: List[torch.Tensor] = []
+    check = infos is None
+    infos = [] if infos is None else infos
     for p in range(stop):
         colp = cols[p]
         wp = colp.shape[1]
@@ -182,7 +185,8 @@ def _chol_columns(cols: List[torch.Tensor], panel: int, tile: int, precision: st
             else:
                 _sub_matmul(cols[c], b[off:], b[off:off + w], tb=True, precision=precision,
                             out=cols[c])
-    _raise_if_not_spd(infos)
+    if check:
+        _raise_if_not_spd(infos)
 
 
 def _syrk_tril(a, pan, r1, j0, rows, depth, tile, precision, leaf_rows) -> None:
@@ -217,6 +221,7 @@ def fused_cholesky_fn(
     inv_panel: bool = True,
     precision: Optional[str] = None,
     dtype=torch.float32,
+    infos: Optional[List[torch.Tensor]] = None,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Build the in-place blocked Cholesky over a flat padded (n_pad, n_pad)
     tensor: fn(a) factors `a` where it lies and returns it.
@@ -226,7 +231,8 @@ def fused_cholesky_fn(
     trapezoid tier, and `a` comes back as the lower factor (upper zeroed).
     With truncate > 0 (chol_flat) the first g - truncate tile columns are
     factored with a recursive lower-only trailing syrk, and `a` comes back
-    holding the factored panels and the updated Schur complement."""
+    holding the factored panels and the updated Schur complement. `infos`
+    as in `_chol_columns` (the column schedule only)."""
     if n_pad % tile != 0:
         raise ValueError(f"n_pad {n_pad} not a multiple of tile {tile}")
     g = n_pad // tile
@@ -253,7 +259,7 @@ def fused_cholesky_fn(
     def chol_cols(a):
         nb = cdiv(n_pad, w_max)
         cols = [a[c * w_max:, c * w_max:min(n_pad, (c + 1) * w_max)] for c in range(nb)]
-        _chol_columns(cols, w_max, tile, precision, inv_panel=inv_panel)
+        _chol_columns(cols, w_max, tile, precision, inv_panel=inv_panel, infos=infos)
         return a.tril_()
 
     return chol_flat if truncate else chol_cols
@@ -262,13 +268,16 @@ def fused_cholesky_fn(
 def fused_cholesky(a: torch.Tensor, tile: int, *, truncate: int = 0,
                    panel_tiles: int = 8, syrk_depth: int = 3,
                    leaf_rows: int = 4096, inv_panel: bool = True,
-                   precision: Optional[str] = None) -> torch.Tensor:
+                   precision: Optional[str] = None,
+                   infos: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
     """One-call fused Cholesky on a flat padded tensor. Overwrites `a` with
-    the result and returns it (JAX's donation, done in place)."""
+    the result and returns it (JAX's donation, done in place). `infos` as in
+    `_chol_columns`: the out-of-core Cholesky checks its panels' statuses
+    in its writer thread, off the factor loop."""
     fn = fused_cholesky_fn(a.shape[0], tile, truncate=truncate,
                            panel_tiles=panel_tiles, syrk_depth=syrk_depth,
                            leaf_rows=leaf_rows, inv_panel=inv_panel,
-                           precision=precision, dtype=a.dtype)
+                           precision=precision, dtype=a.dtype, infos=infos)
     return fn(a)
 
 
@@ -635,12 +644,18 @@ def _run_fused_cholesky(program):
         return
     if s_ba.matrix.storage == "host" and truncate == 0:
         # the fused factorization holds ~3 flat copies on the card; a host
-        # matrix too large for that streams out of core in the reference
-        # (runtime.spill.out_of_core_cholesky), which the port has not yet
+        # matrix too large for that streams out of core instead
         m = s_ba.matrix
         pm, pn = m.padded_shape
         if 3 * pm * pn * m.dtype.itemsize > _hbm_budget_bytes():
-            raise NotImplementedError(f"cholesky of a {pm}x{pn} host matrix: {_SPILL}")
+            from numpywren_tpu_torch.runtime.spill import out_of_core_cholesky
+
+            o_host = program.matrices["O"].matrix
+            if o_host.storage != "host":
+                o_host = o_host.to_host()
+                program.matrices["O"].matrix = o_host
+            out_of_core_cholesky(m, out=o_host)
+            return
 
     s = _hbm(program, "S")
     o = _hbm(program, "O")

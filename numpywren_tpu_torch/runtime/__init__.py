@@ -7,9 +7,9 @@ kernels, the reference's worker loop with fault injection),
 ``TorchTaskExecutor`` (``JaxTaskExecutor``, the JAX package's name for it:
 one gather, batched op and scatter per schedule group on the device) and
 ``SpillTaskExecutor`` (the same schedule over host-tier tiles).
-
-The JAX package also exports ``out_of_core_cholesky``; it arrives with the
-port of ``runtime/spill.py`` (ROADMAP Queue 1 #1).
+``out_of_core_cholesky`` (runtime/spill.py) streams a host-tier Cholesky
+through the device panel by panel; run_program takes it for a host-tier
+matrix too large for the device.
 """
 
 from numpywren_tpu_torch.runtime.program import NS, PS, TiledProgram
@@ -20,8 +20,9 @@ from numpywren_tpu_torch.runtime.executor import (
     TorchTaskExecutor,
     run_program,
 )
+from numpywren_tpu_torch.runtime.spill import out_of_core_cholesky
 
 __all__ = [
     "NS", "PS", "TiledProgram", "LocalExecutor", "JaxTaskExecutor",
-    "SpillTaskExecutor", "run_program",
+    "SpillTaskExecutor", "out_of_core_cholesky", "run_program",
 ]

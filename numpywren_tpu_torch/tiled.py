@@ -304,6 +304,22 @@ class TiledMatrix(_TiledBase):
         self._written[i, j] = True
         return (i, j)
 
+    def adopt_block(self, blk: torch.Tensor, i: int, j: int):
+        """Store the CPU tensor `blk` itself as tile (i, j) of the host tier,
+        with no copy: a full tile of the store's dtype (a contiguous view of
+        a larger pinned buffer is fine) that the store owns from here on.
+        The out-of-core Cholesky's writer adopts views of one pinned slab a
+        panel instead of pinning each tile apart."""
+        self._check_idx(i, j)
+        if (self.storage != "host" or blk.device.type != "cpu" or tuple(blk.shape) != self.tile
+                or blk.dtype != self.dtype or not blk.is_contiguous()):
+            raise ShapeError(f"adopt_block({i},{j}) of {self.key}: needs a contiguous CPU "
+                             f"{self.dtype} tile {self.tile} on the host tier, got "
+                             f"{blk.device} {blk.dtype} {tuple(blk.shape)}")
+        with self._lock:
+            self._tiles[(i, j)] = blk
+        return (i, j)
+
     def delete_block(self, i: int, j: int):
         self._check_idx(i, j)
         if self.storage == "host":
@@ -415,6 +431,12 @@ class TiledSymmetricMatrix(TiledMatrix):
             # mirror into the upper triangle so the flat array is truly symmetric
             super().put_block(blk.T, cj, ci)
         return (ci, cj)
+
+    def adopt_block(self, blk: torch.Tensor, i: int, j: int):
+        ci, cj, flip = self._canonical(i, j)
+        if flip:  # an upper tile lands transposed in the lower triangle: a copy
+            return self.put_block(blk, i, j)
+        return super().adopt_block(blk, ci, cj)
 
     def block_exists(self, i: int, j: int) -> bool:
         ci, cj, _ = self._canonical(i, j)

@@ -578,3 +578,30 @@ def test_generic_executors_on_the_card(gen, executor, storage):
     assert npw.run_program(prog, executor=executor) == PS.SUCCESS
     l = o.to_hbm().array if storage == "host" else o.array
     _close(l @ l.T, a)
+
+
+@pytest.mark.parametrize("width", [1, 2])
+def test_out_of_core_cholesky_on_the_card(gen, monkeypatch, width):
+    """The out-of-core Cholesky at n = 2048 (tile 128, W = 512),
+    compensated: every trailing update a matmul3 call on the card (three
+    device launches), uploads and downloads on their own streams, and the
+    factor within 1e-5 (relative Frobenius) of the CPU run of the same
+    input (the plain bf16x3 version)."""
+    from numpywren_tpu_torch import config
+    from numpywren_tpu_torch.matrix_init import shard_matrix
+    from numpywren_tpu_torch.runtime import out_of_core_cholesky
+
+    monkeypatch.setattr(config, "_default", config.NpwConfig(compensated=True))
+    a = _spd(gen, 2048)
+    x = shard_matrix(a, tile=(128, 128), storage="host", symmetric=True)
+    assert x.device.type == "cuda" and x.get_block(3, 1).is_pinned()
+    calls, device = gemm3.LAUNCHES, gemm3.DEVICE_LAUNCHES
+    l = out_of_core_cholesky(x, pipeline_width=width)
+    assert gemm3.LAUNCHES - calls == 6 and gemm3.DEVICE_LAUNCHES - device == 18  # 4 panels
+    assert l.storage == "host" and l.get_block(5, 2).is_pinned()
+    x_cpu = shard_matrix(a.cpu(), tile=(128, 128), storage="host", symmetric=True, device="cpu")
+    l_cpu = out_of_core_cholesky(x_cpu, pipeline_width=width)
+    assert l.spill_stats == l_cpu.spill_stats
+    got = l.to_hbm().array
+    _close(got, l_cpu.to_hbm().array.to("cuda"))
+    _close(torch.tril(got) @ torch.tril(got).T, a)

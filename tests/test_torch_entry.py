@@ -110,18 +110,27 @@ def test_convert_round_trip():
 
 def test_unported_paths_raise(monkeypatch):
     """What is left unported raises and names its ROADMAP item: "auto" on a
-    program whose fused lowering the port lacks (bdfac), and a host-tier
-    cholesky too large for the card (runtime/spill.py's out-of-core path)."""
-    a = random_spd(64, seed=7)
+    program whose fused lowering the port lacks (bdfac). A host-tier
+    cholesky too large for the device budget runs out of core
+    (runtime/spill.py) as the JAX package's auto dispatch does: L stays on
+    the host tier and matches the JAX package's factor."""
+    a = random_spd(128, seed=7)
     x = np.ones((64, 64), np.float32)
     prog, _, _ = npw.bdfac(x, tile=(32, 32), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #5"):
         npw.run_program(prog)
-    cfg = npw.default_config()
-    monkeypatch.setattr(cfg, "hbm_budget_bytes", 1024)
-    prog, _, _ = npw.cholesky(a, tile=(32, 32), storage="host", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #1"):
-        npw.run_program(prog)
+    monkeypatch.setattr(npw.default_config(), "hbm_budget_bytes", 1024)
+    monkeypatch.setattr(config, "_default", config.NpwConfig(hbm_budget_bytes=1024))
+    prog, o, _ = npw.cholesky(a, tile=(32, 32), storage="host", device="cpu")
+    assert npw.run_program(prog, executor="auto") == PS.SUCCESS
+    assert o.storage == "host"
+    jprog, jo, _ = jnpw.cholesky(jshard(a, tile=(32, 32), storage="host"), tile=(32, 32),
+                                 storage="host")
+    jnpw.run_program(jprog, executor="auto")
+    assert jo.storage == "host"
+    got = np.tril(o.numpy())
+    np.testing.assert_allclose(got, np.tril(jo.numpy()), rtol=RTOL, atol=ATOL)
+    assert np.linalg.norm(a - got @ got.T) / np.linalg.norm(a) < 1e-5
     with pytest.raises(ValueError, match="unknown executor"):
         npw.run_program(prog, executor="bogus")
 

@@ -3,9 +3,8 @@
 code written against the JAX package's `from numpywren_tpu.runtime import
 PS, run_program` runs on the port by its package name alone.
 
-The runtime's list is the reference's less `out_of_core_cholesky`, which
-arrives with the port of runtime/spill.py. The Cholesky through the
-exported names holds the reference tests' bars (tests/test_cholesky.py):
+The runtime's list is the reference's, `out_of_core_cholesky` included.
+The Cholesky through the exported names holds the reference tests' bars (tests/test_cholesky.py):
 residual below 5e-6, and the port's factor within rtol 1e-4, atol 1e-5 of
 the JAX package's on the same input.
 """
@@ -25,7 +24,7 @@ from numpywren_tpu_torch import compiler, runtime
 
 
 def test_runtime_exports_the_reference_names():
-    assert set(runtime.__all__) == set(jruntime.__all__) - {"out_of_core_cholesky"}
+    assert runtime.__all__ == jruntime.__all__
     assert len(runtime.__all__) == len(set(runtime.__all__))
     for name in runtime.__all__:
         assert getattr(runtime, name) is not None
@@ -63,7 +62,7 @@ def test_runtime_imports_first_without_a_cycle_or_jax():
     code = (
         "import sys\n"
         "from numpywren_tpu_torch.runtime import (NS, PS, TiledProgram, LocalExecutor,\n"
-        "    JaxTaskExecutor, SpillTaskExecutor, run_program)\n"
+        "    JaxTaskExecutor, SpillTaskExecutor, out_of_core_cholesky, run_program)\n"
         "from numpywren_tpu_torch.compiler import compile_schedule\n"
         "import numpywren_tpu_torch\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'numpywren_tpu.'))\n"
