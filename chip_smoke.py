@@ -9,8 +9,8 @@ user entry points (operands made on the card from seeded generators):
 blocked Cholesky at N=32768 (P2-P5), the factor ops (P6), TSQR at
 BASELINE config 3's 1,048,576 x 512 and beside it (P8-P11), GEMM at 8192
 (P12), the QR kernel and ops.qr_leaf (P13-P14), the generic DSL
-executors on both storage tiers (P15-P16), and the out-of-core Cholesky
-(P17):
+executors on both storage tiers (P15-P16), the out-of-core Cholesky
+(P17), and the models (P18):
 
   P0  the card, its power limit, the kernel build
   P1  each kernel vs its plain version: relative Frobenius error <= 1e-5
@@ -112,6 +112,34 @@ executors on both storage tiers (P15-P16), and the out-of-core Cholesky
       memory growth within spill_memory_bound; a checkpoint run stopped
       after two panels and continued equals the uninterrupted factor bit
       for bit
+  P18 the models (numpywren_tpu_torch/models) through their entry points,
+      each call run twice (the first counting its host synchronizations
+      under torch.cuda's sync debug mode, the second timed) with the
+      launch counters set to 0 before each run: least_squares on
+      1,048,576 x 512 (kappa 10, 4 right-hand sides with a 10% residual)
+      by "qr" on the library route, compensated (matmul3) and under
+      NPW_PALLAS_FACTOR (potrf_inv), by "normal", and ridge_regression
+      (alpha 1e-3), each within 1e-4 of an fp64 solve on the card;
+      matmul3 at that route's apply shape (1,048,576 x 512 by 512ᵀ, no c)
+      vs matmul3_ref (<= 1e-5) and _matmul_split_ref (<= 1e-6), timed
+      beside torch.matmul and its bound;
+      least_squares and svd_tall at 1,048,576 x 256 under NPW_PALLAS_CHAIN
+      (the chain) against the library route (x <= 1e-5, s <= 3e-5
+      relative); pca "auto" (tall) on that operand and "randomized" on
+      65,536 x 4,096 (rank 64, sigma_i = exp(-i/32)), the leading 10
+      explained variances within 2e-2 and 1e-1 of fp64 svdvals on the
+      card; svd_jacobi at n = 4096, block 512, on a Gaussian and a
+      kappa 1e4 logspace matrix (reconstruction < 1e-4, both
+      orthogonalities < 1e-5, sigma within rtol 2e-3 / atol 1e-4 s_max of
+      fp64: tests/test_jacobi.py's _check), its sweeps and off-norms;
+      torch.profiler splits, each in a new process, of one sweep (also as
+      eigh, products and the rest) and of one library least_squares call:
+      the device's busy ms (the union of its activities' intervals) and
+      the idle share against the call's CUDA-event ms (busy <= call
+      required), and the device ms by top-level aten op (their sum <= the
+      busy ms required); svd(method="jacobi")
+      on 65,536 x 1,024 (the same bars); matmul3, potrf_inv and the chain
+      must launch
 
 Residuals ||A - L Lᵀ||_F / ||A||_F are computed on the card in fp64 and
 must be <= 1e-4. TSQR phases hold ||QᵀQ - I||_F/sqrt(b) <= 1e-4,
@@ -210,6 +238,33 @@ def bound(flops: float, nbytes: float, peak: float):
 
 def rel_err(torch, got, want) -> float:
     return float(torch.linalg.norm((got - want).double()) / torch.linalg.norm(want.double()))
+
+
+def union_ms(intervals) -> float:
+    """The time, in ms, that at least one of the (start, end) µs intervals
+    covers: a set of device activities' busy time, overlaps counted once."""
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total, end = total + (b - a), b
+        elif b > end:
+            total, end = total + (b - end), b
+    return total / 1e3
+
+
+def in_new_process(phase: str, func: str, *args):
+    """chip_smoke.<func>(torch, *args) in a process of its own, whose
+    profiler has recorded nothing before: a process's later profiler
+    sessions can lose device records (P6's sessions in one full run, the
+    second form's in a short one), a first session in a new process has
+    not. The arguments and the result pass as JSON."""
+    code = ("import json, sys, torch, chip_smoke; print(json.dumps(getattr("
+            "chip_smoke, sys.argv[1])(torch, *json.loads(sys.argv[2]))))")
+    proc = subprocess.run([sys.executable, "-c", code, func, json.dumps(args)],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=300)
+    require(proc.returncode == 0, f"{phase} {func} process: {proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 def set_flags(on=()) -> None:
@@ -576,13 +631,10 @@ def cholesky_profile(torch, npw, a, sessions: int = 3):
             else:
                 groups["panel_pack" if split[i][0] == "pack" else "panel_updates"] += split[i][1]
                 i += 1
-        busy, end = 0.0, kernels[0].time_range.start
-        for e in kernels:
-            busy += max(0.0, e.time_range.end - max(e.time_range.start, end))
-            end = max(end, e.time_range.end)
-        window = end - kernels[0].time_range.start
+        busy = union_ms((e.time_range.start, e.time_range.end) for e in kernels)
+        window = (max(e.time_range.end for e in kernels) - kernels[0].time_range.start) / 1e3
         top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
-        row.update(device_ms=groups, window_ms=window / 1e3, busy_ms=busy / 1e3,
+        row.update(device_ms=groups, window_ms=window, busy_ms=busy,
                    idle_share=1 - busy / window, kernel_launches=len(kernels),
                    top=[{"name": k[:120], "launches": c, "ms": ms} for k, (c, ms) in top])
         break
@@ -1003,7 +1055,7 @@ def chain_kw(m: int, b: int, rows: bool) -> dict:
 
 def fresh_chain_split(torch, m: int, b: int, rows: int, want: int):
     """chain_split of one chain call on a kappa 10 operand of P7's shape, in
-    the process that calls it: the body of chain_split_new_process."""
+    the process that calls it (P7 runs it in_new_process)."""
     from numpywren_tpu_torch.ops import pallas_factor as pf
 
     p = kappa_panel(torch, torch.Generator(device="cuda").manual_seed(0), m, b, 10.0)
@@ -1012,20 +1064,6 @@ def fresh_chain_split(torch, m: int, b: int, rows: int, want: int):
     g = p @ p.T if rows else p.T @ p
     kw = chain_kw(m, b, bool(rows))
     return chain_split(torch, lambda: pf.cholqr2_chain_pallas(g, p, **kw), want)
-
-
-def chain_split_new_process(m: int, b: int, rows: bool, want: int):
-    """chain_split in a process of its own, whose profiler has recorded
-    nothing before. A process's later profiler sessions can lose device
-    records (P6's sessions in one full run, the second form's in a short
-    one), a first session in a new process has not."""
-    code = ("import json, sys, torch, chip_smoke; print(json.dumps("
-            "chip_smoke.fresh_chain_split(torch, *map(int, sys.argv[1:]))))")
-    proc = subprocess.run([sys.executable, "-c", code, str(m), str(b), str(int(rows)), str(want)],
-                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
-                          text=True, timeout=300)
-    require(proc.returncode == 0, f"P7 split process: {proc.stderr[-2000:]}")
-    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 def p7_chain(torch, gen, m: int, b: int = 256):
@@ -1123,7 +1161,7 @@ def p7_chain(torch, gen, m: int, b: int = 256):
             lambda: lower._cholqr_adaptive(p, rows=rows, max_passes=2),
             lambda: lower._cholqr_adaptive(p, rows=rows, max_passes=2, pallas_chain=True),
             iters=5)
-        prof = chain_split_new_process(m, b, rows, want)
+        prof = in_new_process("P7", "fresh_chain_split", m, b, int(rows), want)
         require(prof["device_ms_by_part"] is not None,
                 f"P7 {case}: the profiler recorded {prof['profiled_launches']} of {want} "
                 f"launches in {prof['profile_sessions']} sessions")
@@ -1725,24 +1763,15 @@ def spill_profile(torch, run) -> dict:
         g = next((g for g, ks in keys if any(k in e.name for k in ks)), "other")
         groups[g].append((e.time_range.start, e.time_range.end))
 
-    def union(iv):
-        total, end = 0.0, None
-        for a, b in sorted(iv):
-            if end is None or a > end:
-                total, end = total + (b - a), b
-            elif b > end:
-                total, end = total + (b - end), b
-        return total / 1e3
-
     if not groups["h2d"]:
         return {"profile": "not measured (no copy recorded)", "activities": len(acts)}
     span = (max(e.time_range.end for e in acts) - min(e.time_range.start for e in acts)) / 1e3
     kernels = [iv for g in ("gemm", "cholesky_ex", "solve_triangular", "other")
                for iv in groups[g]]
-    return {"span_ms": span, "ms": {g: union(iv) for g, iv in groups.items()},
+    return {"span_ms": span, "ms": {g: union_ms(iv) for g, iv in groups.items()},
             "count": {g: len(iv) for g, iv in groups.items()},
-            "upload_idle_share": 1 - union(groups["h2d"]) / span,
-            "kernel_idle_share": 1 - union(kernels) / span}
+            "upload_idle_share": 1 - union_ms(groups["h2d"]) / span,
+            "kernel_idle_share": 1 - union_ms(kernels) / span}
 
 
 def p17_spill(torch, npw, n: int, n_small: int, seed: int):
@@ -1907,6 +1936,360 @@ def p17_spill(torch, npw, n: int, n_small: int, seed: int):
     return launches, kernel_rows
 
 
+# ---------------------------------------------------------------------------
+# P18: the models (numpywren_tpu_torch/models) on the card
+# ---------------------------------------------------------------------------
+
+LSTSQ_BAR = 1e-4      # x against an fp64 solve on the card
+CHAIN_X_BAR = 1e-5    # the chain route's x against the library route's
+PCA_TALL_BAR = 2e-2   # explained variance, tests/test_models.py's pca bars
+PCA_RANDOMIZED_BAR = 1e-1
+JACOBI_RECON_BAR = 1e-4  # tests/test_jacobi.py's _check
+JACOBI_ORTHO_BAR = 1e-5
+JACOBI_S_RTOL, JACOBI_S_ATOL = 2e-3, 1e-4
+JACOBI_BLOCK = 512    # svd_jacobi's default (measured on a TPU v5e)
+
+
+def host_syncs(torch, fn):
+    """(fn(), the synchronizing CUDA calls it made): torch.cuda's sync debug
+    mode warns at each one (an item(), a D2H copy, a library call that
+    checks its status on the host)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in seen)
+
+
+def model_call(torch, fn, flags=(), compensated=False):
+    """fn() twice with the opt-in `flags` and NpwConfig.compensated set: the
+    first run counts its host synchronizations, the second is timed
+    (run_entry). The counters are set to 0 before each run and read after
+    it. Returns (the second run's result, its row: seconds, host seconds,
+    the first run's seconds, syncs, launches)."""
+    from numpywren_tpu_torch import config
+    from numpywren_tpu_torch.ops import gemm3
+    from numpywren_tpu_torch.ops import pallas_factor as pf
+
+    cfg = config.default_config()
+    cfg.compensated = compensated
+    set_flags(flags)
+    try:
+        pf.reset_launches()
+        gemm3.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, syncs = host_syncs(torch, fn)
+        first_s = time.perf_counter() - t0
+        pf.reset_launches()
+        gemm3.LAUNCHES = 0
+        out, host_s, dev_s = run_entry(torch, fn)
+        launches = {"matmul3": gemm3.LAUNCHES, "potrf_inv": pf.LAUNCHES["potrf_inv"],
+                    "cholqr2_chain": pf.LAUNCHES["cholqr2_chain"]}
+    finally:
+        cfg.compensated = False
+        set_flags()
+    return out, {"seconds": dev_s, "host_seconds": host_s, "first_seconds": first_s,
+                 "host_syncs": syncs, "launches": launches, "flags": list(flags),
+                 "compensated": compensated}
+
+
+def regression_rhs(torch, gen, a, k: int = 4, tan_theta: float = 0.1):
+    """k right-hand sides b = A x_true + noise, ||noise||_F = tan_theta
+    ||A x_true||_F: a regression with a 10% residual. The fp32 sensitivity
+    of any least-squares solver is ~(kappa + kappa² tan_theta) u, 2e-6 at
+    kappa 10; a pure-noise b at 1,048,576 rows has tan_theta ~64 and
+    puts it near 3e-4, above the bar for every fp32 route."""
+    ax = a @ torch.randn(a.shape[1], k, generator=gen, device="cuda")
+    noise = torch.randn(a.shape[0], k, generator=gen, device="cuda")
+    return ax + noise * (tan_theta * torch.linalg.norm(ax) / torch.linalg.norm(noise))
+
+
+def gram64(torch, a, b=None, chunk: int = 1 << 17):
+    """aᵀa (or aᵀb) in fp64, by row chunks."""
+    out = None
+    for i0 in range(0, a.shape[0], chunk):
+        ac = a[i0:i0 + chunk].double()
+        part = ac.T @ (ac if b is None else b[i0:i0 + chunk].double())
+        out = part if out is None else out + part
+    return out
+
+
+def solve64(torch, g, rhs):
+    l = torch.linalg.cholesky(g)
+    return torch.cholesky_solve(rhs, l)
+
+
+def sigma64(torch, x):
+    """Singular values of x by fp64 svdvals on the card (of R for a tall x)."""
+    x64 = x.double()
+    if x.shape[0] > 2 * x.shape[1]:
+        x64 = torch.linalg.qr(x64, mode="r").R
+    return torch.linalg.svdvals(x64)
+
+
+def svd_quality(torch, x, u, s, vt, s_ref, chunk: int = 1 << 14) -> dict:
+    """tests/test_jacobi.py's _check as numbers, in fp64 on the card:
+    reconstruction, both orthogonalities, sigma's error against s_ref."""
+    u, s, vt = (torch.as_tensor(t, device="cuda").double() for t in (u, s, vt))
+    k = s.shape[0]
+    num = den = 0.0
+    for i0 in range(0, x.shape[0], chunk):
+        xc = x[i0:i0 + chunk].double()
+        d = (u[i0:i0 + chunk] * s) @ vt - xc
+        num += float((d * d).sum())
+        den += float((xc * xc).sum())
+    eye = torch.eye(k, dtype=torch.float64, device="cuda")
+    s_err = (s - s_ref).abs()
+    return {"recon": (num / den) ** 0.5,
+            "ortho_u": float(torch.linalg.norm(u.T @ u - eye)) / k ** 0.5,
+            "ortho_v": float(torch.linalg.norm(vt @ vt.T - eye)) / k ** 0.5,
+            "descending": bool((s[1:] - s[:-1] <= 1e-6 * s[0]).all()),
+            "s_max_abs_err_rel": float(s_err.max() / s_ref[0]),
+            "s_within": bool((s_err <= JACOBI_S_RTOL * s_ref + JACOBI_S_ATOL * s_ref[0]).all())}
+
+
+def require_svd(phase: str, q: dict) -> None:
+    require(q["recon"] < JACOBI_RECON_BAR, f"{phase}: reconstruction {q['recon']}")
+    require(q["ortho_u"] < JACOBI_ORTHO_BAR and q["ortho_v"] < JACOBI_ORTHO_BAR,
+            f"{phase}: orthogonality {q['ortho_u']}, {q['ortho_v']}")
+    require(q["descending"] and q["s_within"],
+            f"{phase}: sigma off fp64 svdvals ({q['s_max_abs_err_rel']} of s_max)")
+
+
+def matmul3_apply_check(torch, a, g64) -> dict:
+    """matmul3 at the compensated least-squares route's shape: every launch
+    there is _cholqr_adaptive's apply Q = A L⁻ᵀ, (m, b) by (b, b)ᵀ with no
+    c (its folds of R are torch.matmul). A is the route's operand, L⁻¹ the
+    inverse of its Gram's Cholesky factor; the kernel against matmul3_ref
+    (<= 1e-5) and _matmul_split_ref at two planes (<= 1e-6); kernel, plain
+    version and torch.matmul timed in turns, beside the bound (three bf16
+    products)."""
+    from numpywren_tpu_torch.ops import gemm3
+
+    gemm = gemm_module()
+    b = a.shape[1]
+    eye = torch.eye(b, device="cuda")
+    linv = torch.linalg.solve_triangular(torch.linalg.cholesky(g64).float(), eye, upper=False)
+    run = lambda: gemm3.matmul3(a, linv, tb=True)  # noqa: E731
+    plain = lambda: gemm3.matmul3_ref(a, linv, tb=True)  # noqa: E731
+    row = _check("P18 matmul3:apply", run(), plain())
+    row["rel_err_split_ref"] = _check("P18 matmul3:apply vs split", run(),
+                                      gemm._matmul_split_ref(a, linv, tb=True, planes=2),
+                                      SPLIT_BAR)["rel_err"]
+    ms, plain_ms, library_ms = in_turns(torch, run, plain, lambda: a @ linv.T)
+    m = a.shape[0]
+    b_ms, b_by = bound(3 * 2 * m * b * b, 4 * (2 * m * b + b * b), PEAK_BF16)
+    return {"model": "matmul3_apply", **row, "shape": [m, b, b], "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def profile_call(torch, fn, sessions: int = 3) -> dict:
+    """One warm fn() under torch.profiler: the device's busy ms (the union
+    of its activities' intervals: kernels, copies, sets), the call's ms by
+    CUDA events, the idle share 1 - busy / call, and the device ms of each
+    top-level aten op (its kernels' and its children's, summed by name;
+    the profiler's own spans are left out). One stream's activities do not
+    overlap, so the ops' sum is at most the busy time: more would be a
+    double count, and the caller fails on it. A session that records no
+    device activity is taken again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, sessions + 1):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+        events = prof.events()
+        acts = [e for e in events if e.device_type == DeviceType.CUDA]
+        if acts:
+            break
+    by_op = {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.cpu_parent is None and e.name.startswith("aten::"):
+            us = getattr(e, "device_time_total", None)
+            us = e.cuda_time_total if us is None else us
+            if us:
+                by_op[e.name] = by_op.get(e.name, 0.0) + us / 1e3
+    call_ms = start.elapsed_time(end)
+    busy = union_ms((e.time_range.start, e.time_range.end) for e in acts)
+    return {"device_ms_by_op": dict(sorted(by_op.items(), key=lambda kv: -kv[1])),
+            "ops_ms": sum(by_op.values()), "call_ms": call_ms, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / call_ms, "activities": len(acts),
+            "profile_sessions": attempt}
+
+
+def fresh_model_profile(torch, kind: str, *dims: int) -> dict:
+    """profile_call of one model step in the process that calls it (P18
+    runs it in_new_process): "jacobi_sweep" n block (one sweep of
+    svd_jacobi on a Gaussian n x n, also split into eigh, products (bmm,
+    matmul, mm) and the rest) or "least_squares" m b (the library route on
+    a kappa 10 m x b operand, 4 right-hand sides)."""
+    from numpywren_tpu_torch import models
+    from numpywren_tpu_torch.models.jacobi import _sweep, _sweep_setup
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    if kind == "jacobi_sweep":
+        n, block = dims
+        x = torch.randn(n, n, generator=gen, device="cuda")
+        w, v, perms, g, b, skip = _sweep_setup(x, block)
+        row = profile_call(torch, lambda: _sweep(w, v, perms, g=g, b=b, skip_rel=skip))
+        split = {"eigh": 0.0, "products": 0.0, "rest": 0.0}
+        for name, ms in row["device_ms_by_op"].items():
+            part = ("eigh" if "eigh" in name else
+                    "products" if name in ("aten::bmm", "aten::matmul", "aten::mm") else "rest")
+            split[part] += ms
+        return {"kind": kind, "n": n, "block": block, "rounds": g - 1, "eighs_per_round": g // 2,
+                "device_ms_by_part": split, **row}
+    m, b = dims
+    a = kappa_panel(torch, gen, m, b, 10.0)
+    rhs = regression_rhs(torch, gen, a)
+    return {"kind": kind, "shape": [m, b],
+            **profile_call(torch, lambda: models.least_squares(a, rhs))}
+
+
+def p18_models(torch, gen, m: int, m_rand: int, n_rand: int, n_jac: int, m_jac: int,
+               n_jac_tall: int, block: int = JACOBI_BLOCK):
+    """The models through their entry points: least squares, ridge, svd_tall,
+    PCA (tall and randomized), svd_jacobi and svd(method="jacobi").
+    Returns the launches of matmul3, potrf_inv and the chain in the runs."""
+    from numpywren_tpu_torch import models
+
+    card = gpu_line()
+    launches = {"matmul3": 0, "potrf_inv": 0, "cholqr2_chain": 0}
+    t_phase = time.perf_counter()
+
+    def emit_row(row, counted=True):
+        if counted:
+            for k in launches:
+                launches[k] += row.get("launches", {}).get(k, 0)
+        emit({"phase": "P18", **row, "nvidia_smi": card})
+
+    # least squares at BASELINE config 3's shape, kappa 10, 4 right-hand sides
+    # with a 10% residual
+    a = kappa_panel(torch, gen, m, 512, 10.0)
+    rhs = regression_rhs(torch, gen, a)
+    g64, atb64 = gram64(torch, a), gram64(torch, a, rhs)
+    x64 = solve64(torch, g64, atb64)
+    for label, method, flags, comp, need in (
+            ("library", "qr", (), False, None),
+            ("compensated", "qr", (), True, "matmul3"),
+            ("potrf_inv", "qr", ("NPW_PALLAS_FACTOR",), False, "potrf_inv"),
+            ("normal", "normal", (), False, None)):
+        x, row = model_call(torch, lambda: models.least_squares(a, rhs, method=method),
+                            flags, comp)
+        err = rel_err(torch, torch.as_tensor(x, device="cuda"), x64)
+        emit_row({"model": "least_squares", "route": label, "method": method,
+                  "shape": [m, 512], "kappa": 10.0, "rhs": 4, "rel_err_vs_fp64": err, **row})
+        require(err <= LSTSQ_BAR, f"P18 least_squares {label}: error {err} > {LSTSQ_BAR}")
+        if need:
+            require(row["launches"][need] > 0, f"P18 least_squares {label}: {row['launches']}")
+    emit_row(matmul3_apply_check(torch, a, g64), counted=False)
+    alpha = 1e-3
+    x, row = model_call(torch, lambda: models.ridge_regression(a, rhs, alpha))
+    xr64 = solve64(torch, g64 + alpha * torch.eye(512, dtype=torch.float64, device="cuda"),
+                   atb64)
+    err = rel_err(torch, torch.as_tensor(x, device="cuda"), xr64)
+    emit_row({"model": "ridge_regression", "alpha": alpha, "shape": [m, 512],
+              "rel_err_vs_fp64": err, **row})
+    require(err <= LSTSQ_BAR, f"P18 ridge_regression: error {err} > {LSTSQ_BAR}")
+    del a, rhs, g64, atb64
+
+    # 1,048,576 x 256 under NPW_PALLAS_CHAIN=1 against the library route
+    a = kappa_panel(torch, gen, m, 256, 10.0)
+    rhs = regression_rhs(torch, gen, a)
+    x64 = solve64(torch, gram64(torch, a), gram64(torch, a, rhs))
+    outs = {}
+    for label, flags in (("library", ()), ("chain", ("NPW_PALLAS_CHAIN",))):
+        x, row = model_call(torch, lambda: models.least_squares(a, rhs), flags)
+        err = rel_err(torch, torch.as_tensor(x, device="cuda"), x64)
+        outs[label, "x"] = x
+        emit_row({"model": "least_squares", "route": label, "shape": [m, 256],
+                  "kappa": 10.0, "rhs": 4, "rel_err_vs_fp64": err, **row})
+        require(err <= LSTSQ_BAR, f"P18 least_squares {label} at b=256: error {err}")
+        (_, s, _), row = model_call(torch, lambda: models.svd_tall(a), flags)
+        outs[label, "s"] = s
+        emit_row({"model": "svd_tall", "route": label, "shape": [m, 256], **row})
+        if flags:
+            require(row["launches"]["cholqr2_chain"] > 0, f"P18 svd_tall chain: {row}")
+    x_diff, s_diff = (rel_err(torch, *(torch.as_tensor(outs[r, k], device="cuda")
+                                       for r in ("chain", "library"))) for k in ("x", "s"))
+    emit_row({"model": "chain_vs_library", "shape": [m, 256], "x_rel_diff": x_diff,
+              "s_rel_diff": s_diff}, counted=False)
+    require(x_diff <= CHAIN_X_BAR, f"P18 chain route x differs {x_diff} > {CHAIN_X_BAR}")
+    require(s_diff <= R_AGREE_BAR, f"P18 chain route s differs {s_diff} > {R_AGREE_BAR}")
+
+    # PCA: "auto" takes the tall route at 256 features
+    def pca_check(label, x, method, bar, k=64):
+        (_, ev, _), row = model_call(torch, lambda: models.pca(x, k, method=method))
+        xc = x.double() - x.double().mean(dim=0, keepdim=True)
+        t0 = time.perf_counter()
+        ev64 = sigma64(torch, xc)[:10] ** 2 / (x.shape[0] - 1)
+        ref_s = time.perf_counter() - t0
+        err = float(((torch.as_tensor(ev[:10]).cuda().double() - ev64).abs() / ev64).max())
+        emit_row({"model": "pca", "route": label, "method": method, "shape": list(x.shape),
+                  "n_components": k, "ev_max_rel_err_top10": err, "bar": bar,
+                  "fp64_reference_seconds": ref_s, **row})
+        require(err <= bar, f"P18 pca {label}: explained variance error {err} > {bar}")
+
+    pca_check("tall", a, "auto", PCA_TALL_BAR)
+    del a, rhs
+    q, _ = torch.linalg.qr(torch.randn(m_rand, n_rand, generator=gen, device="cuda"))
+    vq, _ = torch.linalg.qr(torch.randn(n_rand, n_rand, generator=gen, device="cuda"))
+    decay = torch.exp(-torch.arange(n_rand, device="cuda", dtype=torch.float32) / 32.0)
+    x = (q * decay) @ vq.T
+    del q, vq
+    pca_check("randomized", x, "randomized", PCA_RANDOMIZED_BAR)
+    del x
+
+    # the block-Jacobi SVD at the reference's on-chip size
+    for label, x in (("gaussian", torch.randn(n_jac, n_jac, generator=gen, device="cuda")),
+                     ("kappa_1e4", kappa_panel(torch, gen, n_jac, n_jac, 1e4))):
+        trace = []
+
+        def run():
+            trace.clear()  # the off-norm of each sweep of this run
+            return models.svd_jacobi(x, block=block, _sweep_trace=trace)
+
+        (u, s, vt), row = model_call(torch, run)
+        q = svd_quality(torch, x, u, s, vt, sigma64(torch, x))
+        emit_row({"model": "svd_jacobi", "matrix": label, "n": n_jac, "block": block,
+                  "sweeps": len(trace), "off_norms": trace, **q, **row})
+        require_svd(f"P18 svd_jacobi {label}", q)
+    for kind, dims in (("jacobi_sweep", (n_jac, block)), ("least_squares", (m, 512))):
+        prof = in_new_process("P18", "fresh_model_profile", kind, *dims)
+        emit_row({"model": "profile", **prof}, counted=False)
+        require(0 < prof["device_busy_ms"] <= prof["call_ms"] and 0 <= prof["idle_share"] <= 1,
+                f"P18 {kind} profile: busy {prof['device_busy_ms']} ms in a "
+                f"{prof['call_ms']} ms call")
+        require(prof["ops_ms"] <= prof["device_busy_ms"] * (1 + 1e-3),
+                f"P18 {kind} profile: the ops' {prof['ops_ms']} ms exceed the busy "
+                f"{prof['device_busy_ms']} ms: {prof['device_ms_by_op']}")
+        require(prof.get("device_ms_by_part", {"eigh": 1.0})["eigh"] > 0,
+                f"P18 {kind} profile: no device time under eigh: {prof['device_ms_by_op']}")
+
+    x = torch.randn(m_jac, n_jac_tall, generator=gen, device="cuda")
+    (u, s, vt), row = model_call(torch, lambda: models.svd(x, method="jacobi"))
+    q = svd_quality(torch, x, u, s, vt, sigma64(torch, x))
+    emit_row({"model": "svd", "method": "jacobi", "shape": [m_jac, n_jac_tall], **q, **row})
+    require_svd("P18 svd(method='jacobi')", q)
+    emit({"phase": "P18", "seconds": time.perf_counter() - t_phase, "launches": launches,
+          "nvidia_smi": card})
+    for k, n in launches.items():
+        require(n > 0, f"P18: {k} was not launched on the models' path")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=32768, help="trapezoid phases' size")
@@ -1923,12 +2306,20 @@ def main(argv=None) -> int:
     ap.add_argument("--n-local", type=int, default=2048, help="P16's local-executor size")
     ap.add_argument("--n-spill", type=int, default=65536, help="P17's run_program size")
     ap.add_argument("--n-spill-small", type=int, default=32768, help="P17's direct runs' size")
+    ap.add_argument("--m-rand", type=int, default=65536, help="P18's randomized PCA rows")
+    ap.add_argument("--n-rand", type=int, default=4096, help="P18's randomized PCA columns")
+    ap.add_argument("--n-jacobi", type=int, default=4096, help="P18's square Jacobi SVD size")
+    ap.add_argument("--m-jacobi", type=int, default=65536, help="P18's tall Jacobi SVD rows")
+    ap.add_argument("--n-jacobi-tall", type=int, default=1024,
+                    help="P18's tall Jacobi SVD columns")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.n % PANEL:
         raise SmokeFailure(f"--n must be a multiple of {PANEL}")
     if args.n_spill % SPILL_TILE or args.n_spill_small % SPILL_TILE:
         raise SmokeFailure(f"--n-spill and --n-spill-small must be multiples of {SPILL_TILE}")
+    if args.n_jacobi % (2 * JACOBI_BLOCK):
+        raise SmokeFailure(f"--n-jacobi must be a multiple of {2 * JACOBI_BLOCK}")
 
     import torch
 
@@ -1969,10 +2360,14 @@ def main(argv=None) -> int:
                 args.tile_bdfac)
     p16_host_tier(torch, npw, gen, args.n_dsl, args.n_local)
     spill_launches, _ = p17_spill(torch, npw, args.n_spill, args.n_spill_small, args.seed)
+    model_launches = p18_models(torch, gen, args.m, args.m_rand, args.n_rand, args.n_jacobi,
+                                args.m_jacobi, args.n_jacobi_tall)
     for name in ("matmul", "matmul3"):
         launches[name] += spill_launches[name]
     launches["matmul"] += ops_counts["matmul"]
     launches.update(potrf=ops_counts["potrf"], trtri=ops_counts["trtri"], **tsqr_counts)
+    for name, n in model_launches.items():
+        launches[name] += n
 
     require("jax" not in sys.modules, "jax was imported")
     require("numpywren_tpu" not in sys.modules, "the JAX package was imported")

@@ -145,12 +145,15 @@ def get_local_matrix(m, out=None, mmap_path: str = None):
     (reference matrix_utils.get_local_matrix): `out` may be any
     array-assignable buffer (e.g. an MmapArray for larger-than-RAM
     matrices, created automatically when `mmap_path` is given)."""
+    from numpywren_tpu_torch.ops.common import np_dtype, to_numpy
+
     if out is None:
-        out = (MmapArray(mmap_path, m.shape, m.dtype) if mmap_path
-               else np.zeros(m.shape, dtype=m.dtype))
+        dtype = np_dtype(m.dtype)
+        out = (MmapArray(mmap_path, m.shape, dtype) if mmap_path
+               else np.zeros(m.shape, dtype=dtype))
     tm, tn = m.tile
     for (i, j) in m.block_idxs:
-        blk = np.asarray(m.get_block(i, j))
+        blk = to_numpy(m.get_block(i, j))  # a tile on any device
         # edge blocks come back full-tile (zero padded); crop to the logical
         # shape before assigning into the logically-shaped out buffer
         bm, bn = m.true_block_shape(i, j)

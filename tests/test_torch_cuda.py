@@ -605,3 +605,51 @@ def test_out_of_core_cholesky_on_the_card(gen, monkeypatch, width):
     got = l.to_hbm().array
     _close(got, l_cpu.to_hbm().array.to("cuda"))
     _close(torch.tril(got) @ torch.tril(got).T, a)
+
+
+def test_svd_jacobi_on_the_card(gen):
+    """svd_jacobi on a CUDA tensor: the factors stay on the card and agree
+    with the CPU run of the same input (sigma within 1e-5·s_max); both hold
+    tests/test_jacobi.py's reconstruction (1e-4) and orthogonality (1e-5)."""
+    from numpywren_tpu_torch import models
+
+    x = _rand(gen, 256, 256)
+    u, s, vt = models.svd_jacobi(x, block=64)
+    assert u.device.type == "cuda" and s.device.type == "cuda"
+    _, s_cpu, _ = models.svd_jacobi(x.cpu(), block=64)
+    assert float((s.cpu() - s_cpu).abs().max()) <= 1e-5 * float(s_cpu[0])
+    u, s, vt, x64 = u.double(), s.double(), vt.double(), x.double()
+    eye = torch.eye(256, dtype=torch.float64, device="cuda")
+    assert float(torch.linalg.norm((u * s) @ vt - x64) / torch.linalg.norm(x64)) < 1e-4
+    assert float(torch.linalg.norm(u.T @ u - eye)) / 16 < 1e-5
+    assert float(torch.linalg.norm(vt @ vt.T - eye)) / 16 < 1e-5
+
+
+@pytest.mark.parametrize("route", ["library", "compensated", "NPW_PALLAS_FACTOR",
+                                   "NPW_PALLAS_CHAIN", "normal"])
+def test_least_squares_on_the_card(gen, monkeypatch, route):
+    """least_squares on CUDA tensors against the CPU run of the same input
+    (x within 1e-5 relative): the compensated applies launch matmul3, the
+    opt-ins potrf_inv and the chain kernel."""
+    import numpy as np
+
+    from numpywren_tpu_torch import config, models
+    from numpywren_tpu_torch.ops import pallas_factor as pf
+
+    if route == "compensated":
+        monkeypatch.setattr(config, "_default", config.NpwConfig(compensated=True))
+    elif route.startswith("NPW_"):
+        monkeypatch.setenv(route, "1")
+    a = _rand(gen, 8192, 128)
+    b = a @ _rand(gen, 128, 2) + 0.1 * _rand(gen, 8192, 2)
+    method = "normal" if route == "normal" else "qr"
+    pf.reset_launches()
+    calls = gemm3.LAUNCHES
+    x = models.least_squares(a, b, method=method)
+    launched = {"compensated": gemm3.LAUNCHES - calls,
+                "NPW_PALLAS_FACTOR": pf.LAUNCHES["potrf_inv"],
+                "NPW_PALLAS_CHAIN": pf.LAUNCHES["cholqr2_chain"]}
+    if route in launched:
+        assert launched[route] > 0
+    x_cpu = models.least_squares(a.cpu(), b.cpu(), method=method)
+    assert np.linalg.norm(x - x_cpu) <= 1e-5 * np.linalg.norm(x_cpu)
