@@ -10,7 +10,8 @@ blocked Cholesky at N=32768 (P2-P5), the factor ops (P6), TSQR at
 BASELINE config 3's 1,048,576 x 512 and beside it (P8-P11), GEMM at 8192
 (P12), the QR kernel and ops.qr_leaf (P13-P14), the generic DSL
 executors on both storage tiers (P15-P16), the out-of-core Cholesky
-(P17), and the models (P18):
+(P17), the models (P18), and the fused BDFAC with the two-stage SVD on it
+(P19):
 
   P0  the card, its power limit, the kernel build
   P1  each kernel vs its plain version: relative Frobenius error <= 1e-5
@@ -93,8 +94,8 @@ executors on both storage tiers (P15-P16), the out-of-core Cholesky
       generic-executor configurations: DSL cholesky 16384/1024 (trsm_inv
       on and off), gemm 8192²/1024 (rel <= 1e-5 vs fp64), tsqr_q
       65,536 x 256/4096 (bars as P8, R against the cholqr3s route), bdfac
-      8192/1024 (off-bidiagonal blocks <= 1e-4 ||X||_F, singular values
-      within 1e-4 sigma_max of fp64 svdvals(X)); device seconds and groups
+      8192/1024 (P19's BDFAC bars, bdfac_quality); device seconds and
+      groups
   P16 SpillTaskExecutor (executor="spill") on a host-tier cholesky
       16384/1024 (device seconds, host<->device bytes), and LocalExecutor
       (executor="local") at 2048/256 with fault_rate = duplicate_rate = 0.1
@@ -140,6 +141,40 @@ executors on both storage tiers (P15-P16), the out-of-core Cholesky
       busy ms required); svd(method="jacobi")
       on 65,536 x 1,024 (the same bars); matmul3, potrf_inv and the chain
       must launch
+  P19 the fused BDFAC (compiler/lower.py's fused_bdfac) and the two-stage
+      SVD on it, each call run twice (host synchronizations counted, then
+      timed) with the launch counters set to 0 before each run: at
+      n = 8192 (P15's size, a Gaussian from --seed) through bdfac +
+      run_program ("auto" runs it fused) at tile 1024, at tile 512 by
+      default, compensated (matmul3), "highest" (fused_bdfac direct: the
+      matmul kernel) and Householder panels (NPW_BDFAC_PANEL), at tile 256
+      by the library, NPW_PALLAS_CHAIN (the chain, both forms) and
+      NPW_PALLAS_FACTOR (potrf_inv): off-bidiagonal blocks <= 1e-4 ||X||_F,
+      max sigma error <= 1e-4 sigma_max against fp64 svdvals(X) (taken once;
+      sigma(B) from fp64 eigvalsh(BᵀB)),
+      | ||B||_F - ||X||_F | <= 1e-3 ||X||_F; one compensated tile-512 sweep
+      under torch.profiler in a new process (busy ms as the union of the
+      device's intervals, idle share, device ms under the chains and the
+      products, the library factor kernels by name); every sweep's chains
+      and their extras passes, counted in compiler/lower.py's
+      _cholqr_adaptive (CHAIN_PASSES; 2g - 2 chains for g panels
+      required), beside its host synchronizations; kappa 1e6 logspace at
+      4096, tile 256, library and chain routes; singular_values at 4096,
+      tile 512, and at 2560 with the default tile (tile=None: 128 where no
+      LAPACK library is found and n > 2048, else 512): the tile and the
+      finishes that ran (band_reduce + dgbbrd, the dense host gesdd, or
+      the shuffled Golub-Kahan eigensolve), seconds of stage 1, the chase
+      and the host finish, max |s - s_ref| <= 1e-4 s_max; the chase
+      on that band (the tightened B of stage 1) timed apart, its hops, the
+      reduced band's sigma in fp64 within 1e-4 s_max; svd(method="bdfac") at
+      2048, tile 512, refine 0 and 2, and svd(x) (method None routes to
+      "bdfac" on the card): tests/test_models.py's _check_svd bars; then
+      matmul3 at the tile-512 sweep's first QR and LQ updates, matmul at
+      svd's first accumulator update, potrf_inv at the tile-256 Gram and
+      the chain at 8192 x 256 and 256 x 7936, each against its plain
+      versions (KERNEL_BAR; matmul3 also SPLIT_BAR against
+      _matmul_split_ref; the chain P7's bars at BDFAC's conv_tol 1e-5),
+      timed in turns with its library call
 
 Residuals ||A - L Lᵀ||_F / ||A||_F are computed on the card in fp64 and
 must be <= 1e-4. TSQR phases hold ||QᵀQ - I||_F/sqrt(b) <= 1e-4,
@@ -1507,28 +1542,16 @@ def p15_generic(torch, npw, gen, n: int, n_gemm: int, m_tsqr: int, n_bdfac: int,
     x = torch.randn(n_bdfac, n_bdfac, generator=gen, device="cuda")
     prog, bmat, _ = npw.bdfac(x, tile=(tile_bdfac, tile_bdfac))
     groups, host_s, dev_s = jax_exec(prog)
-    bd = bmat.array[:n_bdfac, :n_bdfac]
-    t, g = tile_bdfac, n_bdfac // tile_bdfac
-    band = torch.zeros(g, g, dtype=torch.bool)
-    for i in range(g):
-        band[i, i] = True
-        if i + 1 < g:
-            band[i, i + 1] = True
-    mask = band.repeat_interleave(t, 0).repeat_interleave(t, 1).to("cuda")
     x_f = float(torch.linalg.norm(x.double()))
-    off = float(bd.masked_fill(mask, 0.0).abs().max())
     t0 = time.perf_counter()
-    sv = torch.linalg.svdvals(bd.double())
-    sv_ref = torch.linalg.svdvals(x.double())
-    sv_err = float((sv - sv_ref).abs().max())
-    sv_s = time.perf_counter() - t0
+    sv_ref = sigma64(torch, x)
+    ref_s = time.perf_counter() - t0
+    q = bdfac_quality(torch, x, bmat.array[:n_bdfac, :n_bdfac], tile_bdfac, sv_ref, x_f)
     emit({"phase": "P15", "program": "bdfac", "n": n_bdfac, "tile": tile_bdfac,
           "nodes": prog.num_nodes, "groups": groups, "seconds": dev_s, "host_seconds": host_s,
-          "off_bidiagonal_max_over_fro": off / x_f, "sv_err_over_max": sv_err / float(sv_ref[0]),
-          "svdvals_seconds": sv_s})
-    require(off <= 1e-4 * x_f, f"P15 bdfac: off-bidiagonal {off} > 1e-4 * {x_f}")
-    require(sv_err <= 1e-4 * float(sv_ref[0]), f"P15 bdfac: singular values off by {sv_err}")
-    del x, prog, bmat, bd, mask
+          **q, "sv_ref_seconds": ref_s})
+    require_bdfac("P15 bdfac", q)
+    del x, prog, bmat
     torch.cuda.empty_cache()
 
 
@@ -1966,37 +1989,68 @@ def host_syncs(torch, fn):
     return out, sum("synchroniz" in str(w.message) for w in seen)
 
 
-def model_call(torch, fn, flags=(), compensated=False):
-    """fn() twice with the opt-in `flags` and NpwConfig.compensated set: the
-    first run counts its host synchronizations, the second is timed
-    (run_entry). The counters are set to 0 before each run and read after
-    it. Returns (the second run's result, its row: seconds, host seconds,
-    the first run's seconds, syncs, launches)."""
-    from numpywren_tpu_torch import config
+PATH_KERNELS = ("matmul", "matmul3", "potrf_inv", "cholqr2_chain")
+
+
+def reset_launch_counts() -> None:
+    """The launch counters of the kernels on P18's and P19's paths, set to 0."""
     from numpywren_tpu_torch.ops import gemm3
     from numpywren_tpu_torch.ops import pallas_factor as pf
+
+    gemm_module().LAUNCHES = 0
+    gemm3.LAUNCHES = 0
+    pf.reset_launches()
+
+
+def launch_counts() -> dict:
+    from numpywren_tpu_torch.ops import gemm3
+    from numpywren_tpu_torch.ops import pallas_factor as pf
+
+    return {"matmul": gemm_module().LAUNCHES, "matmul3": gemm3.LAUNCHES,
+            "potrf_inv": pf.LAUNCHES["potrf_inv"], "cholqr2_chain": pf.LAUNCHES["cholqr2_chain"]}
+
+
+def model_call(torch, fn, flags=(), compensated=False, env=None):
+    """fn() twice with the opt-in `flags`, NpwConfig.compensated and the
+    extra environment `env` set: the first run counts its host
+    synchronizations, the second is timed (run_entry). The launch counters
+    are set to 0 before each run and read after it. Returns (the second
+    run's result, its row: seconds, host seconds, the first run's seconds,
+    syncs, launches, and the CholeskyQR chains and their extras passes of
+    the first run with the syncs they leave unexplained: each chain reads
+    the host once, each extras pass once)."""
+    from numpywren_tpu_torch import config
+    from numpywren_tpu_torch.compiler import lower
 
     cfg = config.default_config()
     cfg.compensated = compensated
     set_flags(flags)
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
     try:
-        pf.reset_launches()
-        gemm3.LAUNCHES = 0
+        reset_launch_counts()
+        lower.reset_chain_passes()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, syncs = host_syncs(torch, fn)
         first_s = time.perf_counter() - t0
-        pf.reset_launches()
-        gemm3.LAUNCHES = 0
+        chains, extras = lower.CHAIN_PASSES["chains"], lower.CHAIN_PASSES["extras"]
+        reset_launch_counts()
         out, host_s, dev_s = run_entry(torch, fn)
-        launches = {"matmul3": gemm3.LAUNCHES, "potrf_inv": pf.LAUNCHES["potrf_inv"],
-                    "cholqr2_chain": pf.LAUNCHES["cholqr2_chain"]}
+        launches = launch_counts()
     finally:
         cfg.compensated = False
         set_flags()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     return out, {"seconds": dev_s, "host_seconds": host_s, "first_seconds": first_s,
-                 "host_syncs": syncs, "launches": launches, "flags": list(flags),
-                 "compensated": compensated}
+                 "host_syncs": syncs, "chains": chains, "extras_passes": extras,
+                 "syncs_outside_chains": syncs - chains - extras,
+                 "launches": launches, "flags": list(flags),
+                 "compensated": compensated, "env": env or {}}
 
 
 def regression_rhs(torch, gen, a, k: int = 4, tan_theta: float = 0.1):
@@ -2026,11 +2080,13 @@ def solve64(torch, g, rhs):
 
 
 def sigma64(torch, x):
-    """Singular values of x by fp64 svdvals on the card (of R for a tall x)."""
+    """Singular values of x by fp64 svdvals on the card (of R for a tall x),
+    descending, by cuSOLVER's gesvd (QR iterations: 2.8 s at 8192², where
+    svdvals' default method takes 8.9)."""
     x64 = x.double()
     if x.shape[0] > 2 * x.shape[1]:
         x64 = torch.linalg.qr(x64, mode="r").R
-    return torch.linalg.svdvals(x64)
+    return torch.linalg.svdvals(x64, driver="gesvd")
 
 
 def svd_quality(torch, x, u, s, vt, s_ref, chunk: int = 1 << 14) -> dict:
@@ -2290,6 +2346,468 @@ def p18_models(torch, gen, m: int, m_rand: int, n_rand: int, n_jac: int, m_jac: 
     return launches
 
 
+# ---------------------------------------------------------------------------
+# P19: the fused BDFAC and the two-stage SVD on it
+# ---------------------------------------------------------------------------
+
+BDFAC_BAR = 1e-4      # off-bidiagonal blocks / ||X||_F; max sigma error / sigma_max
+BDFAC_FRO_BAR = 1e-3  # | ||B||_F - ||X||_F | / ||X||_F (the sweeps are orthogonal)
+SV_BAR = 1e-4         # singular_values: max |s - s_ref| / s_ref[0] (tests/test_band_reduce.py:75)
+SVD_S_RTOL = 1e-3     # svd: tests/test_models.py's _check_svd
+SVD_RECON_BAR = 1e-4
+SVD_ORTHO_BAR = 5e-4
+
+
+def bdfac_quality(torch, x, bd, tile: int, sv_ref, x_f: float) -> dict:
+    """The BDFAC bars' numbers for B = bd of x, in fp64 on the card: the
+    largest entry off the diagonal and superdiagonal tile blocks over
+    ||X||_F, max |sigma(B) - sigma(X)| over sigma_max (sv_ref: sigma64
+    of X, taken once per input) and | ||B||_F - ||X||_F | over ||X||_F.
+    sigma(B) is the square root of the eigenvalues of BᵀB in fp64
+    (0.67 s at 8192, against svdvals' 8.9): an eigenvalue error of
+    n eps64 ||B||² moves a sigma by at most sqrt(n eps64) sigma_max, 1e-6
+    of sigma_max at 8192, a hundredth of the bar."""
+    n = x.shape[0]
+    g = n // tile
+    d = torch.arange(g)[None, :] - torch.arange(g)[:, None]
+    band = (d == 0) | (d == 1)
+    mask = band.repeat_interleave(tile, 0).repeat_interleave(tile, 1).to(bd.device)
+    off = float(bd.masked_fill(mask, 0.0).abs().max())
+    t0 = time.perf_counter()
+    b64 = bd.double()
+    sv = torch.linalg.eigvalsh(b64.T @ b64).clamp_min(0.0).sqrt().flip(0)
+    sv_err = float((sv - sv_ref).abs().max())
+    sv_s = time.perf_counter() - t0
+    b_f = float(torch.linalg.norm(bd.double()))
+    return {"off_bidiagonal_max_over_fro": off / x_f, "sv_err_over_max": sv_err / float(sv_ref[0]),
+            "fro_err_over_fro": abs(b_f - x_f) / x_f, "sigma_seconds": sv_s}
+
+
+def require_bdfac(phase: str, q: dict, fro: bool = True) -> None:
+    require(q["off_bidiagonal_max_over_fro"] <= BDFAC_BAR,
+            f"{phase}: off-bidiagonal {q['off_bidiagonal_max_over_fro']} of ||X||_F")
+    require(q["sv_err_over_max"] <= BDFAC_BAR,
+            f"{phase}: singular values off by {q['sv_err_over_max']} of sigma_max")
+    require(not fro or q["fro_err_over_fro"] <= BDFAC_FRO_BAR,
+            f"{phase}: ||B||_F off ||X||_F by {q['fro_err_over_fro']}")
+
+
+def require_chains(phase: str, n: int, tile: int, row: dict, cholqr: bool = True) -> None:
+    """A CholeskyQR sweep of n x n at `tile` runs one chain a QR panel and
+    one a LQ panel while two superdiagonal blocks remain: 2g - 2 for
+    g = n / tile; a Householder sweep none."""
+    want = 2 * (n // tile) - 2 if cholqr else 0
+    require(row["chains"] == want, f"{phase}: {row['chains']} chains, {want} expected")
+
+
+def fresh_bdfac_profile(torch, n: int, tile: int) -> dict:
+    """One warm compensated fused BDFAC sweep of a Gaussian n x n (tile
+    `tile`) under torch.profiler, in the process that calls it (P19 runs it
+    in_new_process): busy ms as the union of the device's activity
+    intervals and the idle share against the call's CUDA-event ms; the ms of
+    the sweep's parts by CUDA events recorded around each call of
+    compiler.lower's _cholqr_adaptive (the chains, with their Grams,
+    cholesky_ex, solve_triangular and host reads) and _matmul / _sub_matmul
+    (the panel updates' products), each span its kernels and any idle
+    between them, the rest of the call beside them; and the device ms of
+    the kernels by name group."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from numpywren_tpu_torch import config
+    from numpywren_tpu_torch.compiler import lower
+    from numpywren_tpu_torch.ops import _build
+
+    _build.build()
+    config.default_config().compensated = True
+    x = torch.randn(n, n, generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    spans = {"chains": [], "products": []}
+    for key, name in (("chains", "_cholqr_adaptive"), ("products", "_matmul"),
+                      ("products", "_sub_matmul")):
+        def timed(*a, _real=getattr(lower, name), _key=key, **kw):
+            begin, end_ = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            begin.record()
+            out = _real(*a, **kw)
+            end_.record()
+            spans[_key].append((begin, end_))
+            return out
+        setattr(lower, name, timed)
+
+    lower.fused_bdfac(x, tile)
+    torch.cuda.synchronize()
+    for attempt in range(1, 4):
+        for v in spans.values():
+            v.clear()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start.record()
+            lower.fused_bdfac(x, tile)
+            end.record()
+            torch.cuda.synchronize()
+        acts = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if acts:
+            break
+    groups = (("cholesky_ex", ("getrf", "potrf")), ("solve_triangular", ("trsm",)),
+              ("geqrf", ("geqrf", "geqr2", "larf", "orgqr")), ("split_kernels", ("gemm_split",)),
+              ("cublas_fp32", ("gemm",)))
+    by_kernel = dict.fromkeys([g for g, _ in groups] + ["other"], 0.0)
+    for e in acts:
+        group = next((g for g, keys in groups if any(k in e.name for k in keys)), "other")
+        by_kernel[group] += e.time_range.elapsed_us() / 1e3
+    call_ms = start.elapsed_time(end)
+    parts = {k: sum(b.elapsed_time(e) for b, e in v) for k, v in spans.items()}
+    parts["rest"] = call_ms - parts["chains"] - parts["products"]
+    busy = union_ms((e.time_range.start, e.time_range.end) for e in acts)
+    return {"n": n, "tile": tile, "config": "compensated", "call_ms": call_ms,
+            "device_busy_ms": busy, "idle_share": 1.0 - busy / call_ms,
+            "ms_by_part": parts, "calls_by_part": {k: len(v) for k, v in spans.items()},
+            "device_ms_by_kernel": by_kernel, "activities": len(acts),
+            "profile_sessions": attempt}
+
+
+def p19_kernel_checks(torch, gen, n: int, n_svd: int, card: str) -> list:
+    """The kernels of P19's path at its shapes against their plain versions,
+    timed in turns with their library call: matmul3 at the tile-512
+    sweep's first QR update (n x 512 by 512 x (n - 512), c a view of the
+    n² buffer) and its LQ mirror ((n - 512) x 512 by 512 x (n - 512)),
+    also against _matmul_split_ref at two planes; matmul at svd's first
+    accumulator update at n_svd (n_svd x 512 by 512 x n_svd, in place),
+    also against _matmul_split_ref at three planes; potrf_inv at the tile-256
+    shifted Gram; the chain at n x 256 (columns) and 256 x (n - 256)
+    (rows) against cholqr2_chain_ref and its steps."""
+    from numpywren_tpu_torch.compiler import lower
+    from numpywren_tpu_torch.ops import gemm3
+    from numpywren_tpu_torch.ops import pallas_factor as pf
+
+    gemm = gemm_module()
+    rows = []
+
+    def product(name, m, k, nn, run, plain, lib, split_ref, split_bar, planes):
+        row = _check(f"{name}", run(), plain())
+        row["rel_err_split_ref"] = _check(f"{name} vs split", run(), split_ref(),
+                                          split_bar)["rel_err"]
+        ms, plain_ms, lib_ms = in_turns(torch, run, plain, lib, iters=5)
+        flops, nbytes = 2 * m * nn * k, 4 * (m * k + k * nn + 2 * m * nn)
+        b_ms, b_by = bound(planes * flops, nbytes, PEAK_BF16)
+        row.update(kernel=name.split(":")[0], shape=[m, k, nn], ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        emit({"phase": "P19", **row, "nvidia_smi": card})
+        rows.append(row)
+
+    buf = torch.randn(n, n, generator=gen, device="cuda")
+    t = 512
+    for case, a, b, c in (
+            ("qr_update", torch.randn(n, t, generator=gen, device="cuda"),
+             torch.randn(t, n - t, generator=gen, device="cuda"), buf[:, t:]),
+            ("lq_update", torch.randn(n - t, t, generator=gen, device="cuda"),
+             torch.randn(t, n - t, generator=gen, device="cuda"), buf[t:, t:])):
+        m, nn = c.shape
+        product(f"matmul3:{case}", m, t, nn,
+                lambda: gemm3.matmul3(a, b, c), lambda: gemm3.matmul3_ref(a, b, c),
+                lambda: torch.addmm(c, a, b, alpha=-1.0),
+                lambda: gemm._matmul_split_ref(a, b, c, alpha=-1.0, beta=1.0, planes=2),
+                SPLIT_BAR, 3)
+    del buf
+    acc = torch.randn(n_svd, n_svd, generator=gen, device="cuda")
+    xv = torch.randn(n_svd, t, generator=gen, device="cuda")
+    rhs = torch.randn(t, n_svd, generator=gen, device="cuda")
+    product("matmul:accumulator_update", n_svd, t, n_svd,
+            lambda: gemm.matmul(xv, rhs, acc, alpha=-1.0, beta=1.0, precision="highest"),
+            lambda: gemm.matmul_ref(xv, rhs, acc, alpha=-1.0, beta=1.0),
+            lambda: torch.addmm(acc, xv, rhs, alpha=-1.0),
+            lambda: gemm._matmul_split_ref(xv, rhs, acc, alpha=-1.0, beta=1.0, planes=3),
+            KERNEL_BAR, 6)
+    del acc, xv, rhs
+
+    # potrf_inv at the tile-256 chain's shifted Gram (its factoring pass)
+    b = 256
+    p = torch.randn(n, b, generator=gen, device="cuda")
+    g = p.T @ p
+    shift = 4.0 * 2.0 ** -23 * (n * b) ** 0.5 * float(g.abs().sum(dim=1).max())
+    gs = g + shift * torch.eye(b, device="cuda")
+    eye = torch.eye(b, device="cuda")
+    got, want = pf.potrf_inv_pallas(gs), pf.potrf_inv_ref(gs)
+    errs = [rel_err(torch, x, y) for x, y in zip(got, want)]
+    require(max(errs) <= KERNEL_BAR and all(bool(torch.isfinite(x).all()) for x in got),
+            f"P19 potrf_inv:{b}: rel error {errs}")
+
+    def lib():
+        lo = torch.linalg.cholesky_ex(gs)[0]
+        return lo, torch.linalg.solve_triangular(lo, eye, upper=False)
+
+    ms, plain_ms, lib_ms = in_turns(torch, lambda: pf.potrf_inv_pallas(gs),
+                                    lambda: pf.potrf_inv_ref(gs), lib, iters=5)
+    b_ms, b_by = bound(2 * b ** 3 / 3, 12 * b * b, PEAK_FP32)
+    row = {"case": f"potrf_inv:{b}", "kernel": "potrf_inv", "n": b, "rel_err": max(errs),
+           "max_abs_err": max(float((x - y).abs().max()) for x, y in zip(got, want)),
+           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+    emit({"phase": "P19", **row, "nvidia_smi": card})
+    rows.append(row)
+
+    # the chain at the tile-256 sweep's first panels, BDFAC's conv_tol 1e-5
+    for form, pp in (("cols", p), ("rows", torch.randn(b, n - b, generator=gen, device="cuda"))):
+        is_rows = form == "rows"
+        m = pp.shape[1] if is_rows else pp.shape[0]
+        gg = pp @ pp.T if is_rows else pp.T @ pp
+        kw = dict(rows=is_rows, shift_c=4.0 * 2.0 ** -23 * (m * b) ** 0.5,
+                  conv_gate=min(2.0 * 1e-5 ** 0.5, 1e-1))
+        q, total, conv, dev2 = pf.cholqr2_chain_pallas(gg, pp, **kw)
+        row = {"case": f"chain:{form}", "kernel": "cholqr2_chain", "shape": list(pp.shape)}
+        for name, plain in (("plain", pf.cholqr2_chain_ref), ("steps", pf._cholqr2_chain_steps_ref)):
+            qr_, tr, convr, _ = plain(gg, pp, **kw)
+            qerr = float((q - qr_).abs().max())
+            require(qerr <= CHAIN_Q_BAR and rel_err(torch, total, tr) <= KERNEL_BAR
+                    and bool(conv) == bool(convr),
+                    f"P19 chain:{form}: q {qerr}, total {rel_err(torch, total, tr)} vs {name}")
+            if name == "steps":
+                require(rel_err(torch, q, qr_) <= KERNEL_BAR, f"P19 chain:{form}: q vs its steps")
+            row[f"max_abs_err_vs_{name}"] = qerr
+        row["max_abs_err"] = max(row["max_abs_err_vs_plain"], row["max_abs_err_vs_steps"])
+        ms, plain_ms, lib_ms = in_turns(
+            torch, lambda: pf.cholqr2_chain_pallas(gg, pp, **kw),
+            lambda: pf.cholqr2_chain_ref(gg, pp, **kw),
+            lambda: lower._cholqr_adaptive(pp, rows=is_rows, max_passes=2, conv_tol=1e-5),
+            iters=5)
+        small = 2 * b ** 3 / 3 + 7 * 2 * b ** 3
+        b_ms, b_by = max(((6 * 2 * m * b * b / PEAK_BF16 + small / PEAK_FP32) * 1e3,
+                          "operations"), (4 * (2 * m * b + 2 * b * b + 2) / PEAK_HBM * 1e3,
+                                          "bytes"))
+        row.update(dev2=float(dev2), conv=bool(conv), ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        emit({"phase": "P19", **row, "nvidia_smi": card})
+        rows.append(row)
+    return rows
+
+
+def svd_bars(torch, x, u, s, vt, s_ref) -> dict:
+    """tests/test_models.py's _check_svd as numbers, in fp64 on the card:
+    sigma within rtol 1e-3 / atol 1e-3 s_max, the reconstruction, and
+    max |UᵀU - I|, max |V Vᵀ - I|."""
+    u, s, vt = (torch.as_tensor(a, device="cuda").double() for a in (u, s, vt))
+    x64 = x.double()
+    k = s.shape[0]
+    eye = torch.eye(k, dtype=torch.float64, device="cuda")
+    s_err = (s - s_ref).abs()
+    return {"recon": float(torch.linalg.norm((u * s) @ vt - x64) / torch.linalg.norm(x64)),
+            "ortho_u_max": float((u.T @ u - eye).abs().max()),
+            "ortho_v_max": float((vt @ vt.T - eye).abs().max()),
+            "s_max_abs_err_rel": float(s_err.max() / s_ref[0]),
+            "s_within": bool((s_err <= SVD_S_RTOL * s_ref + SVD_S_RTOL * s_ref[0]).all())}
+
+
+def p19_bdfac(torch, npw, n: int, n_kappa: int, n_sv: int, n_svd: int, seed: int,
+              n_sv_default: int = 2560):
+    """The fused BDFAC and the two-stage SVD on it (see the module
+    docstring). Returns the launches of matmul, matmul3, potrf_inv and the
+    chain on the path."""
+    import numpy as np
+
+    from numpywren_tpu_torch import models
+    from numpywren_tpu_torch.compiler import lower
+    from numpywren_tpu_torch.models import band, band_reduce
+    from numpywren_tpu_torch.runtime.program import PS
+
+    card = gpu_line()
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(PATH_KERNELS, 0)
+
+    def emit_row(row):
+        for k in launches:
+            launches[k] += row.get("launches", {}).get(k, 0)
+        emit({"phase": "P19", **row, "nvidia_smi": card})
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(n, n, generator=gen, device="cuda")
+    x_f = float(torch.linalg.norm(x.double()))
+    t0 = time.perf_counter()
+    sv_ref = sigma64(torch, x)
+    ref_s = time.perf_counter() - t0
+
+    def through_program(tile):
+        def run():
+            prog, bmat, _ = npw.bdfac(x, tile=(tile, tile))
+            status = npw.run_program(prog)
+            require(status == PS.SUCCESS, f"P19 bdfac program: {status}")
+            return bmat.array[:n, :n]
+        return run
+
+    runs = (  # (label, tile, drive, opt-in flags, compensated, env)
+        ("auto", 1024, through_program(1024), (), False, None),
+        ("default", 512, through_program(512), (), False, None),
+        ("compensated", 512, through_program(512), (), True, None),
+        ("highest", 512, lambda: lower.fused_bdfac(x, 512, precision="highest"), (), False,
+         None),
+        ("house", 512, through_program(512), (), False, {"NPW_BDFAC_PANEL": "house"}),
+        ("library", 256, through_program(256), (), False, None),
+        ("chain", 256, through_program(256), ("NPW_PALLAS_CHAIN",), False, None),
+        ("potrf_inv", 256, through_program(256), ("NPW_PALLAS_FACTOR",), False, None),
+    )
+    need = {"compensated": "matmul3", "highest": "matmul", "chain": "cholqr2_chain",
+            "potrf_inv": "potrf_inv"}
+    for label, tile, drive, flags, comp, env in runs:
+        bd, row = model_call(torch, drive, flags, comp, env)
+        q = bdfac_quality(torch, x, bd, tile, sv_ref, x_f)
+        emit_row({"run": "bdfac", "route": label, "n": n, "tile": tile, **q, **row,
+                  "sv_ref_seconds": ref_s})
+        require_bdfac(f"P19 bdfac {label} tile {tile}", q)
+        require_chains(f"P19 bdfac {label} tile {tile}", n, tile, row, label != "house")
+        if label in need:
+            require(row["launches"][need[label]] > 0, f"P19 bdfac {label}: {row['launches']}")
+        del bd
+    del x, sv_ref
+    torch.cuda.empty_cache()
+
+    prof = in_new_process("P19", "fresh_bdfac_profile", n, 512)
+    emit({"phase": "P19", "run": "profile", **prof, "nvidia_smi": card})
+    require(0 < prof["device_busy_ms"] <= prof["call_ms"] and 0 <= prof["idle_share"] <= 1,
+            f"P19 profile: busy {prof['device_busy_ms']} ms in a {prof['call_ms']} ms call")
+    require(prof["device_ms_by_kernel"]["split_kernels"] > 0 and min(prof["ms_by_part"].values()) > 0,
+            f"P19 profile: {prof['device_ms_by_kernel']}, {prof['ms_by_part']}")
+
+    # kappa 1e6 logspace at n_kappa, tile 256: the library route and the chain
+    xk = kappa_panel(torch, gen, n_kappa, n_kappa, 1e6)
+    xk_f = float(torch.linalg.norm(xk.double()))
+    svk = sigma64(torch, xk)
+    for label, flags in (("library", ()), ("chain", ("NPW_PALLAS_CHAIN",))):
+        def drive():
+            prog, bmat, _ = npw.bdfac(xk, tile=(256, 256))
+            npw.run_program(prog)
+            return bmat.array[:n_kappa, :n_kappa]
+
+        bd, row = model_call(torch, drive, flags)
+        q = bdfac_quality(torch, xk, bd, 256, svk, xk_f)
+        emit_row({"run": "bdfac_kappa", "route": label, "n": n_kappa, "tile": 256,
+                  "kappa": 1e6, **q, **row})
+        require_bdfac(f"P19 bdfac kappa 1e6 {label}", q)
+        require_chains(f"P19 bdfac kappa 1e6 {label}", n_kappa, 256, row)
+        if flags:
+            require(row["launches"]["cholqr2_chain"] > 0, f"P19 kappa chain: {row['launches']}")
+        del bd
+    del xk, svk
+
+    # singular_values at n_sv_default with the default tile, then at n_sv
+    # with tile 512, once each (their host finishes take seconds): stage 1,
+    # the chase and the host finish timed apart, the tile and the finishes
+    # that ran (a finish that raised, as LAPACK's where none is found, is
+    # listed with "raised"). Without a LAPACK library the band of 512 goes to the dense host
+    # gesdd, so the chase is then timed and checked apart on the same band
+    # (the corner-tightened B of stage 1): sigma of the reduced band in
+    # fp64 on the card against s_ref
+    svd_mod = importlib.import_module("numpywren_tpu_torch.models.svd")  # the module, not svd()
+    w = int(os.environ.get("NPW_BAND_REDUCE_W", "64"))
+
+    def sv_entry(case, xs, ss_ref, **kw):
+        """One singular_values(xs, **kw) call with its parts timed; emits its
+        row, holds it to SV_BAR and returns stage 1's B."""
+        stages = dict.fromkeys(("stage1", "chase", "host_finish"), 0.0)
+        finishes, bds, tiles = [], [], []
+        patched = ((lower, "fused_bdfac", "stage1"),
+                   (band_reduce, "band_reduce_packed", "chase"),
+                   (band, "band_sigma_packed", "host_finish"),
+                   (band, "band_sigma_lapack", "host_finish"),
+                   (svd_mod, "_gk_band_sigma", "host_finish"), (np.linalg, "svd", "host_finish"))
+        reals = [getattr(mod, name) for mod, name, _ in patched]
+
+        def timed(fn, key):
+            def wrapper(*a, **kwargs):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                raised = True
+                try:
+                    out = fn(*a, **kwargs)
+                    torch.cuda.synchronize()
+                    raised = False
+                finally:
+                    stages[key] += time.perf_counter() - t
+                    if key == "host_finish":
+                        finishes.append(fn.__name__ + (" raised" if raised else ""))
+                if key == "stage1":
+                    bds.append(out)
+                    tiles.append(kwargs.get("tile", a[1] if len(a) > 1 else None))
+                return out
+            return wrapper
+
+        for (mod, name, key), real in zip(patched, reals):
+            setattr(mod, name, timed(real, key))
+        try:
+            reset_launch_counts()
+            s, host_s, dev_s = run_entry(torch, lambda: models.singular_values(xs, **kw))
+            sv_launches = launch_counts()
+        finally:
+            for (mod, name, _), real in zip(patched, reals):
+                setattr(mod, name, real)
+        err = float((torch.as_tensor(np.ascontiguousarray(s), device="cuda") - ss_ref).abs().max()
+                    / ss_ref[0])
+        emit_row({"run": "singular_values", "case": case, "n": xs.shape[0],
+                  "tile_arg": kw.get("tile"), "tile": tiles, "finishes": finishes,
+                  "lapack": band.lapack_available(), "band_reduce_w": w,
+                  "stage_seconds": stages, "seconds": dev_s, "host_seconds": host_s,
+                  "launches": sv_launches, "s_max_abs_err_rel": err})
+        require(err <= SV_BAR, f"P19 singular_values {case}: max |s - s_ref| {err} of s_max "
+                f"> {SV_BAR}")
+        return bds[-1]
+
+    xd = torch.randn(n_sv_default, n_sv_default, generator=gen, device="cuda")
+    sv_entry("default_tile", xd, sigma64(torch, xd))
+    del xd
+    xs = torch.randn(n_sv, n_sv, generator=gen, device="cuda")
+    ss_ref = sigma64(torch, xs)
+    bd_sv = sv_entry("tile_512", xs, ss_ref, tile=512)
+    t0 = time.perf_counter()  # the host's gesdd on a Gaussian of the same size, in this process
+    np.linalg.svd(np.random.default_rng(seed).standard_normal((n_sv, n_sv)), compute_uv=False)
+    emit({"phase": "P19", "run": "host_gesdd_yardstick", "n": n_sv,
+          "seconds": time.perf_counter() - t0, "nvidia_smi": card})
+
+    bd = bd_sv.double().cpu().numpy()
+    t = 512
+    s2, d2 = svd_mod._tighten_corner_blocks(bd[-2 * t:-t, -t:], bd[-t:, -t:])
+    bd[-2 * t:-t, -t:], bd[-t:, -t:] = s2, d2
+    bd_card = torch.as_tensor(bd, dtype=torch.float32, device="cuda")
+    del bd_sv, bd
+    (ab, ku2, m), row = model_call(torch, lambda: band_reduce.band_reduce_packed(bd_card, t, w=w))
+    dense = torch.zeros(m, m, dtype=torch.float64, device="cuda")
+    ab_card = torch.as_tensor(ab, dtype=torch.float64, device="cuda")
+    for r in range(ku2 + 1):
+        dense.diagonal(ku2 - r)[:] = ab_card[r, ku2 - r:]
+    sv_band = torch.linalg.eigvalsh(dense.T @ dense).clamp_min(0.0).sqrt().flip(0)[:n_sv]
+    chase_err = float((sv_band - ss_ref).abs().max() / ss_ref[0])
+    emit_row({"run": "band_reduce", "n": n_sv, "ku": t, "w": w, "ku2": ku2, "m": m,
+              "hops": band_reduce.chase_hops(n_sv, t, w), "s_max_abs_err_rel": chase_err,
+              **row})
+    require(chase_err <= SV_BAR, f"P19 band_reduce: sigma off by {chase_err} of s_max")
+    del xs, bd_card, dense, ab_card
+
+    # svd(method="bdfac") at n_svd, tile 512, refine 0 and 2; then method=None
+    xv = torch.randn(n_svd, n_svd, generator=gen, device="cuda")
+    sv_svd = sigma64(torch, xv)
+    calls = []
+    real_fb = lower.fused_bdfac
+    lower.fused_bdfac = lambda *a, **kw: calls.append(kw.get("accumulate")) or real_fb(*a, **kw)
+    try:
+        for label, kw in (("refine_0", dict(method="bdfac", refine=0)),
+                          ("refine_2", dict(method="bdfac", refine=2)), ("method_none", {})):
+            (u, s, vt), row = model_call(
+                torch, lambda: (calls.clear(), models.svd(xv, tile=512, **kw))[1])
+            q = svd_bars(torch, xv, u, s, vt, sv_svd)
+            emit_row({"run": "svd", "case": label, "n": n_svd, "tile": 512,
+                      "bdfac_calls": len(calls), **q, **row})
+            require(q["recon"] < SVD_RECON_BAR and q["ortho_u_max"] < SVD_ORTHO_BAR
+                    and q["ortho_v_max"] < SVD_ORTHO_BAR and q["s_within"],
+                    f"P19 svd {label}: {q}")
+            require(calls and all(calls), f"P19 svd {label}: the accumulating BDFAC did not run")
+    finally:
+        lower.fused_bdfac = real_fb
+    del xv, u, vt
+    torch.cuda.empty_cache()
+
+    checks = p19_kernel_checks(torch, gen, n, n_svd, card)
+    emit({"phase": "P19", "seconds": time.perf_counter() - t_phase, "launches": launches,
+          "nvidia_smi": card})
+    for k, cnt in launches.items():
+        require(cnt > 0, f"P19: {k} was not launched on the BDFAC path")
+    return launches, checks
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=32768, help="trapezoid phases' size")
@@ -2312,6 +2830,12 @@ def main(argv=None) -> int:
     ap.add_argument("--m-jacobi", type=int, default=65536, help="P18's tall Jacobi SVD rows")
     ap.add_argument("--n-jacobi-tall", type=int, default=1024,
                     help="P18's tall Jacobi SVD columns")
+    ap.add_argument("--n-bdfac-kappa", type=int, default=4096,
+                    help="P19's kappa 1e6 BDFAC size (its Gaussian runs take --n-bdfac)")
+    ap.add_argument("--n-sv", type=int, default=4096, help="P19's singular_values size")
+    ap.add_argument("--n-sv-default", type=int, default=2560,
+                    help="P19's singular_values size with the default tile")
+    ap.add_argument("--n-svd", type=int, default=2048, help="P19's svd size")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.n % PANEL:
@@ -2320,6 +2844,9 @@ def main(argv=None) -> int:
         raise SmokeFailure(f"--n-spill and --n-spill-small must be multiples of {SPILL_TILE}")
     if args.n_jacobi % (2 * JACOBI_BLOCK):
         raise SmokeFailure(f"--n-jacobi must be a multiple of {2 * JACOBI_BLOCK}")
+    if args.n_bdfac % 1024 or args.n_sv % 1024 or args.n_bdfac_kappa % 256:
+        raise SmokeFailure("--n-bdfac and --n-sv must be multiples of 1024, "
+                           "--n-bdfac-kappa of 256")
 
     import torch
 
@@ -2362,12 +2889,15 @@ def main(argv=None) -> int:
     spill_launches, _ = p17_spill(torch, npw, args.n_spill, args.n_spill_small, args.seed)
     model_launches = p18_models(torch, gen, args.m, args.m_rand, args.n_rand, args.n_jacobi,
                                 args.m_jacobi, args.n_jacobi_tall)
+    bdfac_launches, _ = p19_bdfac(torch, npw, args.n_bdfac, args.n_bdfac_kappa, args.n_sv,
+                                  args.n_svd, args.seed, args.n_sv_default)
     for name in ("matmul", "matmul3"):
         launches[name] += spill_launches[name]
     launches["matmul"] += ops_counts["matmul"]
     launches.update(potrf=ops_counts["potrf"], trtri=ops_counts["trtri"], **tsqr_counts)
-    for name, n in model_launches.items():
-        launches[name] += n
+    for counts in (model_launches, bdfac_launches):
+        for name, n in counts.items():
+            launches[name] += n
 
     require("jax" not in sys.modules, "jax was imported")
     require("numpywren_tpu" not in sys.modules, "the JAX package was imported")

@@ -349,9 +349,9 @@ def bdfac(X: MatLike, tile=None, storage: str = "hbm", device=None):
 
     B is block upper bidiagonal with the singular values of X (orthogonal
     QR/LQ sweeps, reference alg_wrappers.bdfac). Requires a square tile
-    grid. The port has no fused BDFAC lowering yet (ROADMAP Queue 1 #5):
-    run the program with executor="jax", "spill" or "local". `device` as
-    in cholesky."""
+    grid. run_program's "auto" runs it through the fused lowering
+    (compiler.lower.fused_bdfac); "jax", "spill" and "local" run the
+    generic schedule. `device` as in cholesky."""
     tile = _default_tile(X, tile)
     if tile[0] != tile[1]:
         raise ShapeError("bdfac requires square tiles")

@@ -1,8 +1,8 @@
 """Region-fused lowering of DSL programs, on PyTorch tensors.
 
-Counterpart of numpywren_tpu/compiler/lower.py for Cholesky, GEMM and TSQR.
-The store keeps a matrix as ONE padded tensor, so a panel or a trailing
-region is a strided view:
+Counterpart of numpywren_tpu/compiler/lower.py for Cholesky, GEMM, TSQR and
+BDFAC. The store keeps a matrix as ONE padded tensor, so a panel or a
+trailing region is a strided view:
 
 - Cholesky lowers to a handful of large GEMMs per column super-panel:
   1. the W x W diagonal block factors with one library potrf
@@ -17,6 +17,10 @@ region is a strided view:
   (`_cholqr_adaptive`), whose factor and pass-1-2 chain may run the
   factorization kernels of ops/pallas_factor.py (opt-in: NPW_PALLAS_FACTOR,
   NPW_PALLAS_CHAIN).
+- BDFAC (`fused_bdfac_fn`) sweeps QR panels down the columns and LQ panels
+  along the rows, by that chain and Yamamoto reflectors or by geqrf and
+  compact-WY, updating the trailing views in place; its large products go
+  through `_matmul` / `_sub_matmul`.
 
 Cholesky's and GEMM's products go through `_matmul` / `_sub_matmul`, which
 pick the kernel by precision and NpwConfig.compensated (see ops/common.py);
@@ -291,6 +295,14 @@ def _flag(name: str) -> bool:
     return os.environ.get(name, "0") == "1"
 
 
+def _cholesky_nan(a: torch.Tensor) -> torch.Tensor:
+    """Lower factor of the SPD `a` (its lower triangle); where the
+    factorization fails, a lower triangle of NaN, as JAX's cholesky
+    returns (cholesky_ex leaves a finite partial factor). No host read."""
+    l, info = torch.linalg.cholesky_ex(a)
+    return torch.where(info == 0, l, torch.tril(torch.full_like(l, float("nan"))))
+
+
 def _trtri_gemm(l: torch.Tensor) -> torch.Tensor:
     """Exact lower-triangular inverse by nilpotent Neumann doubling, GEMMs
     only. L = D (I + N), N strictly lower (nilpotent of index b):
@@ -309,8 +321,19 @@ def _trtri_gemm(l: torch.Tensor) -> torch.Tensor:
     return linv + linv @ (eye - l @ linv)
 
 
+# the chains `_cholqr_adaptive` ran and their extras passes, counted where
+# they run (host counters; `reset_chain_passes` sets them to 0)
+CHAIN_PASSES = {"chains": 0, "extras": 0}
+
+
+def reset_chain_passes() -> None:
+    for k in CHAIN_PASSES:
+        CHAIN_PASSES[k] = 0
+
+
 def _cholqr_adaptive(p: torch.Tensor, rows: bool = False, max_passes: int = 16,
-                     pallas_chain: Optional[bool] = None, precision: str = "high"):
+                     pallas_chain: Optional[bool] = None, precision: str = "high",
+                     conv_tol: float = 1e-4, gemm_inv: Optional[bool] = None):
     """Adaptive CholeskyQR chain: thin QR (rows=False: p = q r, r upper
     b x b) or thin LQ (rows=True: p = l q, l lower b x b) of p by repeated
     Gram-Cholesky passes with shift-on-breakdown.
@@ -322,18 +345,22 @@ def _cholqr_adaptive(p: torch.Tensor, rows: bool = False, max_passes: int = 16,
     cleanup when max|G2 - I| < 0.1, else a shifted factor. The two inverses
     fold into one b x b transform applied to p. Then up to max_passes - 2
     real-Gram passes run until CONVERGED (a pass whose input deviation is
-    below conv_gate = 2 sqrt(1e-4) lands under 1e-4).
+    below conv_gate = min(2 sqrt(conv_tol), 0.1) lands under conv_tol; the
+    fused BDFAC passes 1e-5).
 
     Opt-ins, read at each call: NPW_PALLAS_FACTOR=1 factors each shifted
     pass with the potrf_inv kernel (its input 0.5 (Gs + Gsᵀ)); on a CPU
     tensor the wrapper runs its plain version. NPW_PALLAS_CHAIN=1 (or
     pallas_chain=True) runs passes 1-2 as the chain kernel's launch sequence
-    inside its envelope (its input G1 unsymmetrized); NPW_GEMM_INV=1 swaps
-    the library triangular solve for _trtri_gemm.
+    inside its envelope (its input G1 unsymmetrized); NPW_GEMM_INV=1 (or
+    gemm_inv=True) swaps the library triangular solve for _trtri_gemm. A
+    library factor that fails comes out NaN, as JAX's cholesky does, with
+    no host read.
 
     Host reads: the library route reads dev2 once (the fold and the
     convergence flag); the chain reads its conv flag once; each extras
-    pass reads its Gram's deviation once.
+    pass reads its Gram's deviation once. CHAIN_PASSES counts the calls
+    and the extras passes.
 
     precision routes the applies of the inverse to the tall operand
     (`_tsqr_matmul`); the Grams and the b x b algebra stay true FP32, the
@@ -343,9 +370,11 @@ def _cholqr_adaptive(p: torch.Tensor, rows: bool = False, max_passes: int = 16,
     eye = torch.eye(b, dtype=p.dtype, device=p.device)
     u = torch.finfo(torch.float32).eps
     shift_c = 4.0 * u * (m * b) ** 0.5
-    conv_gate = 2.0 * 1e-4 ** 0.5
+    conv_gate = min(2.0 * float(conv_tol) ** 0.5, 1e-1)
     if pallas_chain is None:
         pallas_chain = _flag("NPW_PALLAS_CHAIN")
+    if gemm_inv is None:
+        gemm_inv = _flag("NPW_GEMM_INV")
 
     def gram_dev(x):
         g = x @ x.T if rows else x.T @ x
@@ -359,8 +388,8 @@ def _cholqr_adaptive(p: torch.Tensor, rows: bool = False, max_passes: int = 16,
         sym = 0.5 * (gs + gs.T)
         if _flag("NPW_PALLAS_FACTOR"):
             return potrf_inv_pallas(sym)
-        l = torch.linalg.cholesky_ex(sym)[0]
-        if _flag("NPW_GEMM_INV"):
+        l = _cholesky_nan(sym)
+        if gemm_inv:
             return l, _trtri_gemm(l)
         return l, torch.linalg.solve_triangular(l, eye, upper=False)
 
@@ -386,6 +415,7 @@ def _cholqr_adaptive(p: torch.Tensor, rows: bool = False, max_passes: int = 16,
         def fold(total, li):
             return li.T @ total
 
+    CHAIN_PASSES["chains"] += 1
     g1, _, _ = gram_dev(p)
     if pallas_chain and chain_supported(m, b, p.dtype):
         q, total, conv, _ = cholqr2_chain_pallas(
@@ -411,9 +441,340 @@ def _cholqr_adaptive(p: torch.Tensor, rows: bool = False, max_passes: int = 16,
     for _ in range(max(max_passes - 2, 0)):
         if bool(conv):
             break
+        CHAIN_PASSES["extras"] += 1
         q, li, conv = iterate_pass(q)
         total = fold(total, li)
     return q, total
+
+
+# ---------------------------------------------------------------------------
+# BDFAC (block bidiagonalization)
+# ---------------------------------------------------------------------------
+#
+# The panel updates' large products go through `_matmul` / `_sub_matmul` at
+# the sweep's precision (compensated "high": matmul3; "highest" and
+# "default": matmul; plain "high": torch.matmul, true FP32; a transposed
+# left operand is torch.matmul in compensated mode, as in Cholesky). The
+# b x b algebra (folds, `_small_inv_t`, `_ns_inv`, the Neumann series,
+# `_wy_t`'s Gram) is torch.matmul in true FP32 at every precision: the
+# reference runs it at HIGH under BDFAC, so the port is the more accurate
+# there, and the helpers that do only b x b algebra take no precision (the
+# reference's `small_precision` has no counterpart). The sweeps update the
+# input's trailing views in place.
+
+
+def _geqrf(panel: torch.Tensor):
+    """Householder QR: V in the lower trapezoid of the first result, the
+    taus in the second (LAPACK's geqrf, torch.geqrf)."""
+    return torch.geqrf(panel)
+
+
+def _wy_t(v: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
+    """Compact-WY block reflector: upper-triangular T with Q = I - V T Vᵀ
+    for unit-lower-trapezoidal V and Householder taus, from
+    T⁻¹ = diag(1/tau) + striu(Vᵀ V) by one triangular solve (a zero tau
+    gets 1e30 on the diagonal, so its column of T is 0)."""
+    g = v.T @ v
+    nz = tau != 0
+    dinv = torch.where(nz, 1.0 / torch.where(nz, tau, torch.ones_like(tau)),
+                       torch.full_like(tau, 1e30))
+    m = torch.triu(g, 1) + torch.diag(dinv)
+    eye = torch.eye(v.shape[1], dtype=v.dtype, device=v.device)
+    return torch.linalg.solve_triangular(m, eye, upper=True)
+
+
+def _row_major(t: torch.Tensor) -> bool:
+    return t.dim() == 2 and (t.shape[1] <= 1 or t.stride(1) == 1)
+
+
+def _apply_wy_left(v, t, trailing, precision: str) -> None:
+    """trailing := (I - V T Vᵀ)ᵀ trailing, in place: two large products
+    (Vᵀ trailing, then the subtract) and one narrow one (Tᵀ W1). A
+    transposed view (the Householder LQ's bodyᵀ) is updated through its
+    row-major transpose, with the products mirrored, so it is never
+    materialized."""
+    if _row_major(trailing) or not _row_major(trailing.T):
+        w1 = _matmul(v, trailing, ta=True, precision=precision)       # (b, c)
+        w2 = _matmul(t, w1, ta=True, precision=precision)             # (b, c)
+        _sub_matmul(trailing, v, w2, precision=precision, out=trailing)
+        return
+    tr = trailing.T                                                  # (c, rows)
+    w1t = _matmul(tr, v, precision=precision)                        # W1ᵀ (c, b)
+    w2t = _matmul(w1t, t, precision=precision)                       # W2ᵀ = W1ᵀ T
+    _sub_matmul(tr, w2t, v, tb=True, precision=precision, out=tr)
+
+
+def _panel_qr_update(panel, trailing, precision: str, want_reflector: bool = False):
+    """QR-factor `panel` (rows x b) by Householder and apply the full Qᵀ to
+    `trailing` (rows x c) in place via the compact-WY reflector: returns
+    (R, trailing), plus ("wy", V, T) with H = I - V T Vᵀ when
+    want_reflector (trailing' = Hᵀ trailing; the left accumulator applies
+    P := P H)."""
+    b = panel.shape[1]
+    vr, tau = _geqrf(panel)
+    r = torch.triu(vr[:b])
+    v = torch.tril(vr, -1) + torch.eye(vr.shape[0], b, dtype=vr.dtype, device=vr.device)
+    t = _wy_t(v, tau)
+    if trailing is not None and trailing.shape[1]:
+        _apply_wy_left(v, t, trailing, precision)
+    if want_reflector:
+        return r, trailing, ("wy", v, t)
+    return r, trailing
+
+
+def _cholqr3s(p, precision: str, conv_tol: float = 1e-4, gemm_inv=None,
+              pallas_chain=None):
+    """Thin QR of tall `p` by the adaptive shifted CholeskyQR chain
+    (`_cholqr_adaptive`, column form): the shifted first pass cannot break
+    down, and the later passes restore the orthogonality the Yamamoto
+    reflector depends on."""
+    return _cholqr_adaptive(p, rows=False, precision=precision, conv_tol=conv_tol,
+                            gemm_inv=gemm_inv, pallas_chain=pallas_chain)
+
+
+def _cholqr3s_rows(p, precision: str, conv_tol: float = 1e-4, gemm_inv=None,
+                   pallas_chain=None):
+    """Row form of `_cholqr3s`: thin LQ of wide `p` (b x m) as p = l @ qr,
+    l lower (b x b), qr row-orthonormal, with the Gram p pᵀ; no transpose
+    of p is materialized."""
+    return _cholqr_adaptive(p, rows=True, precision=precision, conv_tol=conv_tol,
+                            gemm_inv=gemm_inv, pallas_chain=pallas_chain)
+
+
+def _ns_inv(a: torch.Tensor, iters: int = 20) -> torch.Tensor:
+    """Newton-Schulz inverse of a (b, b) matrix, products only:
+    X <- X (2I - A X) from X0 = Aᵀ / (||A||_1 ||A||_inf); 20 iterations
+    cover cond(A) <= ~25, the Yamamoto W1 regime."""
+    two_eye = 2.0 * torch.eye(a.shape[0], dtype=a.dtype, device=a.device)
+    scale = 1.0 / (torch.max(torch.sum(torch.abs(a), dim=0))
+                   * torch.max(torch.sum(torch.abs(a), dim=1)))
+    x = a.T * scale
+    for _ in range(iters):
+        x = x @ (two_eye - a @ x)
+    return x
+
+
+def _small_inv_t(w1: torch.Tensor, gemm_inv=None) -> torch.Tensor:
+    """Sᵀ for the Yamamoto factor from the identity S⁻¹ = -W1ᵀ (W1 the
+    reflector's leading b x b block), by the normal equations
+    (W1ᵀ)⁻¹ = W1 (W1ᵀ W1)⁻¹: one cholesky, one triangular solve against I
+    and two b x b products. NPW_GEMM_INV=1 (or gemm_inv=True) takes
+    Newton-Schulz on W1 instead (-W1⁻¹ = Sᵀ)."""
+    if gemm_inv if gemm_inv is not None else _flag("NPW_GEMM_INV"):
+        return -_ns_inv(w1)
+    c = w1.T @ w1
+    lc = _cholesky_nan(0.5 * (c + c.T))
+    eye = torch.eye(w1.shape[0], dtype=w1.dtype, device=w1.device)
+    cinv = torch.linalg.solve_triangular(lc, eye, upper=False)
+    return -(cinv.T @ (cinv @ w1.T))  # -C⁻¹ W1ᵀ = Sᵀ
+
+
+def _yamamoto_signs(d: torch.Tensor) -> torch.Tensor:
+    """Sigma = diag(-sign(Q1_ii)) (0 counts as positive): keeps
+    diag(S⁻¹) = 1 + |Q1_ii|, so S is well-conditioned."""
+    return -torch.where(d >= 0, torch.ones_like(d), -torch.ones_like(d))
+
+
+def _panel_qr_update_cholqr(panel, trailing, precision: str, want_reflector: bool = False,
+                            conv_tol: float = 1e-4, fast_s: bool = False,
+                            gemm_inv=None, pallas_chain=None):
+    """Products-only counterpart of `_panel_qr_update`: thin Q, R from the
+    shifted CholeskyQR chain, then the full orthogonal factor as a Yamamoto
+    basis-kernel reflector H = I - W S Wᵀ, W = Q Sigma - E,
+    S⁻¹ = I - Sigma Q1ᵀ (E the leading b columns of I). Hᵀ panel = E Sigma R
+    and Hᵀ trailing = trailing - W (Sᵀ (Wᵀ trailing)), written in place.
+    fast_s takes Sᵀ by the normal equations (`_small_inv_t`), else by an
+    LU inverse. A square panel (rows == b) uses H = Q Sigma directly: there
+    S⁻¹ can be arbitrarily ill-conditioned. Returns (Sigma R, trailing),
+    plus the reflector when want_reflector."""
+    b = panel.shape[1]
+    q, r = _cholqr3s(panel, precision, conv_tol=conv_tol, gemm_inv=gemm_inv,
+                     pallas_chain=pallas_chain)
+    sigma = _yamamoto_signs(torch.diagonal(q[:b]))
+    if panel.shape[0] == b:
+        h = q * sigma[None, :]
+        if trailing is not None and trailing.shape[1]:
+            trailing.copy_(_matmul(h, trailing, ta=True, precision=precision))
+        if want_reflector:
+            return sigma[:, None] * r, trailing, ("dense", h)
+        return sigma[:, None] * r, trailing
+    q1 = q[:b]
+    eye = torch.eye(b, dtype=q.dtype, device=q.device)
+    w = q * sigma[None, :]
+    w[:b] -= eye
+    s_inv = eye - sigma[:, None] * q1.T
+    if trailing is not None and trailing.shape[1]:
+        if fast_s:
+            st = _small_inv_t(w[:b], gemm_inv=gemm_inv)
+        else:
+            st = torch.linalg.inv_ex(s_inv)[0].T
+        w1 = _matmul(w, trailing, ta=True, precision=precision)      # (b, c)
+        sw1 = _matmul(st, w1, precision=precision)                   # Sᵀ W1, narrow side
+        _sub_matmul(trailing, w, sw1, precision=precision, out=trailing)
+    if want_reflector:
+        return sigma[:, None] * r, trailing, ("yam", w, s_inv)
+    return sigma[:, None] * r, trailing
+
+
+def _panel_lq_update_cholqr(panel, body, precision: str, want_reflector: bool = False,
+                            conv_tol: float = 1e-4, fast_s: bool = False,
+                            gemm_inv=None, pallas_chain=None):
+    """Right-side mirror of `_panel_qr_update_cholqr` for the LQ sweep,
+    in row orientation: LQ-factor the wide row `panel` (b x m) by the
+    row-form chain and apply H = I - W S Wᵀ (Wᵀ = Wr = Sigma qr - Eᵀ) from
+    the right to `body` (rows x m) in place:
+    body H = body - ((body Wrᵀ) S) Wr. Returns (l Sigma, body), plus
+    ("yam_t", Wr, S⁻¹) when want_reflector."""
+    b = panel.shape[0]
+    qr_, l = _cholqr3s_rows(panel, precision, conv_tol=conv_tol, gemm_inv=gemm_inv,
+                            pallas_chain=pallas_chain)
+    q1 = qr_[:, :b]
+    sigma = _yamamoto_signs(torch.diagonal(q1))
+    eye = torch.eye(b, dtype=qr_.dtype, device=qr_.device)
+    wr = qr_ * sigma[:, None]                                       # (b, m): Wᵀ
+    wr[:, :b] -= eye
+    s_inv = eye - sigma[:, None] * q1
+    if body is not None and body.shape[0]:
+        if fast_s:
+            s_row = _small_inv_t(wr[:, :b].T, gemm_inv=gemm_inv).T
+        else:
+            s_row = torch.linalg.inv_ex(s_inv)[0]
+        u1 = _matmul(body, wr, tb=True, precision=precision)         # (rows, b) = body W
+        u1s = _matmul(u1, s_row, precision=precision)                # narrow side
+        _sub_matmul(body, u1s, wr, precision=precision, out=body)
+    if want_reflector:
+        return l * sigma[None, :], body, ("yam_t", wr, s_inv)
+    return l * sigma[None, :], body
+
+
+def _apply_reflector_right(x, refl, c0: int, precision: str):
+    """x[:, c0:] := x[:, c0:] @ H in place for a panel reflector H (the
+    transform accumulator's step: two large products a panel) and returns
+    x. refl: ("wy", V, T) with H = I - V T Vᵀ; ("yam", W, S⁻¹) with
+    H = I - W S Wᵀ; ("yam_t", Wᵀ, S⁻¹) the same with W given transposed;
+    ("dense", H) the explicit orthogonal factor."""
+    kind = refl[0]
+    sub = x[:, c0:]
+    if kind == "dense":
+        sub.copy_(_matmul(sub, refl[1], precision=precision))
+        return x
+    if kind == "wy":
+        _, v, t = refl
+        xv = _matmul(sub, v, precision=precision)                    # (n, b)
+        rhs = _matmul(t, v, tb=True, precision=precision)            # T Vᵀ
+    elif kind == "yam":
+        _, w, s_inv = refl
+        xv = _matmul(sub, w, precision=precision)
+        rhs = _matmul(torch.linalg.inv_ex(s_inv)[0], w, tb=True, precision=precision)
+    else:  # "yam_t"
+        _, wr, s_inv = refl
+        xv = _matmul(sub, wr, tb=True, precision=precision)
+        rhs = _matmul(torch.linalg.inv_ex(s_inv)[0], wr, precision=precision)
+    _sub_matmul(sub, xv, rhs, precision=precision, out=sub)
+    return x
+
+
+def fused_bdfac_fn(n_pad: int, tile: int, *, precision: Optional[str] = None,
+                   dtype=torch.float32, panel_method: Optional[str] = None,
+                   accumulate: bool = False, accum_precision: Optional[str] = None,
+                   gemm_inv: Optional[bool] = None,
+                   pallas_chain: Optional[bool] = None) -> Callable:
+    """Block bidiagonalization over a flat padded (n_pad, n_pad) tensor, the
+    fused lowering of algs.bdfac: per block column a tall QR whose full Q
+    updates the trailing matrix, then a wide LQ of the row panel while two
+    or more superdiagonal blocks remain (LAPACK gebrd at block
+    granularity). fn(a) returns B (block upper bidiagonal, the singular
+    values of a) and overwrites `a`: the live trailing matrix is a view of
+    it, updated in place.
+
+    panel_method: "cholqr" (default; NPW_BDFAC_PANEL overrides) factors
+    panels by the shifted CholeskyQR chain (conv_tol 1e-5) and applies a
+    Yamamoto reflector, products only; "house" uses geqrf and compact-WY,
+    unconditionally stable. gemm_inv / pallas_chain (None: NPW_GEMM_INV /
+    NPW_PALLAS_CHAIN, read when fn is built) reach the chains.
+
+    accumulate=True returns fn(a) -> (B, P, Q) with A = P B Qᵀ (P, Q
+    orthogonal, n_pad x n_pad): each reflector also updates the
+    accumulator's live columns, at accum_precision (None: precision). The
+    sigma-only path takes S by the normal equations (fast_s), the vector
+    path by an LU inverse."""
+    if n_pad % tile != 0:
+        raise ValueError(f"n_pad {n_pad} not a multiple of tile {tile}")
+    g = n_pad // tile
+    precision = check_precision(precision or default_precision(dtype))
+    if panel_method is None:
+        panel_method = os.environ.get("NPW_BDFAC_PANEL", "cholqr")
+    if panel_method not in ("cholqr", "house"):
+        raise ValueError(f"unknown bdfac panel_method {panel_method!r}")
+    if gemm_inv is None:
+        gemm_inv = _flag("NPW_GEMM_INV")
+    if pallas_chain is None:
+        pallas_chain = _flag("NPW_PALLAS_CHAIN")
+    chain_kw = dict(conv_tol=1e-5, fast_s=not accumulate, gemm_inv=gemm_inv,
+                    pallas_chain=pallas_chain)
+    if panel_method == "cholqr":
+        def panel_update(panel, trailing, want=False):
+            return _panel_qr_update_cholqr(panel, trailing, precision, want, **chain_kw)
+    else:
+        def panel_update(panel, trailing, want=False):
+            return _panel_qr_update(panel, trailing, precision, want)
+    ap = check_precision(accum_precision or precision)
+
+    def bdfac(a):
+        out = torch.zeros_like(a)
+        cur = a
+        p_acc = q_acc = None
+        if accumulate:
+            p_acc = torch.eye(n_pad, dtype=a.dtype, device=a.device)
+            q_acc = torch.eye(n_pad, dtype=a.dtype, device=a.device)
+        for k in range(g):
+            c0, c1 = k * tile, (k + 1) * tile
+            rows = n_pad - c0
+            panel = cur[:, :tile]
+            trailing = cur[:, tile:] if rows > tile else None
+            if accumulate:
+                r, trailing, refl = panel_update(panel, trailing, True)
+                _apply_reflector_right(p_acc, refl, c0, ap)
+            else:
+                r, trailing = panel_update(panel, trailing)
+            _dus(out, r, c0, c0)
+            if rows == tile:
+                break
+            row_pan, body = trailing[:tile], trailing[tile:]
+            if g - k - 1 >= 2:
+                if panel_method == "cholqr":
+                    res = _panel_lq_update_cholqr(row_pan, body, precision, accumulate,
+                                                  **chain_kw)
+                    l_blk = res[0]
+                else:  # LQ of the row panel = QR of its transpose (views)
+                    res = _panel_qr_update(row_pan.T, body.T, precision, accumulate)
+                    l_blk = res[0].T
+                if accumulate:
+                    _apply_reflector_right(q_acc, res[2], c1, ap)
+                _dus(out, l_blk, c0, c1)
+            else:  # the single superdiagonal block lands as it is
+                _dus(out, row_pan, c0, c1)
+            cur = body
+        if accumulate:
+            return out, p_acc, q_acc
+        return out
+
+    return bdfac
+
+
+def fused_bdfac(a: torch.Tensor, tile: int, *, precision: Optional[str] = None,
+                panel_method: Optional[str] = None, donate: bool = False,
+                accumulate: bool = False, accum_precision: Optional[str] = None,
+                gemm_inv: Optional[bool] = None):
+    """Fused BDFAC of the square tensor `a` (its side a multiple of `tile`):
+    B, or (B, P, Q) with A = P B Qᵀ when accumulate=True. donate=True works
+    in place on `a` (its contents are then lost); donate=False works on a
+    copy, the reference's defensive input copy. gemm_inv (None: the
+    NPW_GEMM_INV default) and the rest as in `fused_bdfac_fn`."""
+    fn = fused_bdfac_fn(a.shape[0], tile, precision=precision, dtype=a.dtype,
+                        panel_method=panel_method, accumulate=accumulate,
+                        accum_precision=accum_precision, gemm_inv=gemm_inv)
+    return fn(a if donate else a.clone())
 
 
 # ---------------------------------------------------------------------------
@@ -549,8 +910,8 @@ def fused_tsqr(a: torch.Tensor, tile_rows: int, *, compute_q: bool = False,
 def lower_fused(program) -> Optional[Callable[[], None]]:
     """A no-arg callable running `program` through its fused lowering and
     committing the results into its bound matrices; None when the program's
-    template has no fused specialization in the port (cholesky, gemm and
-    the tsqr family have)."""
+    template has no fused specialization (cholesky, gemm, the tsqr family
+    and bdfac have)."""
     name = program.dag.template.name
     if name == "cholesky":
         inner = lambda: _run_fused_cholesky(program)  # noqa: E731
@@ -558,6 +919,8 @@ def lower_fused(program) -> Optional[Callable[[], None]]:
         inner = lambda: _run_fused_gemm(program)  # noqa: E731
     elif name in ("tsqr", "tsqr_q") or name.startswith("tsqr_b"):
         inner = lambda: _run_fused_tsqr(program, compute_q=(name == "tsqr_q"))  # noqa: E731
+    elif name == "bdfac":
+        inner = lambda: _run_fused_bdfac(program)  # noqa: E731
     else:
         return None
 
@@ -675,6 +1038,17 @@ def _run_fused_cholesky(program):
     o.replace_array(o_arr)
     l[:, :n_done] = 0
     s.replace_array(l)
+
+
+def _run_fused_bdfac(program):
+    if _spill_if_over_budget(program):
+        return
+    s = _hbm(program, "S")
+    b = _hbm(program, "B")
+    # S is the program's own copy of X, freed below: the sweeps work in it
+    out = fused_bdfac(s.array, s.tile[0], donate=True)
+    b.replace_array(out.to(b.dtype))
+    s.free()
 
 
 def _run_fused_gemm(program):

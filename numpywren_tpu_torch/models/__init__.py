@@ -7,10 +7,16 @@ output_matrix/es, meta) to run with `run_program`:
 - cholesky: SPD factorization A = L Lᵀ
 - gemm:     C = A @ B
 - tsqr:     tall-skinny QR (tree, CholeskyQR2, shifted CholeskyQR3)
-- bdfac:    block bidiagonalization (SVD stage 1; generic executors only)
+- bdfac:    block bidiagonalization (SVD stage 1)
 
-On top of them, the finished end-user models that need only the fused
-TSQR (ROADMAP Queue 1 #5a):
+On top of them, the finished end-user models:
+
+- svd.singular_values:    all singular values, two-stage (the fused BDFAC
+                          on the device, then the band narrowed by
+                          band_reduce and finished by host LAPACK, band.py)
+- svd.svd:                full SVD; method "bdfac" (None routes there off a
+                          TPU) accumulates the BDFAC's transforms, "jacobi"
+                          runs svd_jacobi
 
 - jacobi.svd_jacobi:      full SVD entirely on device (one-sided block
                           Jacobi: batched pair Grams + batched small eighs +
@@ -27,9 +33,9 @@ the current CUDA device (a host without one raises; pass device="cpu" to
 run the plain PyTorch versions). svd_jacobi and svd_refine return tensors
 on the input's device, the others ndarrays, as in the reference.
 
-Still raising NotImplementedError: `singular_values` and `svd` with
-method "bdfac" or None (None routes to "bdfac" off a TPU) until the fused
-BDFAC lands (#5b); `svd(method="qdwh")` until #5c.
+Still raising NotImplementedError: the QDWH route (`svd(method="qdwh")`,
+`singular_values(finish="qdwh")`, `svd(uv_finish="device")`; ROADMAP
+Queue 1 #5c) and `singular_values` on a mesh of more than one device (#6).
 """
 
 from numpywren_tpu_torch.alg_wrappers import bdfac, cholesky, gemm, tsqr, tsqr_r_factor

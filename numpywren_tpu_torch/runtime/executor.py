@@ -582,11 +582,6 @@ def _mark_success(program: TiledProgram):
         program._cv.notify_all()
 
 
-# templates the reference lowers fused and the port not yet: "auto" raises
-# for them rather than take the generic route the reference would not
-_FUSED_NOT_PORTED = {"bdfac": "the fused BDFAC lowering (ROADMAP Queue 1 #5)"}
-
-
 def run_program(
     program: TiledProgram,
     executor: str = "auto",
@@ -597,15 +592,13 @@ def run_program(
     """One-call execution (the alg_wrappers run helper).
 
     executor:
-      - "fused": the region-fused lowering (compiler.lower): cholesky, gemm
-        and the tsqr family; another program raises ValueError.
+      - "fused": the region-fused lowering (compiler.lower): cholesky, gemm,
+        the tsqr family and bdfac; another program raises ValueError.
       - "jax": the generic static schedule on the device (TorchTaskExecutor,
         any program).
       - "local": the dynamic threaded numpy runtime (LocalExecutor).
       - "spill": the static schedule over host-tier tiles (SpillTaskExecutor).
-      - "auto": fused when the port has the program's lowering, else "jax";
-        a program the reference lowers fused and the port does not yet
-        (bdfac) raises NotImplementedError instead.
+      - "auto": fused when the program has a fused lowering, else "jax".
 
     resume=True (local and spill) restarts a half-run program from the
     block-existence frontier instead of node 0, the reference's implicit
@@ -626,10 +619,6 @@ def run_program(
         name = program.dag.template.name
         if executor == "fused":
             raise ValueError(f"no fused lowering for program {name!r}")
-        if name in _FUSED_NOT_PORTED:
-            raise NotImplementedError(
-                f"program {name!r}: {_FUSED_NOT_PORTED[name]} is not ported yet; "
-                f"run it with executor='jax', 'spill' or 'local'")
         executor = "jax"
     if executor == "jax":
         return TorchTaskExecutor(program, **kw).run()

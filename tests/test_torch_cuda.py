@@ -3,7 +3,9 @@ kernels at small and awkward shapes: ragged edges, K not a multiple of 8,
 K = 0, one row or column, transposed and strided operands, bf16, and out
 aliasing c. Factor kernels at n = 128..1024 and outside their envelope;
 the CholeskyQR2 chain in both forms at κ up to 1e6, its identity branch
-and its run with no host synchronisation.
+and its run with no host synchronisation. The paths on them against their
+CPU runs: the generic executors, the out-of-core Cholesky, the models, the
+fused BDFAC by every route and the band reduction.
 
 These need an NVIDIA GPU (sm_90a) and nvcc; without one every test skips.
 Run on the card: python -m pytest tests/test_torch_cuda.py -q
@@ -653,3 +655,83 @@ def test_least_squares_on_the_card(gen, monkeypatch, route):
         assert launched[route] > 0
     x_cpu = models.least_squares(a.cpu(), b.cpu(), method=method)
     assert np.linalg.norm(x - x_cpu) <= 1e-5 * np.linalg.norm(x_cpu)
+
+
+@pytest.mark.parametrize("route,tile", [("high", 128), ("compensated", 128), ("highest", 128),
+                                        ("house", 128), ("NPW_PALLAS_CHAIN", 256),
+                                        ("NPW_PALLAS_FACTOR", 128)])
+def test_fused_bdfac_on_the_card(gen, monkeypatch, route, tile):
+    """fused_bdfac on a CUDA tensor (768², three or six panels) against the
+    CPU run of the same input (B within 1e-4 relative; both sides sigma
+    within 1e-4·s_max of fp64): the compensated sweeps launch matmul3,
+    "highest" matmul, the opt-ins the chain (both forms) and potrf_inv."""
+    from numpywren_tpu_torch import config
+    from numpywren_tpu_torch.compiler.lower import fused_bdfac
+    from numpywren_tpu_torch.ops import pallas_factor as pf
+
+    kw = {}
+    if route == "compensated":
+        monkeypatch.setattr(config, "_default", config.NpwConfig(compensated=True))
+    elif route in ("highest", "high"):
+        kw["precision"] = route
+    elif route == "house":
+        kw["panel_method"] = "house"
+    else:
+        monkeypatch.setenv(route, "1")
+    x = _rand(gen, 768, 768)
+    pf.reset_launches()
+    calls, mm = gemm3.LAUNCHES, gemm.LAUNCHES
+    b = fused_bdfac(x, tile, **kw)
+    launched = {"compensated": gemm3.LAUNCHES - calls, "highest": gemm.LAUNCHES - mm,
+                "NPW_PALLAS_CHAIN": pf.LAUNCHES["cholqr2_chain"],
+                "NPW_PALLAS_FACTOR": pf.LAUNCHES["potrf_inv"]}
+    if route in launched:
+        assert launched[route] > 0
+    b_cpu = fused_bdfac(x.cpu(), tile, **kw)
+    _close(b.cpu(), b_cpu, bar=1e-4)
+    s_ref = torch.linalg.svdvals(x.double())
+    for bb in (b, b_cpu.to("cuda")):
+        assert float((torch.linalg.svdvals(bb.double()) - s_ref).abs().max()) <= 1e-4 * float(
+            s_ref[0])
+
+
+def test_band_reduce_on_the_card(gen):
+    """The chase on the card against the CPU chase of the same band
+    (magnitudes within 1e-4·max|A|: a complete QR's signs may differ where
+    a block is at roundoff level), sigma within 2e-5·s_max of fp64."""
+    import numpy as np
+
+    from numpywren_tpu_torch.models import band_reduce
+
+    a = torch.triu(_rand(gen, 512, 512))
+    a = a - torch.triu(a, 129)
+    red, ku2 = band_reduce.band_reduce(a, ku=128, w=32)
+    red_cpu, _ = band_reduce.band_reduce(a.cpu(), ku=128, w=32)
+    assert ku2 == 63
+    assert np.abs(np.abs(red) - np.abs(red_cpu)).max() <= 1e-4 * np.abs(red_cpu).max()
+    s_ref = np.linalg.svd(a.cpu().double().numpy(), compute_uv=False)
+    s = np.sort(np.linalg.svd(red.astype(np.float64), compute_uv=False))[::-1][:512]
+    assert np.abs(s - s_ref).max() <= 2e-5 * s_ref[0]
+
+
+def test_singular_values_and_svd_on_the_card(gen):
+    """singular_values (band 512 > 256: band_reduce on the card, then the
+    host finish) and svd(method=None -> "bdfac") on a CUDA tensor: sigma
+    within 1e-4·s_max of fp64, the CPU run's sigma within 1e-5·s_max; svd
+    reconstructs within 1e-4 with UᵀU, VVᵀ within 5e-4 of I."""
+    import numpy as np
+
+    from numpywren_tpu_torch import models
+
+    x = _rand(gen, 1024, 1024)
+    s_ref = np.linalg.svd(x.cpu().double().numpy(), compute_uv=False)
+    s = models.singular_values(x)
+    assert np.abs(s - s_ref).max() <= 1e-4 * s_ref[0]
+    assert np.abs(s - models.singular_values(x.cpu())).max() <= 1e-5 * s_ref[0]
+    x = x[:256, :256].contiguous()
+    u, s, vt = models.svd(x, tile=64)
+    x64 = x.cpu().double().numpy()
+    rec = (u.astype(np.float64) * s) @ vt.astype(np.float64)
+    assert np.linalg.norm(rec - x64) / np.linalg.norm(x64) < 1e-4
+    assert np.abs(u.T @ u - np.eye(256)).max() < 5e-4
+    assert np.abs(vt @ vt.T - np.eye(256)).max() < 5e-4

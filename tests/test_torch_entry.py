@@ -109,16 +109,18 @@ def test_convert_round_trip():
 
 
 def test_unported_paths_raise(monkeypatch):
-    """What is left unported raises and names its ROADMAP item: "auto" on a
-    program whose fused lowering the port lacks (bdfac). A host-tier
-    cholesky too large for the device budget runs out of core
-    (runtime/spill.py) as the JAX package's auto dispatch does: L stays on
-    the host tier and matches the JAX package's factor."""
+    """"auto" runs every program the JAX package lowers fused: bdfac's B
+    matches the JAX package's (rel Frobenius <= 1e-4, the same sweeps in
+    fp32). A host-tier cholesky too large for the device budget runs out of
+    core (runtime/spill.py) as the JAX package's auto dispatch does: L
+    stays on the host tier and matches the JAX package's factor."""
     a = random_spd(128, seed=7)
-    x = np.ones((64, 64), np.float32)
-    prog, _, _ = npw.bdfac(x, tile=(32, 32), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #5"):
-        npw.run_program(prog)
+    x = np.random.default_rng(7).standard_normal((64, 64)).astype(np.float32)
+    prog, b, _ = npw.bdfac(x, tile=(32, 32), device="cpu")
+    assert npw.run_program(prog) == PS.SUCCESS
+    jprog, jb, _ = jnpw.bdfac(x, tile=(32, 32))
+    jnpw.run_program(jprog)
+    assert np.linalg.norm(b.numpy() - jb.numpy()) <= 1e-4 * np.linalg.norm(jb.numpy())
     monkeypatch.setattr(npw.default_config(), "hbm_budget_bytes", 1024)
     monkeypatch.setattr(config, "_default", config.NpwConfig(hbm_budget_bytes=1024))
     prog, o, _ = npw.cholesky(a, tile=(32, 32), storage="host", device="cpu")

@@ -485,11 +485,29 @@ def test_auto_streams_host_operands_over_the_budget(program, rng, monkeypatch):
     assert spilled == [1] and lower._hbm_budget_bytes() < 4096
 
 
-def test_auto_on_bdfac_names_the_queue_item(rng):
-    x = rng.standard_normal((2 * T, 2 * T)).astype(np.float32)
-    prog, _, _ = npw.bdfac(x, tile=(T, T), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 #5"):
-        npw.run_program(prog)
+def test_auto_on_bdfac_names_the_queue_item(rng, monkeypatch):
+    """"auto" and "fused" on bdfac run the fused lowering (its runner is
+    called once, the generic executor never), B as the JAX package's fused
+    B (rel Frobenius <= 1e-4); a program with no fused lowering still
+    raises under "fused"."""
+    from numpywren_tpu_torch.compiler import lower
+    from numpywren_tpu_torch.frontend import lpcompile
+
+    calls = []
+    monkeypatch.setattr(lower, "_run_fused_bdfac",
+                        lambda p, _run=lower._run_fused_bdfac: calls.append(1) or _run(p))
+    monkeypatch.setattr(TorchTaskExecutor, "run", lambda self, **kw: pytest.fail("generic"))
+    x = rng.standard_normal((3 * T, 3 * T)).astype(np.float32)
+    jprog, jb, _ = jnpw.bdfac(x, tile=(T, T))
+    jnpw.run_program(jprog, executor="fused")
+    for executor in ("auto", "fused"):
+        prog, b, _ = npw.bdfac(x, tile=(T, T), device="cpu")
+        assert npw.run_program(prog, executor=executor) == PS.SUCCESS
+        assert np.linalg.norm(b.numpy() - jb.numpy()) <= 1e-4 * np.linalg.norm(jb.numpy())
+    assert calls == [1, 1]
+    m = shard_matrix(x, tile=(T, T), device="cpu")
+    c, d = (npw.TiledMatrix(shape=x.shape, tile=(T, T), device="cpu") for _ in range(2))
+    prog = lpcompile(USER_PROGRAM).bind(A=m, C=c, D=d, N=3)
     with pytest.raises(ValueError, match="no fused lowering"):
         npw.run_program(prog, executor="fused")
 

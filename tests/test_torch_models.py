@@ -32,6 +32,16 @@ from numpywren_tpu_torch.ops import pallas_factor as pf
 ROOT = Path(__file__).resolve().parent.parent
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: these sizes gain nothing from a pool, and a
+    pool per test worker oversubscribes the cores the workers share."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _logspace_matrix(rng, m, n, kappa):
     k = min(m, n)
     u, _ = np.linalg.qr(rng.standard_normal((m, k)))
@@ -304,13 +314,20 @@ def test_svd_tiled_input(rng):
         np.testing.assert_allclose(s, pm.svd(x, method="jacobi", tile=32, device="cpu")[1])
 
 
+class _MeshStub:
+    """A mesh of two devices, as far as singular_values looks at one."""
+    size = 2
+
+
 @pytest.mark.parametrize("call,item", [
-    (lambda x: pm.svd(x, device="cpu"), "#5b"),
-    (lambda x: pm.svd(x, method="bdfac", device="cpu"), "#5b"),
-    (lambda x: pm.singular_values(x), "#5b"),
     (lambda x: pm.svd(x, method="qdwh", device="cpu"), "#5c"),
+    (lambda x: pm.singular_values(x, finish="qdwh", device="cpu"), "#5c"),
+    (lambda x: pm.svd(x, method="bdfac", uv_finish="device", device="cpu"), "#5c"),
+    (lambda x: pm.singular_values(x, mesh=_MeshStub(), device="cpu"), "#6"),
 ])
 def test_entries_not_ported_yet_raise(rng, call, item):
+    """What is left unported raises and names its ROADMAP item: the QDWH
+    route (#5c) and a mesh of more than one device (#6)."""
     x = rng.standard_normal((32, 32)).astype(np.float32)
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
         call(x)
@@ -374,3 +391,296 @@ def test_models_import_without_jax():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "False"
+
+
+# ---------------------------------------------------------------------------
+# singular_values and svd(method="bdfac"): the two-stage SVD on the fused BDFAC
+# ---------------------------------------------------------------------------
+# Bars are the reference tests' (tests/test_models.py): sigma rtol/atol 1e-3
+# against fp64 (small-sigma: rtol 5e-3, atol 1e-6; rank-deficient: rtol
+# 2e-3, atol 2e-3·s_max; svd's _check_svd: sigma rtol 1e-3 / atol
+# 1e-3·s_max, reconstruction < 1e-4, UᵀU and VVᵀ within 5e-4 of I), and
+# sigma within 1e-5·s_max of the JAX package's where both run the same
+# two stages.
+
+def _s64(x):
+    return np.linalg.svd(np.asarray(x, np.float64), compute_uv=False)
+
+
+def _check_svd(x, u, s, vt, rtol=1e-4):
+    x64 = x.astype(np.float64)
+    k = min(x.shape)
+    assert u.shape == (x.shape[0], k) and vt.shape == (k, x.shape[1])
+    s_ref = _s64(x)
+    np.testing.assert_allclose(s, s_ref, rtol=1e-3, atol=1e-3 * s_ref[0])
+    rec = (u.astype(np.float64) * s) @ vt.astype(np.float64)
+    assert np.linalg.norm(rec - x64) / np.linalg.norm(x64) < rtol
+    np.testing.assert_allclose(u.T @ u, np.eye(k), atol=5e-4)
+    np.testing.assert_allclose(vt @ vt.T, np.eye(k), atol=5e-4)
+
+
+@pytest.mark.parametrize("finish", ["band", "dense"])
+@pytest.mark.parametrize("n,tile", [(64, 16), (96, 32)])
+def test_singular_values_matches_jax(rng, finish, n, tile):
+    x = rng.standard_normal((n, n)).astype(np.float32)
+    s = pm.singular_values(x, tile=tile, finish=finish, device="cpu")
+    assert s.shape == (n,) and s.dtype == np.float64
+    np.testing.assert_allclose(s, _s64(x), rtol=1e-3, atol=1e-3)
+    js = np.asarray(jm.singular_values(x, tile=tile, finish=finish))
+    assert np.abs(s - js).max() <= 1e-5 * js[0]
+
+
+def test_singular_values_pad_small_sigma_and_rectangular(rng):
+    """n not a multiple of tile (zero-padded, Householder panels); kappa 1e4
+    (the small sigmas keep relative accuracy); (128, 48) and (48, 128)
+    through one CholeskyQR chain to the square R."""
+    x = rng.standard_normal((70, 70)).astype(np.float32)
+    np.testing.assert_allclose(pm.singular_values(x, tile=32, device="cpu"), _s64(x),
+                               rtol=1e-3, atol=1e-3)
+    x, s_true = _logspace_matrix(rng, 64, 64, 1e4)
+    np.testing.assert_allclose(pm.singular_values(x, tile=16, device="cpu"), s_true,
+                               rtol=5e-3, atol=1e-6)
+    for shape in ((128, 48), (48, 128)):
+        x = rng.standard_normal(shape).astype(np.float32)
+        s = pm.singular_values(x, tile=16, device="cpu")
+        assert s.shape == (min(shape),)
+        np.testing.assert_allclose(s, _s64(x), rtol=1e-3, atol=1e-3)
+
+
+def test_singular_values_rank_deficient_reruns_house(rng, monkeypatch):
+    """Exactly rank-deficient unpadded squares: rank 20 of 64 (the
+    reference test's input; its sigma at the reference's bar, whichever
+    panels ran), and a zero leading panel, whose CholeskyQR factor fails:
+    the failure stays in the data (NaN B, no raise) and the ||B||_F check
+    reruns with Householder panels."""
+    from numpywren_tpu_torch.compiler import lower
+
+    x = (rng.standard_normal((64, 20)) @ rng.standard_normal((20, 64))).astype(np.float32)
+    s_ref = _s64(x)
+    np.testing.assert_allclose(pm.singular_values(x, tile=16, device="cpu"), s_ref,
+                               rtol=2e-3, atol=2e-3 * s_ref[0])
+    methods = []
+    real = lower.fused_bdfac
+    monkeypatch.setattr(lower, "fused_bdfac",
+                        lambda *a, **kw: methods.append(kw.get("panel_method")) or real(*a, **kw))
+    x[:, :16] = 0.0
+    s_ref = _s64(x)
+    np.testing.assert_allclose(pm.singular_values(x, tile=16, device="cpu"), s_ref,
+                               rtol=2e-3, atol=2e-3 * s_ref[0])
+    assert methods == [None, "house"]
+    assert not torch.isfinite(real(torch.from_numpy(x), 16)).all()
+
+
+@pytest.mark.parametrize("storage", ["host", "hbm"])
+def test_singular_values_tiled_runs_fused(rng, monkeypatch, storage):
+    """A tiled input runs bdfac + run_program through the fused lowering
+    (once) and reads only the band blocks (ku = tile, corner-tightened)."""
+    from numpywren_tpu_torch.compiler import lower
+    from numpywren_tpu_torch.matrix_init import shard_matrix
+
+    calls = []
+    real = lower.fused_bdfac
+    monkeypatch.setattr(lower, "fused_bdfac", lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    x = rng.standard_normal((96, 96)).astype(np.float32)
+    s = pm.singular_values(shard_matrix(x, tile=(32, 32), storage=storage, device="cpu"))
+    np.testing.assert_allclose(s, _s64(x), rtol=1e-3, atol=1e-3)
+    assert calls == [1]
+
+
+def test_packed_band_from_blocks_matches_jax(rng):
+    """The band packed from B's blocks (corner-tightened: ku = tile) equals
+    the JAX package's packing of the same blocks; the GK eigensolve of the
+    blocks agrees with its dgbbrd finish (rtol/atol 1e-5)."""
+    from numpywren_tpu.models.svd import _packed_band_from_blocks as jpacked
+    from numpywren_tpu.tiled import TiledMatrix as JTiledMatrix
+    from numpywren_tpu_torch.matrix_init import shard_matrix
+    from numpywren_tpu_torch.models import band
+    from numpywren_tpu_torch.models.svd import _gk_band_from_blocks, _packed_band_from_blocks
+
+    x = rng.standard_normal((96, 96)).astype(np.float32)
+    prog, b_mat, _ = pm.bdfac(shard_matrix(x, tile=(32, 32), device="cpu"))
+    from numpywren_tpu_torch import run_program
+
+    run_program(prog)
+    ab, nn, ku = _packed_band_from_blocks(b_mat)
+    jb = JTiledMatrix(shape=(96, 96), tile=(32, 32), storage="host")
+    for i, j in b_mat.block_idxs_exist:
+        jb.put_block(b_mat.get_block(i, j).numpy(), i, j)
+    jab, jnn, jku = jpacked(jb)
+    assert ku == jku == 32 and nn == jnn == 96
+    np.testing.assert_allclose(ab, jab, rtol=1e-12, atol=1e-12)
+    s = band.band_sigma_packed(ab, nn, nn, 0, ku)[:96]
+    np.testing.assert_allclose(s, _s64(x), rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(s, _gk_band_from_blocks(b_mat)[:96], rtol=1e-5, atol=1e-5)
+
+
+def test_singular_values_wide_band_routes_through_reduce(monkeypatch):
+    """A tile that leaves the band wider than 256 goes through band_reduce
+    on the input's device (not a dense gesdd), with the corner-tightened
+    ku = tile and the block width NPW_BAND_REDUCE_W names (32 here, which
+    also narrows the host finish to ku = 63); sigma within 1e-4·s_max of
+    fp64 (the reference test's bar)."""
+    from numpywren_tpu_torch.models import band_reduce
+
+    seen = []
+    real = band_reduce.band_reduce_packed
+    monkeypatch.setattr(band_reduce, "band_reduce_packed",
+                        lambda bd, ku, w=64, device=None: seen.append((ku, w, device))
+                        or real(bd, ku, w=w, device=device))
+    monkeypatch.setenv("NPW_BAND_REDUCE_W", "32")
+    x = np.random.default_rng(5).standard_normal((576, 576)).astype(np.float32)
+    s = pm.singular_values(x, tile=288, device="cpu")
+    assert seen == [(288, 32, torch.device("cpu"))]
+    s_ref = _s64(x)
+    assert np.max(np.abs(s - s_ref)) / s_ref[0] < 1e-4
+
+
+@pytest.mark.parametrize("exc", [RuntimeError("CUDA error: an illegal memory access"),
+                                 torch.cuda.OutOfMemoryError("CUDA out of memory"),
+                                 FloatingPointError("band_reduce leaked 1.0")],
+                         ids=["cuda_error", "out_of_memory", "leak"])
+def test_singular_values_band_reduce_fault_propagates(rng, monkeypatch, exc):
+    """An error of the device reduction is a fault, not a route: it reaches
+    the caller instead of a dense host gesdd (one tile of 130: band 260 >
+    256 takes band_reduce)."""
+    from numpywren_tpu_torch.models import band_reduce
+
+    def broken(*a, **kw):
+        raise exc
+
+    monkeypatch.setattr(band_reduce, "band_reduce_packed", broken)
+    x = rng.standard_normal((130, 130)).astype(np.float32)
+    with pytest.raises(type(exc), match=str(exc)):
+        pm.singular_values(x, device="cpu")
+
+
+def test_singular_values_lapack_error_takes_dense_gesdd(rng, monkeypatch):
+    """LAPACK's own error (dgbbrd's info, a host RuntimeError) after the
+    reduction takes the reference's dense host gesdd: sigma within 1e-4
+    s_max of fp64."""
+    from numpywren_tpu_torch.models import band
+
+    def failing(*a, **kw):
+        raise RuntimeError("dgbbrd failed: info=-5")
+
+    monkeypatch.setattr(band, "band_sigma_packed", failing)
+    x = rng.standard_normal((130, 130)).astype(np.float32)
+    s, s_ref = pm.singular_values(x, device="cpu"), _s64(x)
+    assert np.max(np.abs(s - s_ref)) / s_ref[0] < 1e-4
+
+
+def test_singular_values_band_finish_tightened_ku(rng, monkeypatch):
+    """A band of 128 goes to LAPACK directly with the tightened ku = tile;
+    tile=None picks 512 (n <= 2048) as the reference does, which one tile
+    of 120 clamps to n: one block, band 2n."""
+    from numpywren_tpu_torch.models import band
+
+    seen = []
+    real = band.band_sigma_lapack
+    monkeypatch.setattr(band, "band_sigma_lapack",
+                        lambda a, ku, kl=0: seen.append(ku) or real(a, ku=ku, kl=kl))
+    x = rng.standard_normal((256, 256)).astype(np.float32)
+    s_ref = _s64(x)
+    np.testing.assert_allclose(pm.singular_values(x, tile=128, device="cpu"), s_ref,
+                               rtol=1e-3, atol=1e-3 * s_ref[0])
+    x = rng.standard_normal((120, 120)).astype(np.float32)
+    np.testing.assert_allclose(pm.singular_values(x, device="cpu"), _s64(x),
+                               rtol=1e-3, atol=1e-3 * _s64(x)[0])
+    assert seen == [128, 2 * 120]
+
+
+def test_singular_values_argument_errors(rng):
+    for args, kw, exc in (((rng.standard_normal(32),), {}, ValueError),
+                          ((rng.standard_normal((8, 8)),), {"finish": "qr"}, ValueError)):
+        with pytest.raises(exc) as ref_err:
+            jm.singular_values(*args, **kw)
+        with pytest.raises(exc) as port_err:
+            pm.singular_values(*args, device="cpu", **kw)
+        assert str(port_err.value).split(",")[0] == str(ref_err.value).split(",")[0]
+
+
+@pytest.mark.parametrize("n,tile", [(64, 16), (96, 32), (70, 32)])
+def test_svd_bdfac_square(rng, n, tile):
+    """method=None routes to "bdfac" on the CPU; sigma within 1e-5·s_max
+    of the JAX package's."""
+    x = rng.standard_normal((n, n)).astype(np.float32)
+    u, s, vt = pm.svd(x, tile=tile, device="cpu")
+    assert u.dtype == s.dtype == vt.dtype == np.float32
+    _check_svd(x, u, s, vt)
+    _, js, _ = jm.svd(x, tile=tile)
+    assert np.abs(s - np.asarray(js)).max() <= 1e-5 * float(js[0])
+
+
+def test_svd_bdfac_vectors_match_numpy_up_to_sign(rng):
+    """The reference test's input (kappa 1e3 logspace, 64², tile 16) and
+    sigma bar (rtol 1e-4, atol 1e-5). Its vector bar, 1e-4 per entry up to
+    a sign, is at the noise of the CholeskyQR panels' 1e-5 orthogonality
+    (conv_tol): JAX's U is off by 8.4e-5 on this input, the port's by
+    1.06e-4, the port's with conv_tol 1e-6 by 3.0e-5. So each entry of U
+    and Vt is held within 1.5x of the JAX package's own largest error on
+    the same input, and 2e-4 absolute."""
+    x, _ = _logspace_matrix(rng, 64, 64, 1e3)
+    u, s, vt = pm.svd(x, tile=16, method="bdfac", device="cpu")
+    ju, _, jvt = (np.asarray(a) for a in jm.svd(x, tile=16))
+    u_ref, s_ref, vt_ref = np.linalg.svd(x.astype(np.float64))
+    np.testing.assert_allclose(s, s_ref, rtol=1e-4, atol=1e-5)
+
+    def err(u_, vt_):
+        flip = np.sign(np.sum(u_ * u_ref, axis=0))
+        return (np.abs(u_ * flip - u_ref).max(), np.abs(vt_ * flip[:, None] - vt_ref).max())
+
+    for got, want in zip(err(u, vt), err(ju, jvt)):
+        assert got <= min(1.5 * want, 2e-4)
+
+
+@pytest.mark.parametrize("shape", [(160, 48), (48, 160)])
+def test_svd_bdfac_rectangular(rng, shape):
+    x = rng.standard_normal(shape).astype(np.float32)
+    u, s, vt = pm.svd(x, tile=16, method="bdfac", device="cpu")
+    _check_svd(x, u, s, vt)
+
+
+@pytest.mark.parametrize("shape", [(192, 192), (256, 96)])
+def test_svd_bdfac_refine(rng, shape):
+    """refine=2 (the reference test's contract): reconstruction within 2x
+    of the unrefined factors', ||UᵀU - I||_F/sqrt(k) < 2e-6, sigma within
+    rtol 5e-4 / atol 5e-5 of the unrefined."""
+    x = rng.standard_normal(shape).astype(np.float32)
+    u0, s0, vt0 = pm.svd(x, tile=32, method="bdfac", refine=0, device="cpu")
+    u1, s1, vt1 = pm.svd(x, tile=32, method="bdfac", refine=2, device="cpu")
+    x64 = x.astype(np.float64)
+
+    def recon(u, s, vt):
+        u, s, vt = (np.asarray(a, np.float64) for a in (u, s, vt))
+        return np.linalg.norm(x64 - (u * s) @ vt) / np.linalg.norm(x64)
+
+    assert recon(u1, s1, vt1) < 2.0 * recon(u0, s0, vt0) + 1e-6
+    k = min(shape)
+    u64 = u1.astype(np.float64)
+    assert np.linalg.norm(u64.T @ u64 - np.eye(k)) / np.sqrt(k) < 2e-6
+    np.testing.assert_allclose(s1, s0, rtol=5e-4, atol=5e-5)
+
+
+@pytest.mark.parametrize("panel_method,storage", [(None, "host"), ("house", None)])
+def test_svd_bdfac_tiled_and_house(rng, panel_method, storage):
+    """A tiled (host-tier) input is materialized and runs on its device;
+    Householder panels pass the same checks."""
+    from numpywren_tpu_torch.matrix_init import shard_matrix
+
+    x = rng.standard_normal((96 if storage else 64,) * 2).astype(np.float32)
+    arg = shard_matrix(x, tile=(32, 32), storage=storage, device="cpu") if storage else x
+    u, s, vt = pm.svd(arg, tile=32 if storage else 16, panel_method=panel_method,
+                      method="bdfac", device=None if storage else "cpu")
+    _check_svd(x, u, s, vt)
+
+
+def test_svd_bdfac_tensor_stays_put_and_errors(rng):
+    """A CPU tensor runs where it is and is not written; an unknown
+    uv_finish raises ValueError before any work."""
+    x = rng.standard_normal((48, 48)).astype(np.float32)
+    xt = torch.from_numpy(x.copy())
+    u, s, vt = pm.svd(xt, tile=16)
+    np.testing.assert_array_equal(xt.numpy(), x)
+    _check_svd(x, u, s, vt)
+    with pytest.raises(ValueError, match="unknown uv_finish"):
+        pm.svd(xt, uv_finish="gpu")
