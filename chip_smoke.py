@@ -10,8 +10,8 @@ blocked Cholesky at N=32768 (P2-P5), the factor ops (P6), TSQR at
 BASELINE config 3's 1,048,576 x 512 and beside it (P8-P11), GEMM at 8192
 (P12), the QR kernel and ops.qr_leaf (P13-P14), the generic DSL
 executors on both storage tiers (P15-P16), the out-of-core Cholesky
-(P17), the models (P18), and the fused BDFAC with the two-stage SVD on it
-(P19):
+(P17), the models (P18), the fused BDFAC with the two-stage SVD on it
+(P19), and the QDWH route with the out-of-core BDFAC (P20):
 
   P0  the card, its power limit, the kernel build
   P1  each kernel vs its plain version: relative Frobenius error <= 1e-5
@@ -175,6 +175,34 @@ executors on both storage tiers (P15-P16), the out-of-core Cholesky
       versions (KERNEL_BAR; matmul3 also SPLIT_BAR against
       _matmul_split_ref; the chain P7's bars at BDFAC's conv_tol 1e-5),
       timed in turns with its library call
+  P20 the QDWH route (models/qdwh.py) and the out-of-core BDFAC
+      (runtime/spill.py's out_of_core_bdfac), each call run twice (host
+      synchronizations, chains and extras passes counted, then timed) with
+      the launch counters set to 0 before each run: svd(method="qdwh") on
+      P18's n = 4096 Gaussian Jacobi operand (beside its Jacobi seconds)
+      and on P19's n = 8192 X, singular_values(finish="qdwh") on that X,
+      and svd(uv_finish="device") on P19's svd operand (n = 2048, tile
+      512, beside its host-finish seconds): device seconds, the QR,
+      Cholesky and extra Halley steps, matmul launches, seconds of the
+      polar decomposition, eigh and the rest (CUDA events), sigma within
+      1e-4 sigma_max, reconstruction < 1e-4, max |UᵀU - I|, |VVᵀ - I|
+      < 5e-4 (P19's svd bars), each also reported against the reference
+      tests' 1e-5; then out_of_core_bdfac of host tiers of P19's X at
+      tile 512, W = 2048, by default, compensated and "highest", and at
+      tile 256, W = 256, under NPW_PALLAS_CHAIN and NPW_PALLAS_FACTOR:
+      sigma(B) within 1e-4 sigma_max of P19's (sigma_by_gram),
+      | ||B||_F - ||X||_F | <= 1e-3 ||X||_F, B zero below its diagonal and
+      past 2W - 1 (<= 1e-5 ||X||_F), H2D and D2H bytes (from the loop's
+      shapes) and GB/s beside one pinned 512 MiB copy each way, device
+      memory growth within ooc_bdfac_memory_bound; out_of_core_singular_values
+      at tile 128, W = 128, where the host has a LAPACK library; a 4 GiB
+      host tier at --n-ooc (32768), compensated, W = 2048, held by
+      ||B||_F and ||BᵀB||_F against X's (fp64 on the card, within 1e-3)
+      and its band, then profiled in a new process (spill_profile); then
+      matmul at QDWH's Gram and QR-step shapes at n = 8192 and matmul3 at
+      the --n-ooc run's first apply, against their plain versions
+      (KERNEL_BAR; SPLIT_BAR and KERNEL_BAR against _matmul_split_ref),
+      timed in turns with their library call
 
 Residuals ||A - L Lᵀ||_F / ||A||_F are computed on the card in fp64 and
 must be <= 1e-4. TSQR phases hold ||QᵀQ - I||_F/sqrt(b) <= 1e-4,
@@ -2218,7 +2246,8 @@ def p18_models(torch, gen, m: int, m_rand: int, n_rand: int, n_jac: int, m_jac: 
                n_jac_tall: int, block: int = JACOBI_BLOCK):
     """The models through their entry points: least squares, ridge, svd_tall,
     PCA (tall and randomized), svd_jacobi and svd(method="jacobi").
-    Returns the launches of matmul3, potrf_inv and the chain in the runs."""
+    Returns the launches of matmul3, potrf_inv and the chain in the runs,
+    and the Gaussian Jacobi run's operand, its sigma and its seconds."""
     from numpywren_tpu_torch import models
 
     card = gpu_line()
@@ -2308,7 +2337,9 @@ def p18_models(torch, gen, m: int, m_rand: int, n_rand: int, n_jac: int, m_jac: 
     pca_check("randomized", x, "randomized", PCA_RANDOMIZED_BAR)
     del x
 
-    # the block-Jacobi SVD at the reference's on-chip size
+    # the block-Jacobi SVD at the reference's on-chip size; P20 takes the
+    # Gaussian operand, its sigma and its seconds
+    jacobi = {}
     for label, x in (("gaussian", torch.randn(n_jac, n_jac, generator=gen, device="cuda")),
                      ("kappa_1e4", kappa_panel(torch, gen, n_jac, n_jac, 1e4))):
         trace = []
@@ -2318,10 +2349,13 @@ def p18_models(torch, gen, m: int, m_rand: int, n_rand: int, n_jac: int, m_jac: 
             return models.svd_jacobi(x, block=block, _sweep_trace=trace)
 
         (u, s, vt), row = model_call(torch, run)
-        q = svd_quality(torch, x, u, s, vt, sigma64(torch, x))
+        s_ref = sigma64(torch, x)
+        q = svd_quality(torch, x, u, s, vt, s_ref)
         emit_row({"model": "svd_jacobi", "matrix": label, "n": n_jac, "block": block,
                   "sweeps": len(trace), "off_norms": trace, **q, **row})
         require_svd(f"P18 svd_jacobi {label}", q)
+        if label == "gaussian":
+            jacobi = {"x": x, "sv_ref": s_ref, "seconds": row["seconds"]}
     for kind, dims in (("jacobi_sweep", (n_jac, block)), ("least_squares", (m, 512))):
         prof = in_new_process("P18", "fresh_model_profile", kind, *dims)
         emit_row({"model": "profile", **prof}, counted=False)
@@ -2343,7 +2377,7 @@ def p18_models(torch, gen, m: int, m_rand: int, n_rand: int, n_jac: int, m_jac: 
           "nvidia_smi": card})
     for k, n in launches.items():
         require(n > 0, f"P18: {k} was not launched on the models' path")
-    return launches
+    return launches, jacobi
 
 
 # ---------------------------------------------------------------------------
@@ -2358,15 +2392,22 @@ SVD_RECON_BAR = 1e-4
 SVD_ORTHO_BAR = 5e-4
 
 
+def sigma_by_gram(torch, b):
+    """Singular values of b, descending, as the square roots of the
+    eigenvalues of bᵀb in fp64 on the card (0.67 s at 8192, against
+    svdvals' 8.9): an eigenvalue error of n eps64 ||b||² moves a sigma by
+    at most sqrt(n eps64) sigma_max, 1e-6 of sigma_max at 8192, a
+    hundredth of the BDFAC bar."""
+    b64 = b.double()
+    return torch.linalg.eigvalsh(b64.T @ b64).clamp_min(0.0).sqrt().flip(0)
+
+
 def bdfac_quality(torch, x, bd, tile: int, sv_ref, x_f: float) -> dict:
     """The BDFAC bars' numbers for B = bd of x, in fp64 on the card: the
     largest entry off the diagonal and superdiagonal tile blocks over
     ||X||_F, max |sigma(B) - sigma(X)| over sigma_max (sv_ref: sigma64
-    of X, taken once per input) and | ||B||_F - ||X||_F | over ||X||_F.
-    sigma(B) is the square root of the eigenvalues of BᵀB in fp64
-    (0.67 s at 8192, against svdvals' 8.9): an eigenvalue error of
-    n eps64 ||B||² moves a sigma by at most sqrt(n eps64) sigma_max, 1e-6
-    of sigma_max at 8192, a hundredth of the bar."""
+    of X, taken once per input) and | ||B||_F - ||X||_F | over ||X||_F,
+    sigma(B) by sigma_by_gram."""
     n = x.shape[0]
     g = n // tile
     d = torch.arange(g)[None, :] - torch.arange(g)[:, None]
@@ -2374,8 +2415,7 @@ def bdfac_quality(torch, x, bd, tile: int, sv_ref, x_f: float) -> dict:
     mask = band.repeat_interleave(tile, 0).repeat_interleave(tile, 1).to(bd.device)
     off = float(bd.masked_fill(mask, 0.0).abs().max())
     t0 = time.perf_counter()
-    b64 = bd.double()
-    sv = torch.linalg.eigvalsh(b64.T @ b64).clamp_min(0.0).sqrt().flip(0)
+    sv = sigma_by_gram(torch, bd)
     sv_err = float((sv - sv_ref).abs().max())
     sv_s = time.perf_counter() - t0
     b_f = float(torch.linalg.norm(bd.double()))
@@ -2465,6 +2505,25 @@ def fresh_bdfac_profile(torch, n: int, tile: int) -> dict:
             "profile_sessions": attempt}
 
 
+def product_row(torch, phase: str, card: str, name: str, m: int, k: int, nn: int, run, plain,
+                lib, split_ref, split_bar: float, planes: int, with_c: bool = True) -> dict:
+    """One GEMM kernel call `run` (an m x k by k x nn product, with a c
+    read when with_c) against its plain version (KERNEL_BAR) and its own
+    split arithmetic (split_bar), timed in turns with the plain version and
+    the library call `lib`, beside its bound at `planes` bf16 products;
+    emitted under `phase` and returned."""
+    row = _check(f"{name}", run(), plain())
+    row["rel_err_split_ref"] = _check(f"{name} vs split", run(), split_ref(),
+                                      split_bar)["rel_err"]
+    ms, plain_ms, lib_ms = in_turns(torch, run, plain, lib, iters=5)
+    flops, nbytes = 2 * m * nn * k, 4 * (m * k + k * nn + (2 if with_c else 1) * m * nn)
+    b_ms, b_by = bound(planes * flops, nbytes, PEAK_BF16)
+    row.update(kernel=name.split(":")[0], shape=[m, k, nn], ms=ms, plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+    emit({"phase": phase, **row, "nvidia_smi": card})
+    return row
+
+
 def p19_kernel_checks(torch, gen, n: int, n_svd: int, card: str) -> list:
     """The kernels of P19's path at its shapes against their plain versions,
     timed in turns with their library call: matmul3 at the tile-512
@@ -2482,17 +2541,8 @@ def p19_kernel_checks(torch, gen, n: int, n_svd: int, card: str) -> list:
     gemm = gemm_module()
     rows = []
 
-    def product(name, m, k, nn, run, plain, lib, split_ref, split_bar, planes):
-        row = _check(f"{name}", run(), plain())
-        row["rel_err_split_ref"] = _check(f"{name} vs split", run(), split_ref(),
-                                          split_bar)["rel_err"]
-        ms, plain_ms, lib_ms = in_turns(torch, run, plain, lib, iters=5)
-        flops, nbytes = 2 * m * nn * k, 4 * (m * k + k * nn + 2 * m * nn)
-        b_ms, b_by = bound(planes * flops, nbytes, PEAK_BF16)
-        row.update(kernel=name.split(":")[0], shape=[m, k, nn], ms=ms, plain_ms=plain_ms,
-                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
-        emit({"phase": "P19", **row, "nvidia_smi": card})
-        rows.append(row)
+    def product(*args):
+        rows.append(product_row(torch, "P19", card, *args))
 
     buf = torch.randn(n, n, generator=gen, device="cuda")
     t = 512
@@ -2599,7 +2649,9 @@ def p19_bdfac(torch, npw, n: int, n_kappa: int, n_sv: int, n_svd: int, seed: int
               n_sv_default: int = 2560):
     """The fused BDFAC and the two-stage SVD on it (see the module
     docstring). Returns the launches of matmul, matmul3, potrf_inv and the
-    chain on the path."""
+    chain on the path, the kernel checks, and the operands P20 takes: the
+    n x n Gaussian X with its fp64 sigma and norm, the svd operand with its
+    sigma, and the host-finish svd's seconds."""
     import numpy as np
 
     from numpywren_tpu_torch import models
@@ -2654,7 +2706,6 @@ def p19_bdfac(torch, npw, n: int, n_kappa: int, n_sv: int, n_svd: int, seed: int
         if label in need:
             require(row["launches"][need[label]] > 0, f"P19 bdfac {label}: {row['launches']}")
         del bd
-    del x, sv_ref
     torch.cuda.empty_cache()
 
     prof = in_new_process("P19", "fresh_bdfac_profile", n, 512)
@@ -2769,7 +2820,7 @@ def p19_bdfac(torch, npw, n: int, n_kappa: int, n_sv: int, n_svd: int, seed: int
     ab_card = torch.as_tensor(ab, dtype=torch.float64, device="cuda")
     for r in range(ku2 + 1):
         dense.diagonal(ku2 - r)[:] = ab_card[r, ku2 - r:]
-    sv_band = torch.linalg.eigvalsh(dense.T @ dense).clamp_min(0.0).sqrt().flip(0)[:n_sv]
+    sv_band = sigma_by_gram(torch, dense)[:n_sv]
     chase_err = float((sv_band - ss_ref).abs().max() / ss_ref[0])
     emit_row({"run": "band_reduce", "n": n_sv, "ku": t, "w": w, "ku2": ku2, "m": m,
               "hops": band_reduce.chase_hops(n_sv, t, w), "s_max_abs_err_rel": chase_err,
@@ -2781,6 +2832,7 @@ def p19_bdfac(torch, npw, n: int, n_kappa: int, n_sv: int, n_svd: int, seed: int
     xv = torch.randn(n_svd, n_svd, generator=gen, device="cuda")
     sv_svd = sigma64(torch, xv)
     calls = []
+    svd_seconds = {}
     real_fb = lower.fused_bdfac
     lower.fused_bdfac = lambda *a, **kw: calls.append(kw.get("accumulate")) or real_fb(*a, **kw)
     try:
@@ -2789,6 +2841,7 @@ def p19_bdfac(torch, npw, n: int, n_kappa: int, n_sv: int, n_svd: int, seed: int
             (u, s, vt), row = model_call(
                 torch, lambda: (calls.clear(), models.svd(xv, tile=512, **kw))[1])
             q = svd_bars(torch, xv, u, s, vt, sv_svd)
+            svd_seconds[label] = row["seconds"]
             emit_row({"run": "svd", "case": label, "n": n_svd, "tile": 512,
                       "bdfac_calls": len(calls), **q, **row})
             require(q["recon"] < SVD_RECON_BAR and q["ortho_u_max"] < SVD_ORTHO_BAR
@@ -2797,7 +2850,7 @@ def p19_bdfac(torch, npw, n: int, n_kappa: int, n_sv: int, n_svd: int, seed: int
             require(calls and all(calls), f"P19 svd {label}: the accumulating BDFAC did not run")
     finally:
         lower.fused_bdfac = real_fb
-    del xv, u, vt
+    del u, vt
     torch.cuda.empty_cache()
 
     checks = p19_kernel_checks(torch, gen, n, n_svd, card)
@@ -2805,6 +2858,367 @@ def p19_bdfac(torch, npw, n: int, n_kappa: int, n_sv: int, n_svd: int, seed: int
           "nvidia_smi": card})
     for k, cnt in launches.items():
         require(cnt > 0, f"P19: {k} was not launched on the BDFAC path")
+    operands = {"x": x, "sv_ref": sv_ref, "x_f": x_f, "xv": xv, "sv_svd": sv_svd,
+                "svd_seconds": svd_seconds["refine_0"]}
+    return launches, checks, operands
+
+
+# ---------------------------------------------------------------------------
+# P20: the QDWH route and the out-of-core BDFAC
+# ---------------------------------------------------------------------------
+
+OOC_TILE = 512
+OOC_PANEL_TILES = 4        # W = 2048
+OOC_BAND_BAR = 1e-5        # B's entries below the diagonal and past 2W - 1, over ||X||_F
+OOC_INVARIANT_BAR = 1e-3   # ||B||_F and ||BᵀB||_F against X's, relative
+REFERENCE_SVD_BAR = 1e-5   # tests/test_models.py:476-524's bars, reported beside P20's
+
+
+class QdwhProbe:
+    """While installed (`with QdwhProbe(torch) as probe:`), counts
+    models.qdwh's QR and Cholesky steps and records CUDA events around its
+    polar decompositions (qdwh.qdwh) and eigensolves (torch.linalg.eigh);
+    `clear()` starts the count again. No host synchronization of its own."""
+
+    def __init__(self, torch):
+        from numpywren_tpu_torch.models import qdwh
+
+        self.torch, self.mod = torch, qdwh
+        self.clear()
+
+    def clear(self):
+        self.steps = {"qr": 0, "cholesky": 0}
+        self.spans = {"polar": [], "eigh": []}
+        self.iterations = []
+
+    def _counted(self, fn, key):
+        def wrapper(*a, **kw):
+            self.steps[key] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    def _timed(self, fn, key):
+        def wrapper(*a, **kw):
+            begin, end = (self.torch.cuda.Event(enable_timing=True) for _ in range(2))
+            begin.record()
+            out = fn(*a, **kw)
+            end.record()
+            self.spans[key].append((begin, end))
+            if key == "polar":
+                self.iterations.append(out[2])
+            return out
+        return wrapper
+
+    def __enter__(self):
+        mod, linalg = self.mod, self.torch.linalg
+        self.saved = [(mod, "_use_qr", mod._use_qr), (mod, "_use_cholesky", mod._use_cholesky),
+                      (mod, "qdwh", mod.qdwh), (linalg, "eigh", linalg.eigh)]
+        mod._use_qr = self._counted(mod._use_qr, "qr")
+        mod._use_cholesky = self._counted(mod._use_cholesky, "cholesky")
+        mod.qdwh = self._timed(mod.qdwh, "polar")
+        linalg.eigh = self._timed(linalg.eigh, "eigh")
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, real in self.saved:
+            setattr(obj, name, real)
+
+    def row(self, seconds: float) -> dict:
+        """The steps and the seconds by part of the run since clear(),
+        whose device seconds are `seconds` (events already reached)."""
+        part = {k: sum(b.elapsed_time(e) for b, e in v) / 1e3 for k, v in self.spans.items()}
+        part["rest"] = seconds - part["polar"] - part["eigh"]
+        scheduled = len(self.mod._schedule(float(self.torch.finfo(self.torch.float32).eps),
+                                           10)[1])
+        return {"qr_steps": self.steps["qr"], "cholesky_steps": self.steps["cholesky"],
+                "halley_steps": self.steps["cholesky"] - scheduled * len(self.iterations),
+                "iterations": self.iterations, "seconds_by_part": part}
+
+
+def host_tier(torch, x, tile: int):
+    """The CUDA tensor x (n x n, n a multiple of tile) as a host-tier
+    TiledMatrix computing on the card: one pinned slab of tiles, filled by
+    one copy a tile row and adopted tile by tile (no tile pinned apart)."""
+    from numpywren_tpu_torch.tiled import TiledMatrix
+
+    n = x.shape[0]
+    g = n // tile
+    slab = torch.empty((g, g, tile, tile), pin_memory=True)
+    for i in range(g):
+        slab[i].copy_(x[i * tile:(i + 1) * tile].view(tile, g, tile).transpose(0, 1))
+    m = TiledMatrix(shape=(n, n), tile=(tile, tile), storage="host", device="cuda")
+    for i in range(g):
+        for j in range(g):
+            m.adopt_block(slab[i, j], i, j)
+    return m
+
+
+def ooc_bdfac_traffic(g: int, tile: int, pt: int) -> tuple:
+    """(H2D, D2H) bytes of one out_of_core_bdfac run over a g x g grid of
+    fp32 tiles at panel_tiles pt, from its loop's shapes: the real tiles
+    of each panel, chunk and band block (padding never crosses)."""
+    n_panels = g // pt
+    up = down = 0
+    for s in range(n_panels):
+        rows = g - s * pt
+        if rows == pt:  # the final square panel and its R
+            up, down = up + pt * pt, down + pt * pt
+            break
+        remaining = n_panels - s - 1
+        up += rows * pt + remaining * rows * pt      # the column panel, its chunks
+        down += pt * pt + remaining * rows * pt      # R, the chunks
+        if remaining == 1:                           # the superdiagonal block as it is
+            down += pt * pt
+            continue
+        cols = rows - pt
+        up += pt * cols + (cols // pt) * pt * cols   # the row panel, its chunks
+        down += pt * pt + (cols // pt) * pt * cols   # L, the chunks
+    return up * tile * tile * 4, down * tile * tile * 4
+
+
+def ooc_bdfac_memory_bound(n_pad: int, w: int) -> int:
+    """Device bytes out_of_core_bdfac may add (its docstring): 8 n_pad W +
+    16 W² fp32 values."""
+    return 4 * (8 * n_pad * w + 16 * w * w)
+
+
+def gram_fro64(torch, m, block: int = 4096) -> float:
+    """||mᵀm||_F (the root of the sum of sigma⁴) in fp64 on the card, by
+    column blocks of mᵀm."""
+    m64 = m.double()
+    total = 0.0
+    for j in range(0, m.shape[1], block):
+        g = m64.T @ m64[:, j:j + block]
+        total += float((g * g).sum())
+        del g
+    return total ** 0.5
+
+
+def band_excess(torch, b, w: int) -> float:
+    """The largest |entry| of b below its diagonal or past its 2w - 1-th
+    superdiagonal: what the out-of-core BDFAC's band must leave zero."""
+    return max(float(torch.tril(b, -1).abs().max()), float(torch.triu(b, 2 * w).abs().max()))
+
+
+def fresh_ooc_bdfac_profile(torch, n: int, tile: int, pt: int, seed: int) -> dict:
+    """One compensated out_of_core_bdfac of an n x n Gaussian host tier
+    (tile `tile`, panel_tiles pt) under torch.profiler (P17's
+    spill_profile), in the process that calls it (P20 runs it
+    in_new_process), after a warm-up at 2W."""
+    from numpywren_tpu_torch import config
+    from numpywren_tpu_torch.ops import _build
+    from numpywren_tpu_torch.runtime import spill
+
+    _build.build()
+    config.default_config().compensated = True
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    w = tile * pt
+    spill.out_of_core_bdfac(host_tier(torch, torch.randn(2 * w, 2 * w, generator=gen,
+                                                         device="cuda"), tile), panel_tiles=pt)
+    x = host_tier(torch, torch.randn(n, n, generator=gen, device="cuda"), tile)
+    torch.cuda.empty_cache()
+    return {"n": n, "tile": tile, "w": w, "config": "compensated",
+            **spill_profile(torch, lambda: spill.out_of_core_bdfac(x, panel_tiles=pt))}
+
+
+def p20_kernel_checks(torch, gen, n_qdwh: int, n_ooc: int, card: str) -> list:
+    """The kernels of P20's path at its shapes against their plain versions,
+    timed in turns with their library call: matmul at QDWH's Gram uᵀu
+    (u n_qdwh², ta=True) and at its QR step's e u + alpha q1 q2ᵀ (the
+    epilogue, q1, q2 n_qdwh²), also against _matmul_split_ref at three
+    planes; matmul3 at the first apply of the n_ooc out-of-core run
+    (chunk - W (Sᵀ W1): n_ooc x W by W x W, c the n_ooc x W chunk), also
+    against _matmul_split_ref at two planes."""
+    from numpywren_tpu_torch.ops import gemm3
+
+    gemm = gemm_module()
+    n = n_qdwh
+    u = torch.randn(n, n, generator=gen, device="cuda") / n ** 0.5
+    rows = [product_row(
+        torch, "P20", card, "matmul:qdwh_gram", n, n, n,
+        lambda: gemm.matmul(u, u, ta=True, precision="highest"),
+        lambda: gemm.matmul_ref(u, u, ta=True), lambda: torch.matmul(u.T, u),
+        lambda: gemm._matmul_split_ref(u, u, ta=True, planes=3), KERNEL_BAR, 6, with_c=False)]
+    q1 = torch.randn(n, n, generator=gen, device="cuda") / n ** 0.5
+    q2 = torch.randn(n, n, generator=gen, device="cuda") / n ** 0.5
+    alpha, beta = 0.25, 0.75
+    rows.append(product_row(
+        torch, "P20", card, "matmul:qdwh_qr_step", n, n, n,
+        lambda: gemm.matmul(q1, q2, u, tb=True, alpha=alpha, beta=beta, precision="highest"),
+        lambda: gemm.matmul_ref(q1, q2, u, tb=True, alpha=alpha, beta=beta),
+        lambda: torch.addmm(u, q1, q2.T, alpha=alpha, beta=beta),
+        lambda: gemm._matmul_split_ref(q1, q2, u, tb=True, alpha=alpha, beta=beta, planes=3),
+        KERNEL_BAR, 6))
+    del u, q1, q2
+    w = OOC_TILE * OOC_PANEL_TILES
+    wv = torch.randn(n_ooc, w, generator=gen, device="cuda") / n_ooc ** 0.5
+    sw1 = torch.randn(w, w, generator=gen, device="cuda")
+    chunk = torch.randn(n_ooc, w, generator=gen, device="cuda")
+    rows.append(product_row(
+        torch, "P20", card, "matmul3:ooc_apply", n_ooc, w, w,
+        lambda: gemm3.matmul3(wv, sw1, chunk), lambda: gemm3.matmul3_ref(wv, sw1, chunk),
+        lambda: torch.addmm(chunk, wv, sw1, alpha=-1.0),
+        lambda: gemm._matmul_split_ref(wv, sw1, chunk, alpha=-1.0, beta=1.0, planes=2),
+        SPLIT_BAR, 3))
+    return rows
+
+
+def p20_qdwh_ooc(torch, jacobi: dict, bdfac: dict, n_ooc: int, seed: int):
+    """The QDWH route and the out-of-core BDFAC (see the module docstring).
+    `jacobi` is P18's Gaussian Jacobi operand, `bdfac` P19's operands.
+    Returns the launches of matmul, matmul3, potrf_inv and the chain on the
+    path, and the kernel checks."""
+    from numpywren_tpu_torch import models
+    from numpywren_tpu_torch.compiler import lower
+    from numpywren_tpu_torch.models import band
+    from numpywren_tpu_torch.runtime import spill
+
+    card = gpu_line()
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(PATH_KERNELS, 0)
+
+    def emit_row(row):
+        for k in launches:
+            launches[k] += row.get("launches", {}).get(k, 0)
+        emit({"phase": "P20", **row, "nvidia_smi": card})
+
+    def reference_bars(q):
+        return {k: q[k] < REFERENCE_SVD_BAR for k in ("recon", "ortho_u_max", "ortho_v_max",
+                                                     "s_max_abs_err_rel") if k in q}
+
+    # the QDWH route
+    with QdwhProbe(torch) as probe:
+        def qdwh_run(label, x, s_ref, call, vectors=True, **extra):
+            out, row = model_call(torch, lambda: (probe.clear(), call())[1])
+            row.update(probe.row(row["seconds"]))
+            if vectors:
+                q = svd_bars(torch, x, *out, s_ref)
+                ok = (q["recon"] < SVD_RECON_BAR and q["ortho_u_max"] < SVD_ORTHO_BAR
+                      and q["ortho_v_max"] < SVD_ORTHO_BAR and q["s_max_abs_err_rel"] <= SV_BAR)
+            else:
+                err = float((torch.as_tensor(out.copy(), device="cuda") - s_ref).abs().max()
+                            / s_ref[0])
+                q = {"s_max_abs_err_rel": err}
+                ok = err <= SV_BAR
+            emit_row({"run": label, "n": x.shape[0], **q,
+                      "under_reference_1e-5": reference_bars(q), **extra, **row})
+            require(ok, f"P20 {label}: {q}")
+            require(row["launches"]["matmul"] > 0, f"P20 {label}: {row['launches']}")
+
+        xj = jacobi["x"]
+        qdwh_run("svd_qdwh", xj, jacobi["sv_ref"], lambda: models.svd(xj, method="qdwh"),
+                 jacobi_seconds=jacobi["seconds"])
+        x, sv_ref = bdfac["x"], bdfac["sv_ref"]
+        qdwh_run("svd_qdwh", x, sv_ref, lambda: models.svd(x, method="qdwh"))
+        qdwh_run("singular_values_qdwh", x, sv_ref,
+                 lambda: models.singular_values(x, finish="qdwh"), vectors=False)
+        xv = bdfac["xv"]
+        qdwh_run("svd_uv_finish_device", xv, bdfac["sv_svd"],
+                 lambda: models.svd(xv, tile=512, uv_finish="device"),
+                 tile=512, host_finish_seconds=bdfac["svd_seconds"])
+    torch.cuda.empty_cache()
+
+    # the out-of-core BDFAC of host tiers made from P19's X
+    link = link_yardstick(torch)
+    emit({"phase": "P20", "link": link, "nvidia_smi": card})
+    n, x_f = x.shape[0], bdfac["x_f"]
+
+    def ooc_run(label, xh, n_, tile, pt, flags=(), compensated=False, check=None, **kw):
+        """One out_of_core_bdfac(xh) through model_call; check(B on the
+        card) gives the quality numbers and whether they hold."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        b, row = model_call(torch, lambda: spill.out_of_core_bdfac(xh, panel_tiles=pt, **kw),
+                            flags, compensated)
+        growth = torch.cuda.max_memory_allocated() - before
+        limit = ooc_bdfac_memory_bound(n_, tile * pt)
+        up, down = ooc_bdfac_traffic(n_ // tile, tile, pt)
+        q, ok = check(host_tiles_to_card(torch, b, n_))
+        emit_row({"run": "ooc_bdfac", "route": label, "n": n_, "tile": tile, "w": tile * pt,
+                  **kw, **q, "b_storage": b.storage, "h2d_bytes": up, "d2h_bytes": down,
+                  "h2d_GBps": up / row["seconds"] / 1e9, "d2h_GBps": down / row["seconds"] / 1e9,
+                  "link_GBps": link, "memory_growth": growth, "memory_bound": limit, **row})
+        require(ok and b.storage == "host", f"P20 ooc_bdfac {label}: {q}")
+        require(growth <= limit, f"P20 ooc_bdfac {label}: device memory grew {growth} B > "
+                f"bound {limit}")
+        return row
+
+    def sigma_check(w):
+        def check(bc):
+            q = {"sv_err_over_max": float((sigma_by_gram(torch, bc) - sv_ref).abs().max()
+                                          / sv_ref[0]),
+                 "fro_err_over_fro": abs(float(torch.linalg.norm(bc.double())) - x_f) / x_f,
+                 "band_excess_over_fro": band_excess(torch, bc, w) / x_f}
+            return q, (q["sv_err_over_max"] <= BDFAC_BAR and q["fro_err_over_fro"] <= BDFAC_FRO_BAR
+                       and q["band_excess_over_fro"] <= OOC_BAND_BAR)
+        return check
+
+    t, pt = OOC_TILE, OOC_PANEL_TILES
+    xh = host_tier(torch, x, t)
+    need = {"compensated": "matmul3", "highest": "matmul", "chain": "cholqr2_chain",
+            "potrf_inv": "potrf_inv"}
+    for label, kw, comp in (("default", {}, False), ("compensated", {}, True),
+                            ("highest", {"precision": "highest"}, False)):
+        row = ooc_run(label, xh, n, t, pt, compensated=comp, check=sigma_check(t * pt), **kw)
+        if label in need:
+            require(row["launches"][need[label]] > 0, f"P20 ooc_bdfac {label}: {row['launches']}")
+    xh = host_tier(torch, x, 256)
+    for label, flag in (("chain", "NPW_PALLAS_CHAIN"), ("potrf_inv", "NPW_PALLAS_FACTOR")):
+        row = ooc_run(label, xh, n, 256, 1, flags=(flag,), check=sigma_check(256))
+        require(row["launches"][need[label]] > 0, f"P20 ooc_bdfac {label}: {row['launches']}")
+    del xh
+
+    # out_of_core_singular_values where the host has LAPACK: the reference's
+    # finish has no other route
+    if band.lapack_available():
+        xh = host_tier(torch, x, 128)
+        s, row = model_call(torch, lambda: spill.out_of_core_singular_values(xh, panel_tiles=1))
+        err = float((torch.as_tensor(s.copy(), device="cuda") - sv_ref).abs().max() / sv_ref[0])
+        emit_row({"run": "ooc_singular_values", "n": n, "tile": 128, "w": 128,
+                  "s_max_abs_err_rel": err, **row})
+        require(err <= SV_BAR, f"P20 ooc_singular_values: sigma off by {err} of s_max")
+        del xh
+    else:
+        emit({"phase": "P20", "run": "ooc_singular_values",
+              "not_run": "no LAPACK library on this host: out_of_core_singular_values' host "
+                         "finish (dgbbrd + dbdsdc) needs one, as the reference's does",
+              "nvidia_smi": card})
+
+    # n_ooc: a host tier of 4 GiB at n = 32768, compensated, W = 2048, held by
+    # two spectral invariants in fp64 on the card
+    gen = torch.Generator(device="cuda").manual_seed(seed + 20)
+    xb = torch.randn(n_ooc, n_ooc, generator=gen, device="cuda")
+    t0 = time.perf_counter()
+    xb_f = float(torch.linalg.norm(xb.double()))
+    xb_gram = gram_fro64(torch, xb)
+    ref_s = time.perf_counter() - t0
+    xh = host_tier(torch, xb, t)
+    del xb
+    torch.cuda.empty_cache()
+
+    def invariants(bc):
+        q = {"fro_err_over_fro": abs(float(torch.linalg.norm(bc.double())) - xb_f) / xb_f,
+             "gram_fro_err_over_fro": abs(gram_fro64(torch, bc) - xb_gram) / xb_gram,
+             "band_excess_over_fro": band_excess(torch, bc, t * pt) / xb_f,
+             "reference_seconds": ref_s}
+        return q, (q["fro_err_over_fro"] <= OOC_INVARIANT_BAR
+                   and q["gram_fro_err_over_fro"] <= OOC_INVARIANT_BAR
+                   and q["band_excess_over_fro"] <= OOC_BAND_BAR)
+
+    row = ooc_run("compensated", xh, n_ooc, t, pt, compensated=True, check=invariants)
+    require(row["launches"]["matmul3"] > 0, f"P20 ooc_bdfac {n_ooc}: {row['launches']}")
+    del xh
+    torch.cuda.empty_cache()
+    prof = in_new_process("P20", "fresh_ooc_bdfac_profile", n_ooc, t, pt, seed + 20)
+    emit({"phase": "P20", "run": "ooc_profile", **prof, "nvidia_smi": card})
+
+    checks = p20_kernel_checks(torch, torch.Generator(device="cuda").manual_seed(seed), n,
+                               n_ooc, card)
+    emit({"phase": "P20", "seconds": time.perf_counter() - t_phase, "launches": launches,
+          "nvidia_smi": card})
+    for k, cnt in launches.items():
+        require(cnt > 0, f"P20: {k} was not launched on the QDWH and out-of-core BDFAC path")
     return launches, checks
 
 
@@ -2836,6 +3250,8 @@ def main(argv=None) -> int:
     ap.add_argument("--n-sv-default", type=int, default=2560,
                     help="P19's singular_values size with the default tile")
     ap.add_argument("--n-svd", type=int, default=2048, help="P19's svd size")
+    ap.add_argument("--n-ooc", type=int, default=32768,
+                    help="P20's large out-of-core BDFAC size (its other runs take --n-bdfac)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.n % PANEL:
@@ -2847,6 +3263,9 @@ def main(argv=None) -> int:
     if args.n_bdfac % 1024 or args.n_sv % 1024 or args.n_bdfac_kappa % 256:
         raise SmokeFailure("--n-bdfac and --n-sv must be multiples of 1024, "
                            "--n-bdfac-kappa of 256")
+    ooc_w = OOC_TILE * OOC_PANEL_TILES
+    if args.n_bdfac % ooc_w or args.n_ooc % ooc_w:
+        raise SmokeFailure(f"--n-bdfac and --n-ooc must be multiples of {ooc_w}")
 
     import torch
 
@@ -2887,15 +3306,17 @@ def main(argv=None) -> int:
                 args.tile_bdfac)
     p16_host_tier(torch, npw, gen, args.n_dsl, args.n_local)
     spill_launches, _ = p17_spill(torch, npw, args.n_spill, args.n_spill_small, args.seed)
-    model_launches = p18_models(torch, gen, args.m, args.m_rand, args.n_rand, args.n_jacobi,
-                                args.m_jacobi, args.n_jacobi_tall)
-    bdfac_launches, _ = p19_bdfac(torch, npw, args.n_bdfac, args.n_bdfac_kappa, args.n_sv,
-                                  args.n_svd, args.seed, args.n_sv_default)
+    model_launches, jacobi = p18_models(torch, gen, args.m, args.m_rand, args.n_rand,
+                                        args.n_jacobi, args.m_jacobi, args.n_jacobi_tall)
+    bdfac_launches, _, bdfac = p19_bdfac(torch, npw, args.n_bdfac, args.n_bdfac_kappa, args.n_sv,
+                                         args.n_svd, args.seed, args.n_sv_default)
+    qdwh_launches, _ = p20_qdwh_ooc(torch, jacobi, bdfac, args.n_ooc, args.seed)
+    del jacobi, bdfac
     for name in ("matmul", "matmul3"):
         launches[name] += spill_launches[name]
     launches["matmul"] += ops_counts["matmul"]
     launches.update(potrf=ops_counts["potrf"], trtri=ops_counts["trtri"], **tsqr_counts)
-    for counts in (model_launches, bdfac_launches):
+    for counts in (model_launches, bdfac_launches, qdwh_launches):
         for name, n in counts.items():
             launches[name] += n
 

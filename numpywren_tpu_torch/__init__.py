@@ -15,8 +15,9 @@ kernels' plain PyTorch versions.
 Ported so far: ``cholesky`` / ``cholesky_trapezoid`` / ``cholesky_solve``,
 ``gemm``, ``tsqr`` and ``bdfac`` through ``run_program`` with the fused
 lowering and the generic executors ("jax", "local", "spill"), on the
-device tier and the host tier; the models (``models``: least squares, PCA,
-the SVD family on TSQR, Jacobi and BDFAC); the DSL ops
+device tier and the host tier; the out-of-core Cholesky and BDFAC
+(``runtime.spill``); the models (``models``: least squares, PCA, the SVD
+family on TSQR, Jacobi, BDFAC and QDWH); the DSL ops
 (``ops.TORCH_KERNELS``), ``binops`` and ``checkpoint``; down to the GEMM
 kernels (``ops.gemm``, ``ops.gemm3``) and the factorization kernels
 (``ops.pallas_factor``). See ROADMAP.md for the rest.

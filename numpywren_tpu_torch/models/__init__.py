@@ -15,8 +15,13 @@ On top of them, the finished end-user models:
                           on the device, then the band narrowed by
                           band_reduce and finished by host LAPACK, band.py)
 - svd.svd:                full SVD; method "bdfac" (None routes there off a
-                          TPU) accumulates the BDFAC's transforms, "jacobi"
-                          runs svd_jacobi
+                          TPU) accumulates the BDFAC's transforms and
+                          finishes on the host (or by QDWH on the device,
+                          uv_finish="device"), "jacobi" runs svd_jacobi,
+                          "qdwh" runs qdwh.svd (also
+                          singular_values(finish="qdwh"))
+- qdwh.qdwh, qdwh.svd:    QDWH polar decomposition and the thin SVD on it
+                          (polar + eigh of h, all on the device)
 
 - jacobi.svd_jacobi:      full SVD entirely on device (one-sided block
                           Jacobi: batched pair Grams + batched small eighs +
@@ -33,9 +38,8 @@ the current CUDA device (a host without one raises; pass device="cpu" to
 run the plain PyTorch versions). svd_jacobi and svd_refine return tensors
 on the input's device, the others ndarrays, as in the reference.
 
-Still raising NotImplementedError: the QDWH route (`svd(method="qdwh")`,
-`singular_values(finish="qdwh")`, `svd(uv_finish="device")`; ROADMAP
-Queue 1 #5c) and `singular_values` on a mesh of more than one device (#6).
+Still raising NotImplementedError: `singular_values` on a mesh of more
+than one device (ROADMAP Queue 1 #6).
 """
 
 from numpywren_tpu_torch.alg_wrappers import bdfac, cholesky, gemm, tsqr, tsqr_r_factor

@@ -19,11 +19,13 @@ Counterpart of numpywren_tpu/models/svd.py:
   with Householder re-orthogonalization; rank-k factors at product speed.
 - `svd(method="jacobi")`: the all-device one-sided block-Jacobi SVD
   (models.jacobi.svd_jacobi).
+- the QDWH route (`_qdwh_svd`, models.qdwh: a QDWH polar decomposition
+  and `torch.linalg.eigh` of its h, no host stage): `svd(method="qdwh")`,
+  `singular_values(finish="qdwh")` and `svd(uv_finish="device")`, the
+  device SVD of the BDFAC's B.
 
-Not ported yet, raising NotImplementedError: the QDWH route
-(`svd(method="qdwh")`, `singular_values(finish="qdwh")`,
-`svd(uv_finish="device")`; ROADMAP Queue 1 #5c) and a `mesh=` of more
-than one device (#6).
+Not ported yet, raising NotImplementedError: a `mesh=` of more than one
+device (ROADMAP Queue 1 #6).
 
 Inputs: a tensor stays where it is, an ndarray goes to `device` (else the
 current CUDA device). Results are ndarrays, as in the reference. The
@@ -44,7 +46,6 @@ from numpywren_tpu_torch.ops.common import as_tensor, np_dtype, to_numpy
 
 __all__ = ["singular_values", "svd", "svd_tall", "randomized_svd"]
 
-_QDWH = "the QDWH route is not ported yet (ROADMAP Queue 1 #5c)"
 _MESH = ("a mesh of more than one device: the multi-device BDFAC is not ported yet "
          "(ROADMAP Queue 1 #6)")
 
@@ -114,6 +115,16 @@ def _band_sigma(bd: np.ndarray, max_band: int, device=None) -> np.ndarray:
         return band.band_sigma_lapack(bd, ku=max_band)
     except RuntimeError:
         return _gk_band_sigma(bd, max_band=max_band)
+
+
+def _qdwh_svd(a: torch.Tensor, compute_uv: bool = True):
+    """The SVD by QDWH on a's device (models.qdwh.svd, thin): (u, s, vh)
+    tensors, or s alone. Every product is a device product and the
+    eigensolve is cuSOLVER's on the card: no O(n³) host stage, the
+    with-vectors route past the sizes where the host finish is slow."""
+    from numpywren_tpu_torch.models import qdwh
+
+    return qdwh.svd(a, full_matrices=False, compute_uv=compute_uv)
 
 
 def _tighten_corner_blocks(s_full: np.ndarray, d_last: np.ndarray):
@@ -258,8 +269,10 @@ def singular_values(x, tile: int = None, finish: str = "band",
 
     A tiled input runs `bdfac` + `run_program` (the fused lowering, or the
     streaming spill executor past the device budget) and reads only the
-    band blocks. finish="qdwh" (#5c) and a mesh of more than one device
-    (#6) raise NotImplementedError."""
+    band blocks. finish="qdwh" takes an array or tensor through
+    `_qdwh_svd` (compute_uv=False: no BDFAC, no host stage; a tiled input
+    keeps the BDFAC route). A mesh of more than one device (#6) raises
+    NotImplementedError."""
     from numpywren_tpu_torch.compiler.lower import fused_bdfac, fused_tsqr
     from numpywren_tpu_torch.models import band
 
@@ -279,11 +292,12 @@ def singular_values(x, tile: int = None, finish: str = "band",
             return band.band_sigma_packed(ab, nn, nn, 0, ku)[: x.shape[0]]
         except RuntimeError:
             return _gk_band_from_blocks(b_mat)[: x.shape[0]]
-    if finish == "qdwh":
-        raise NotImplementedError(f"singular_values(finish='qdwh'): {_QDWH}")
     x = as_tensor(x, device)
     if x.dim() != 2:
         raise ValueError(f"singular_values expects a matrix, got {tuple(x.shape)}")
+    if finish == "qdwh":
+        s = to_numpy(_qdwh_svd(x.float(), compute_uv=False))
+        return np.sort(s)[::-1][:min(x.shape)].astype(np.float64)
     if tile is None:
         n_min = min(x.shape) if x.numel() else 0
         tile = (512 if (finish == "dense" or n_min <= 2048 or band.lapack_available())
@@ -323,8 +337,8 @@ def _route_default_method(shape, platform: str = None) -> str:
     """svd(method=None) routing, the reference's rule as it is: large
     with-vectors inputs on a TPU go to the block-Jacobi path, everything
     else (every platform of this port: a torch device type, "cuda" or
-    "cpu"; None is this process's) to "bdfac". The H100's own crossover is
-    a measured decision for ROADMAP Queue 1 #5c."""
+    "cpu"; None is this process's) to "bdfac". The H100's own choice among
+    "bdfac", "jacobi" and "qdwh" is measured (PERF.md) but not decided."""
     if platform != "tpu":
         return "bdfac"
     n_min = min(shape)
@@ -355,10 +369,12 @@ def svd(x, tile: int = 512, panel_method: str = None, precision=None,
     panels; a padded one (n not a multiple of tile) takes them at once.
     refine (None: 0 off a TPU, as the reference decides) runs that many
     `svd_refine` steps on the factors. "jacobi" runs models.svd_jacobi
-    (block = min(tile, 512)) on x's device and refines inside it. Tiled
-    inputs are materialized (`utils.get_local_matrix`) and run on the
-    matrix's device. "qdwh" and uv_finish="device" (the QDWH route, #5c)
-    raise NotImplementedError.
+    (block = min(tile, 512)) on x's device and refines inside it. "qdwh"
+    runs `_qdwh_svd` on x (a wide x by its transpose), sorted on the host
+    as the reference sorts. uv_finish="device" takes the SVD of B by
+    `_qdwh_svd` on the device instead of the host's fp64 SVD. Tiled inputs
+    are materialized (`utils.get_local_matrix`) and run on the matrix's
+    device.
 
     Caveat (padded and rank-deficient, as in the reference): singular
     vectors of ZERO singular values may have support in the padding, so
@@ -385,10 +401,13 @@ def svd(x, tile: int = 512, panel_method: str = None, precision=None,
         u, s, vt = svd_jacobi(x.float(), block=min(tile, 512), precision=precision)
         return tuple(to_numpy(a).astype(dt) for a in (u, s, vt))
     if method == "qdwh":
-        raise NotImplementedError(f"svd(method='qdwh'): {_QDWH}")
-    if uv_finish == "device":
-        raise NotImplementedError(f"svd(uv_finish='device'): {_QDWH}")
-    if uv_finish != "host":
+        if x.shape[0] < x.shape[1]:
+            u, s, vt = svd(x.T, method="qdwh")
+            return vt.T, s, u.T
+        u, s, vt = map(to_numpy, _qdwh_svd(x.float(), compute_uv=True))
+        order = np.argsort(s)[::-1]
+        return u[:, order].astype(dt), s[order].astype(dt), vt[order].astype(dt)
+    if uv_finish not in ("host", "device"):
         raise ValueError(f"unknown uv_finish {uv_finish!r}")
     from numpywren_tpu_torch.compiler.lower import fused_bdfac, fused_tsqr
 
@@ -420,9 +439,19 @@ def svd(x, tile: int = 512, panel_method: str = None, precision=None,
     bd, p, q = run(panel_method)
     if auto_panel and panel_method != "house" and not _frobenius_kept(x, bd):
         bd, p, q = run("house")
-    ub, s, vbt = np.linalg.svd(to_numpy(bd).astype(np.float64))
-    u = p @ torch.as_tensor(ub.astype(np.float32), device=p.device)
-    vt = torch.as_tensor(vbt.astype(np.float32), device=q.device) @ q.T
+    if uv_finish == "device":
+        ub, s_dev, vbt = _qdwh_svd(bd)
+        s = to_numpy(s_dev)
+        order = np.argsort(s)[::-1]
+        s = s[order].astype(np.float64)
+        idx = torch.as_tensor(order.copy(), device=bd.device)
+        ub, vbt = ub[:, idx], vbt[idx]
+    else:
+        ub, s, vbt = np.linalg.svd(to_numpy(bd).astype(np.float64))
+        ub = torch.as_tensor(ub.astype(np.float32), device=p.device)
+        vbt = torch.as_tensor(vbt.astype(np.float32), device=q.device)
+    u = p @ ub
+    vt = vbt @ q.T
     u, s_out, vt = u[:n, :n], s[:n], vt[:n, :n]
     if refine:
         from numpywren_tpu_torch.models.jacobi import svd_refine

@@ -9,7 +9,9 @@ one gather, batched op and scatter per schedule group on the device) and
 ``SpillTaskExecutor`` (the same schedule over host-tier tiles).
 ``out_of_core_cholesky`` (runtime/spill.py) streams a host-tier Cholesky
 through the device panel by panel; run_program takes it for a host-tier
-matrix too large for the device.
+matrix too large for the device. runtime/spill.py's ``out_of_core_bdfac``
+and ``out_of_core_singular_values`` stream the SVD's stage 1 the same way
+(not exported here, as in the JAX package).
 """
 
 from numpywren_tpu_torch.runtime.program import NS, PS, TiledProgram

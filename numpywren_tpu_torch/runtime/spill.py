@@ -1,19 +1,26 @@
-"""Out-of-core Cholesky: host-tier matrices streamed through the device
-(counterpart of numpywren_tpu/runtime/spill.py's out_of_core_cholesky).
+"""Out-of-core Cholesky and BDFAC: host-tier matrices streamed through the
+device (counterpart of numpywren_tpu/runtime/spill.py).
 
 The matrix lives on the host tier (TiledMatrix storage="host": CPU tiles,
 pinned when the tier computes on a CUDA device), as the reference's matrices
-live in S3. A LEFT-LOOKING panel algorithm streams column super-panels
-through the device: each panel is updated by every factored panel before it
-(one GEMM per predecessor strip), factored on the device and written back.
-Host <-> device traffic is O(N^2 * S) for S super-panels, the out-of-core
-trade the reference pays to S3 on every task.
+live in S3.
 
-On a CUDA device the copies run on streams of their own: uploads (the input
-panels and the L strips) on one, downloads on another, each ordered against
-the compute stream (the caller's current stream) by events, so the copies
-ride under the trailing updates. On the CPU the same control flow runs with
-plain copies.
+- `out_of_core_cholesky`: a LEFT-LOOKING panel algorithm streams column
+  super-panels through the device: each panel is updated by every factored
+  panel before it (one GEMM per predecessor strip), factored on the device
+  and written back. Host <-> device traffic is O(N^2 * S) for S
+  super-panels, the out-of-core trade the reference pays to S3 on every
+  task.
+- `out_of_core_bdfac` (and `out_of_core_singular_values` on it): a
+  right-looking block bidiagonalization, SVD stage 1 beyond the device: per
+  panel step the trailing matrix streams through the device twice, once for
+  the column panel's reflector and once for the row panel's. Traffic is
+  O(N^3 / W).
+
+On a CUDA device the copies run on streams of their own: uploads on one,
+downloads on another, each ordered against the compute stream (the caller's
+current stream) by events, so the copies ride under the products. On the
+CPU the same control flow runs with plain copies.
 
 Checkpoints keep the JAX package's on-disk format (``panel_<s>.npy`` and an
 atomically replaced ``manifest.json``), so a run stopped by either package
@@ -126,6 +133,22 @@ def _panel_to_host(m: TiledMatrix, arr, row0_t: int, col0_t: int):
     for i in range(rows_t):
         for j in range(cols_t):
             m.put_block(arr[i * tm:(i + 1) * tm, j * tn:(j + 1) * tn], row0_t + i, col0_t + j)
+
+
+def _tiles_to_host(src: torch.Tensor, dst: torch.Tensor) -> None:
+    """dst, a (rows_t, cols_t, t, t) view of a slab of host tiles, := the
+    leading rows_t x cols_t tiles of `src`. From a CUDA `src` (unit column
+    stride) the 2-D copies are enqueued on the current stream by one call,
+    into pinned tiles; on the CPU it is one copy."""
+    rows_t, cols_t, t, _ = dst.shape
+    if src.device.type == "cpu":
+        dst.copy_(src[:rows_t * t, :cols_t * t].reshape(rows_t, t, cols_t, t).transpose(1, 2))
+        return
+    item = src.element_size()
+    _copy_2d(src.device, [dst[i, j].data_ptr() for i in range(rows_t) for j in range(cols_t)],
+             t * item, [src[i * t:, j * t:].data_ptr() for i in range(rows_t)
+                        for j in range(cols_t)], src.stride(0) * item, t * item, t,
+             _DEVICE_TO_HOST)
 
 
 class SpillCheckpoint:
@@ -460,15 +483,7 @@ def out_of_core_cholesky(
         with streams.on(streams.d2h):
             streams.wait(streams.d2h, factored, buf)
             _raise_if_not_spd(infos, f"out_of_core_cholesky panel {s}")
-            if streams.cuda:
-                item = buf.element_size()
-                _copy_2d(dev, [slab[i, j].data_ptr() for i in range(rows_t) for j in range(w_t)],
-                         t * item,
-                         [buf[i * t:, j * t:].data_ptr() for i in range(rows_t)
-                          for j in range(w_t)], buf.stride(0) * item, t * item, t,
-                         _DEVICE_TO_HOST)
-            else:
-                slab.copy_(buf[:real_rows].view(rows_t, t, w_t, t).permute(0, 2, 1, 3))
+            _tiles_to_host(buf, slab)
             landed = streams.mark(streams.d2h)
         if landed is not None:
             landed.synchronize()
@@ -540,3 +555,248 @@ def out_of_core_cholesky(
         "shape_mode": shape_mode,
     }
     return l_out
+
+
+def out_of_core_bdfac(
+    a: TiledMatrix,
+    panel_tiles: int = 4,
+    precision=None,
+    mesh=None,
+    stop_panels: Optional[int] = None,
+    shape_mode: str = "pow2",
+    out: Optional[TiledMatrix] = None,
+) -> TiledMatrix:
+    """Right-looking out-of-core block bidiagonalization of a host-tier
+    square TiledMatrix: SVD stage 1 for a matrix larger than the device
+    (the in-device counterpart is compiler.lower.fused_bdfac). The steps
+    run on `a.device`.
+
+    Per W-wide panel step (W = panel_tiles * tile): the column panel is
+    QR-factored on the device (the shifted CholeskyQR chain and a Yamamoto
+    reflector, `_panel_qr_update_cholqr`, conv_tol 1e-5, Sᵀ folded once a
+    panel by `_small_inv_t`); the trailing column panels stream through the
+    device, each taking Hᵀ chunk = chunk - W (Sᵀ (Wᵀ chunk)); while two or
+    more superdiagonal panels remain, the row panel is LQ-factored
+    (`_panel_lq_update_cholqr`) and the row panels below it stream through
+    once more, each taking chunk H. The final square panel keeps its R
+    only. The large products go through `compiler.lower._matmul` /
+    `_sub_matmul` at `precision` (compensated "high": matmul3, where the
+    left operand is not transposed; "highest": the matmul kernel; plain
+    "high": torch.matmul in true FP32); the b x b algebra is true FP32.
+
+    Returns B on the host tier, block bidiagonal with sigma(B) = sigma(a)
+    (the sweeps are orthogonal), band ku = 2W - 1: diagonal panel blocks
+    upper triangular, superdiagonal ones lower triangular but the last,
+    which lands as it is (the fused path's shape).
+
+    The working copy is one slab of host tiles (pinned on a CUDA tier),
+    adopted by a host-tier TiledMatrix tile by tile, and B's band blocks
+    land in another. On a CUDA device the uploads run on a copy stream
+    (`_panel_from_host`, 2-D copies), the downloads on another straight
+    into the slabs' tiles, both ordered against the compute stream by
+    events: chunk q + 1 uploads while chunk q is applied, an upload waits
+    for the downloads of the phase before it (a step's row panel reads
+    what the column stream wrote, the next step what the row stream
+    wrote) and for the download that last read its buffer. There is one
+    host synchronization at the end, beside the chains' own reads.
+
+    Device memory: the panel, two chunk buffers, the reflector, the chain's
+    temporaries and the GEMM's packed planes, within 8 * n_pad * W * 4
+    bytes (n_pad = grid * tile). Host<->device traffic: the trailing
+    matrix twice each way per step, O(N³ / W) in all.
+
+    shape_mode ('exact' | 'pow2' | 'full'): the panel heights and row
+    widths are zero-padded to their `_bucket_tiles` bucket. The padding is
+    invariant: padded rows of a column panel are zero, so the Gram, the
+    reflector (zero rows in W) and every apply leave them zero; padded
+    columns of a row panel likewise give zero reflector columns. Every
+    upload zeroes its buffer's padding. stop_panels factors only the first
+    so-many panel steps. `mesh` (a mesh of devices sharding the panels) is
+    not ported yet: anything but None raises (ROADMAP Queue 1 #6)."""
+    from numpywren_tpu_torch.compiler.lower import (
+        _matmul,
+        _panel_lq_update_cholqr,
+        _panel_qr_update_cholqr,
+        _small_inv_t,
+        _sub_matmul,
+    )
+
+    if mesh is not None:
+        raise NotImplementedError(
+            "out_of_core_bdfac over a device mesh is not ported yet (ROADMAP Queue 1 #6)")
+    if a.shape[0] != a.shape[1] or a.tile[0] != a.tile[1]:
+        raise ShapeError("out_of_core_bdfac needs a square matrix / square tiles")
+    g = a.grid[0]
+    t = a.tile[0]
+    if g % panel_tiles:
+        raise ShapeError(f"grid {g} not a multiple of panel_tiles {panel_tiles}")
+    precision = check_precision(precision or default_precision(a.dtype))
+    pt = panel_tiles
+    w = pt * t
+    n_panels = g // pt
+    n_run = n_panels if stop_panels is None else min(n_panels, max(0, int(stop_panels)))
+    dev = a.device
+    streams = _Streams(dev)
+
+    def zeros(m, i, j):
+        return torch.zeros(m.tile, dtype=m.dtype)
+
+    b_out = out or TiledMatrix(key=a.key + ":ooc_B", shape=a.shape, tile=a.tile, dtype=a.dtype,
+                               storage="host", parent_fn=zeros, device=dev)
+    # the working copy, mutated panel by panel: one slab of tiles
+    work = TiledMatrix(key=a.key + ":ooc_work", shape=a.shape, tile=a.tile, dtype=a.dtype,
+                       storage="host", parent_fn=zeros, device=dev)
+    slab = torch.empty((g, g, t, t), dtype=a.dtype, pin_memory=streams.cuda)
+    for i in range(g):
+        for j in range(g):
+            slab[i, j].copy_(a.get_block(i, j))
+            work.adopt_block(slab[i, j], i, j)
+    # B's diagonal and superdiagonal panel blocks, step by step
+    band = torch.empty((n_run, 2, pt, pt, t, t), dtype=a.dtype, pin_memory=streams.cuda)
+
+    def upload(r0_t, c0_t, rows_t, cols_t, rows_bt, cols_bt, buf=None, after=()):
+        """Tiles [r0_t, r0_t + rows_t) x [c0_t, c0_t + cols_t) of the
+        working copy in a device buffer of rows_bt x cols_bt tiles, its
+        padding zeroed, on the upload stream after the events `after`.
+        Returns (buffer, the event its copies end at)."""
+        with streams.on(streams.h2d):
+            for ev in after:
+                if ev is not None:
+                    streams.h2d.wait_event(ev)
+            if buf is None:
+                buf = torch.empty((rows_bt * t, cols_bt * t), dtype=a.dtype, device=dev)
+            buf[rows_t * t:].zero_()
+            buf[:rows_t * t, cols_t * t:].zero_()
+            _panel_from_host(work, r0_t, c0_t, rows_t, cols_t, out=buf)
+            return buf, streams.mark(streams.h2d)
+
+    def download(src, dst) -> object:
+        """dst (slab tiles) := src, on the download stream after the compute
+        stream's work so far. Returns the event the copies end at."""
+        done = streams.mark(streams.compute)
+        with streams.on(streams.d2h):
+            streams.wait(streams.d2h, done, src)
+            _tiles_to_host(src, dst)
+            return streams.mark(streams.d2h)
+
+    def stream(specs, apply, fence, top=None):
+        """Each chunk of `specs` (upload's first six arguments) through the
+        device: uploaded into one of two buffers while the chunk before it is
+        applied, `apply`-ed in place, stored back into the working copy (its
+        first W rows also into `top` when given, for the first chunk).
+        Returns the event of the last download."""
+        bufs, freed = [None, None], [None, None]
+        pending = upload(*specs[0], after=(fence,))
+        last = None
+        for k, (r0_t, c0_t, rows_t, cols_t, _, _) in enumerate(specs):
+            buf, ready = pending
+            bufs[k % 2] = buf
+            if k + 1 < len(specs):
+                j = (k + 1) % 2
+                pending = upload(*specs[k + 1], buf=bufs[j], after=(fence, freed[j]))
+            streams.wait(streams.compute, ready, buf)
+            apply(buf)
+            if top is not None and k == 0:
+                download(buf[:w], top)
+            last = freed[k % 2] = download(
+                buf, slab[r0_t:r0_t + rows_t, c0_t:c0_t + cols_t])
+        return last
+
+    fence = None  # the last download of the phase before: what an upload reads
+    for s in range(n_run):
+        c0_t = s * pt
+        c1_t = c0_t + pt
+        rows_t = g - c0_t
+        if rows_t == pt:  # final square panel: R only
+            panel, ready = upload(c0_t, c0_t, pt, pt, pt, pt, after=(fence,))
+            streams.wait(streams.compute, ready, panel)
+            r, _ = _panel_qr_update_cholqr(panel, None, precision, conv_tol=1e-5, fast_s=True)
+            download(r, band[s, 0])
+            break
+        # 1. the column panel's QR and its reflector
+        rows_bt = _bucket_tiles(rows_t, g, shape_mode)
+        panel, ready = upload(c0_t, c0_t, rows_t, pt, rows_bt, pt, after=(fence,))
+        streams.wait(streams.compute, ready, panel)
+        r, _, (_, wv, _) = _panel_qr_update_cholqr(panel, None, precision, True, conv_tol=1e-5,
+                                                   fast_s=True)
+        del panel
+        st = _small_inv_t(wv[:w])  # Sᵀ, folded once a panel
+        download(r, band[s, 0])
+
+        def apply_qt(chunk):  # Hᵀ chunk = chunk - W (Sᵀ (Wᵀ chunk))
+            w1 = _matmul(wv, chunk, ta=True, precision=precision)
+            _sub_matmul(chunk, wv, _matmul(st, w1, precision=precision), precision=precision,
+                        out=chunk)
+
+        # 2. Hᵀ over the trailing column panels; with one left, its first W
+        #    rows are B's last superdiagonal block as they are
+        remaining = n_panels - s - 1
+        fence = stream([(c0_t, q * pt, rows_t, pt, rows_bt, pt) for q in range(s + 1, n_panels)],
+                       apply_qt, fence, top=band[s, 1] if remaining == 1 else None)
+        del wv, st
+        if remaining < 2:
+            continue
+        # 3. the row panel's LQ and its reflector, streamed over the rows below
+        cols_t = g - c1_t
+        cols_bt = _bucket_tiles(cols_t, g, shape_mode)
+        row_pan, ready = upload(c0_t, c1_t, pt, cols_t, pt, cols_bt, after=(fence,))
+        streams.wait(streams.compute, ready, row_pan)
+        l_blk, _, (_, wr, _) = _panel_lq_update_cholqr(row_pan, None, precision, True,
+                                                       conv_tol=1e-5, fast_s=True)
+        del row_pan
+        s_row = _small_inv_t(wr[:, :w].T).T  # S, folded once a panel
+        download(l_blk, band[s, 1])
+
+        def apply_h_right(chunk):  # chunk H = chunk - ((chunk Wrᵀ) S) Wr
+            u1 = _matmul(chunk, wr, tb=True, precision=precision)
+            _sub_matmul(chunk, _matmul(u1, s_row, precision=precision), wr,
+                        precision=precision, out=chunk)
+
+        fence = stream([(i, c1_t, pt, cols_t, pt, cols_bt) for i in range(c1_t, g, pt)],
+                       apply_h_right, fence)
+        del wr, s_row
+    if streams.cuda:
+        torch.cuda.synchronize(dev)
+    for s in range(n_run):
+        c0_t = s * pt
+        for k in range(2 if s + 1 < n_panels else 1):
+            for i in range(pt):
+                for j in range(pt):
+                    b_out.adopt_block(band[s, k, i, j], c0_t + i, c0_t + k * pt + j)
+    return b_out
+
+
+def out_of_core_singular_values(
+    a: TiledMatrix,
+    panel_tiles: int = 4,
+    precision=None,
+    mesh=None,
+) -> np.ndarray:
+    """All singular values (fp64, descending) of a host-tier square
+    TiledMatrix larger than the device: `out_of_core_bdfac` streams the
+    reduction to block bidiagonal B (band ku = 2 * panel_tiles * tile - 1,
+    the last superdiagonal panel untightened), then only the band
+    (O(n W) floats) is packed for the host LAPACK dgbbrd + dbdsdc finish
+    (models.band). Raises RuntimeError where no LAPACK library is found:
+    the JAX package has no other finish here."""
+    from numpywren_tpu_torch.models.band import band_sigma_packed
+
+    b_mat = out_of_core_bdfac(a, panel_tiles=panel_tiles, precision=precision, mesh=mesh)
+    n = a.shape[0]
+    t = a.tile[0]
+    ku = min(2 * panel_tiles * t - 1, n - 1)
+    ab = np.zeros((ku + 1, n), dtype=np.float64, order="F")
+    off_max = cdiv(ku, t)
+    for i_t in range(b_mat.grid[0]):
+        for j_t in range(i_t, min(i_t + off_max + 1, b_mat.grid[1])):
+            blk = b_mat.get_block(i_t, j_t).double().numpy()
+            r0, c0 = i_t * t, j_t * t
+            for jj in range(blk.shape[1]):
+                j = c0 + jj
+                if j >= n:
+                    break
+                i0 = max(r0, j - ku)
+                i1 = min(r0 + blk.shape[0], j + 1, n)
+                if i1 > i0:
+                    ab[ku + i0 - j:ku + i1 - j, j] += blk[i0 - r0:i1 - r0, jj]
+    return band_sigma_packed(ab, n, n, 0, ku)[:n]

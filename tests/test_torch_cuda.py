@@ -5,7 +5,8 @@ aliasing c. Factor kernels at n = 128..1024 and outside their envelope;
 the CholeskyQR2 chain in both forms at κ up to 1e6, its identity branch
 and its run with no host synchronisation. The paths on them against their
 CPU runs: the generic executors, the out-of-core Cholesky, the models, the
-fused BDFAC by every route and the band reduction.
+fused BDFAC by every route, the band reduction, QDWH and the out-of-core
+BDFAC.
 
 These need an NVIDIA GPU (sm_90a) and nvcc; without one every test skips.
 Run on the card: python -m pytest tests/test_torch_cuda.py -q
@@ -735,3 +736,76 @@ def test_singular_values_and_svd_on_the_card(gen):
     assert np.linalg.norm(rec - x64) / np.linalg.norm(x64) < 1e-4
     assert np.abs(u.T @ u - np.eye(256)).max() < 5e-4
     assert np.abs(vt @ vt.T - np.eye(256)).max() < 5e-4
+
+
+def test_qdwh_on_the_card(gen):
+    """qdwh and the SVD on it on a CUDA tensor (768 x 512, the QR steps and
+    the Cholesky steps): one matmul kernel call a step, two for the
+    Newton-Schulz step and one for h, u and h
+    within 1e-5 of the CPU run of the same input, the same iterations;
+    svd(method="qdwh") at 512² holds tests/test_models.py's bars
+    (reconstruction, max |UᵀU − I|, |VVᵀ − I| below 1e-5, σ within
+    1e-5·σ_max of the CPU run)."""
+    import numpy as np
+
+    from numpywren_tpu_torch import models
+    from numpywren_tpu_torch.models import qdwh
+
+    x = _rand(gen, 768, 512)
+    calls = gemm.LAUNCHES
+    u, h, iters, conv = qdwh.qdwh(x)
+    assert gemm.LAUNCHES - calls == iters + 3 and u.device.type == "cuda"  # + Newton-Schulz, h
+    u_cpu, h_cpu, iters_cpu, conv_cpu = qdwh.qdwh(x.cpu())
+    assert (iters, conv) == (iters_cpu, conv_cpu) and conv
+    _close(u.cpu(), u_cpu)
+    _close(h.cpu(), h_cpu)
+    x = x[:512].contiguous()
+    u, s, vt = models.svd(x, method="qdwh")
+    x64 = x.cpu().double().numpy()
+    rec = (u.astype(np.float64) * s) @ vt.astype(np.float64)
+    assert np.linalg.norm(rec - x64) / np.linalg.norm(x64) < 1e-5
+    assert np.abs(u.T.astype(np.float64) @ u - np.eye(512)).max() < 1e-5
+    assert np.abs(vt.astype(np.float64) @ vt.T - np.eye(512)).max() < 1e-5
+    s_cpu = models.svd(x.cpu(), method="qdwh")[1]
+    assert np.abs(s - s_cpu).max() <= 1e-5 * s_cpu[0]
+
+
+@pytest.mark.parametrize("route,pt", [("high", 2), ("compensated", 2), ("highest", 2),
+                                      ("NPW_PALLAS_CHAIN", 1), ("NPW_PALLAS_FACTOR", 1)])
+def test_out_of_core_bdfac_on_the_card(gen, monkeypatch, route, pt):
+    """out_of_core_bdfac of a 1024² host tier (tile 128, W = 256 or 128)
+    against the CPU run of the same input: B within 1e-4 (relative
+    Frobenius), σ(B) within 1e-4·σ_max of fp64, B's tiles pinned; the
+    compensated applies launch matmul3, "highest" matmul, the opt-ins the
+    chain and potrf_inv. A missing wait between a download and the upload
+    that reads it shows here as a B that differs from the CPU's."""
+    from numpywren_tpu_torch import config
+    from numpywren_tpu_torch.matrix_init import shard_matrix
+    from numpywren_tpu_torch.ops import pallas_factor as pf
+    from numpywren_tpu_torch.runtime import spill
+
+    kw = {}
+    if route == "compensated":
+        monkeypatch.setattr(config, "_default", config.NpwConfig(compensated=True))
+    elif route == "highest":
+        kw["precision"] = route
+    elif route.startswith("NPW_"):
+        monkeypatch.setenv(route, "1")
+    a = _rand(gen, 1024, 1024)
+    x = shard_matrix(a, tile=(128, 128), storage="host")
+    pf.reset_launches()
+    calls, mm = gemm3.LAUNCHES, gemm.LAUNCHES
+    b = spill.out_of_core_bdfac(x, panel_tiles=pt, **kw)
+    launched = {"compensated": gemm3.LAUNCHES - calls, "highest": gemm.LAUNCHES - mm,
+                "NPW_PALLAS_CHAIN": pf.LAUNCHES["cholqr2_chain"],
+                "NPW_PALLAS_FACTOR": pf.LAUNCHES["potrf_inv"]}
+    if route in launched:
+        assert launched[route] > 0
+    assert b.get_block(0, 1).is_pinned()
+    x_cpu = shard_matrix(a.cpu(), tile=(128, 128), storage="host", device="cpu")
+    b_cpu = spill.out_of_core_bdfac(x_cpu, panel_tiles=pt, **kw)
+    got = b.to_hbm().array
+    _close(got.cpu(), b_cpu.to_hbm().array, bar=1e-4)
+    s_ref = torch.linalg.svdvals(a.double())
+    assert float((torch.linalg.svdvals(got.double()) - s_ref).abs().max()) <= 1e-4 * float(
+        s_ref[0])
