@@ -21,8 +21,14 @@ family on TSQR, Jacobi, BDFAC and QDWH); the DSL ops
 (``ops.TORCH_KERNELS``), ``binops`` and ``checkpoint``; down to the GEMM
 kernels (``ops.gemm``, ``ops.gemm3``) and the factorization kernels
 (``ops.pallas_factor``). See ROADMAP.md for the rest.
+
+``__all__`` holds the reference's names and, beside them, the entry points
+that the JAX package loads lazily without listing them: ``cholesky``,
+``cholesky_solve``, ``bdfac``, ``gemm``, ``tsqr``, ``tsqr_r_factor`` and
+``run_program``.
 """
 
+from numpywren_tpu_torch import exceptions, kernels
 from numpywren_tpu_torch.config import NpwConfig, default_config
 from numpywren_tpu_torch.alg_wrappers import (
     bdfac,
@@ -57,6 +63,8 @@ __all__ = [
     "run_program",
     "NpwConfig",
     "default_config",
+    "kernels",
+    "exceptions",
     "__version__",
 ]
 

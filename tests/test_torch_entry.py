@@ -201,3 +201,24 @@ def test_restored_names_match_the_reference():
     for c in range(t.nb):
         assert t.block(c) is t.cols[c]
         np.testing.assert_array_equal(t.block(c).numpy(), np.asarray(jt.block(c)))
+
+
+# the entry points the JAX package loads lazily without listing them, listed
+# by the port (numpywren_tpu_torch/__init__.py's docstring)
+PORT_ADDITIONS = {"cholesky", "cholesky_solve", "bdfac", "gemm", "tsqr", "tsqr_r_factor",
+                  "run_program"}
+
+
+def test_star_import_binds_the_reference_names():
+    """`from numpywren_tpu_torch import *` binds the reference's names,
+    kernels and exceptions among them, and beside them only the port's
+    documented additions."""
+    port, ref = {}, {}
+    exec("from numpywren_tpu_torch import *", port)
+    exec("from numpywren_tpu import *", ref)
+    port_names = set(port) - {"__builtins__"}
+    ref_names = set(ref) - {"__builtins__"}
+    assert port_names - PORT_ADDITIONS == ref_names
+    assert PORT_ADDITIONS <= port_names
+    assert port["kernels"].__name__ == "numpywren_tpu_torch.kernels"
+    assert port["exceptions"].ShapeError is ShapeError
