@@ -11,7 +11,8 @@ BASELINE config 3's 1,048,576 x 512 and beside it (P8-P11), GEMM at 8192
 (P12), the QR kernel and ops.qr_leaf (P13-P14), the generic DSL
 executors on both storage tiers (P15-P16), the out-of-core Cholesky
 (P17), the models (P18), the fused BDFAC with the two-stage SVD on it
-(P19), and the QDWH route with the out-of-core BDFAC (P20):
+(P19), the QDWH route with the out-of-core BDFAC (P20), and the
+multi-device layer (P21):
 
   P0  the card, its power limit, the kernel build
   P1  each kernel vs its plain version: relative Frobenius error <= 1e-5
@@ -203,6 +204,23 @@ executors on both storage tiers (P15-P16), the out-of-core Cholesky
       the --n-ooc run's first apply, against their plain versions
       (KERNEL_BAR; SPLIT_BAR and KERNEL_BAR against _matmul_split_ref),
       timed in turns with their library call
+  P21 the multi-device layer (numpywren_tpu_torch.parallel), compensated,
+      after a warm-up at small sizes: (a) a 1-rank group joined by
+      distributed.initialize() through the NPW_* variables (NCCL), a 1 x 1
+      mesh: sharded_cholesky at --n (32768) tile 1024 (beside P2's
+      seconds), sharded_gemm at --n-gemm (8192) compensated and "highest",
+      sharded_tsqr with Q on --m x 512 (tile_rows 4096), summa_gemm and
+      summa_syrk ("highest", a 1024-wide panel) at --n-gemm: each case's
+      seconds and the matmul3 / matmul launches; (b) four processes on the
+      one card (a gloo group: NCCL refuses two ranks on one card), a 2 x 2
+      mesh, the same calls with the Cholesky at P21B_N_CHOL (16384); each
+      result gathered by all_reduce and held on rank 0 to the bars below
+      and to the 1-rank results of the same calls on a mesh of rank 0
+      alone (the GEMMs within 1e-5, the factor within 1e-4, R within
+      3e-5); TSQR's orthogonality and residual summed over the ranks'
+      rows; every rank must launch matmul3 and matmul and import no jax.
+      Part (b)'s times are four processes time-sharing one card: no
+      scaling claim is made from them
 
 Residuals ||A - L Lᵀ||_F / ||A||_F are computed on the card in fp64 and
 must be <= 1e-4. TSQR phases hold ||QᵀQ - I||_F/sqrt(b) <= 1e-4,
@@ -3222,6 +3240,335 @@ def p20_qdwh_ooc(torch, jacobi: dict, bdfac: dict, n_ooc: int, seed: int):
     return launches, checks
 
 
+# ---------------------------------------------------------------------------
+# P21: the multi-device layer (numpywren_tpu_torch.parallel)
+# ---------------------------------------------------------------------------
+
+P21_RANKS = 4             # part (b): four processes, a 2 x 2 mesh, on the one card
+P21_TILE = 1024
+P21B_N_CHOL = 16384       # part (b)'s sharded Cholesky size (its other sizes are (a)'s)
+P21_TILE_ROWS = 4096
+P21_SYRK_W = 1024         # summa_syrk's panel width
+P21_TIMEOUT = 600         # seconds for part (b)'s ranks
+P21_SMALL = {"n_chol": 2048, "n_gemm": 1024, "m": 65536, "b": 512}  # the warm-up's sizes
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def p21_operands(torch, sizes: dict, seed: int, device: str) -> dict:
+    """P21's seeded operands, made alike on every rank: A = X Xᵀ/n + 2I
+    (the Cholesky's), the GEMMs' A and B (summa_gemm takes them too), the
+    TSQR's X and summa_syrk's P (its S is the GEMM's A)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n = sizes["n_chol"]
+    x = torch.randn(n, n, generator=gen, device=device)
+    a = x @ x.T / n
+    a.diagonal().add_(2.0)
+    del x
+    ng = sizes["n_gemm"]
+    return {"a": symmetric_from_lower(a.tril()),
+            "g_a": torch.randn(ng, ng, generator=gen, device=device),
+            "g_b": torch.randn(ng, ng, generator=gen, device=device),
+            "x": torch.randn(sizes["m"], sizes["b"], generator=gen, device=device),
+            "p": torch.randn(ng, min(P21_SYRK_W, ng), generator=gen, device=device)}
+
+
+def p21_drive(torch, mesh, ops: dict, tile: int, tile_rows: int) -> tuple:
+    """Each P21 entry point once on `mesh` (every rank of it calls this),
+    the Cholesky on a copy of each rank's block of A (it factors in place).
+    Returns (the results, each case's seconds: host clock from a barrier
+    to a synchronize, this rank's kernel launches)."""
+    import torch.distributed as dist
+
+    from numpywren_tpu_torch.parallel import sharded_cholesky, sharded_gemm, sharded_tsqr
+    from numpywren_tpu_torch.parallel.fabric import summa_gemm, summa_syrk
+    from numpywren_tpu_torch.parallel.mesh import as_dtensor, local_block, tile_sharding
+
+    sh = tile_sharding(mesh)
+    a_in = as_dtensor(local_block(ops["a"], sh).clone(), ops["a"].shape, sh)
+    cases = (
+        ("sharded_cholesky", lambda: sharded_cholesky(a_in, tile, mesh)),
+        ("sharded_gemm", lambda: sharded_gemm(ops["g_a"], ops["g_b"], mesh)),
+        ("sharded_gemm_highest",
+         lambda: sharded_gemm(ops["g_a"], ops["g_b"], mesh, precision="highest")),
+        ("sharded_tsqr", lambda: sharded_tsqr(ops["x"], tile_rows, mesh, compute_q=True)),
+        ("summa_gemm", lambda: summa_gemm(ops["g_a"], ops["g_b"], mesh)),
+        ("summa_syrk", lambda: summa_syrk(ops["g_a"], ops["p"], mesh, precision="highest")),
+    )
+    cuda = ops["a"].device.type == "cuda"
+    results, seconds = {}, {}
+    reset_launch_counts()
+    for name, call in cases:
+        if mesh.size() > 1:
+            dist.barrier()
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results[name] = call()
+        if cuda:
+            torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+    counts = launch_counts()
+    return results, seconds, {k: counts[k] for k in ("matmul", "matmul3")}
+
+
+def p21_warm(torch, mesh, small: dict, seed: int, device: str) -> None:
+    """The entry points once at `small` sizes: the libraries' handles and
+    the first allocations, before the timed drive."""
+    p21_drive(torch, mesh, p21_operands(torch, small, seed, device), small["n_chol"] // 8,
+              small["m"] // 16)
+
+
+def p21_tsqr_quality(torch, mesh, x, q, r, chunk: int = 1 << 17) -> tuple:
+    """(||QᵀQ - I||_F / sqrt(b), ||QR - X||_F / ||X||_F) in fp64, each rank
+    summing over its own rows of Q and X, then one sum over the mesh (no
+    gather of Q). Collective over the mesh."""
+    from numpywren_tpu_torch.parallel.mesh import (NamedSharding, is_primary, local_block,
+                                                   sum_over_mesh)
+
+    b = x.shape[1]
+    sh = NamedSharding(mesh, tuple(q.placements))
+    q_loc, x_loc = q.to_local(), local_block(x, sh)
+    r64 = r.to_local().double()
+    acc = torch.zeros(b * b + 2, dtype=torch.float64, device=x.device)
+    if is_primary(sh):
+        for i0 in range(0, x_loc.shape[0], chunk):
+            qc, xc = q_loc[i0:i0 + chunk].double(), x_loc[i0:i0 + chunk].double()
+            acc[:b * b] += (qc.T @ qc).reshape(-1)
+            d = qc @ r64 - xc
+            acc[b * b] += (d * d).sum()
+            acc[b * b + 1] += (xc * xc).sum()
+    sum_over_mesh(acc, mesh)
+    gram = acc[:b * b].reshape(b, b) - torch.eye(b, dtype=torch.float64, device=x.device)
+    return (float(torch.linalg.norm(gram)) / b ** 0.5,
+            float((acc[b * b] / acc[b * b + 1]) ** 0.5))
+
+
+def p21_gather(torch, results: dict) -> dict:
+    """Every result whole on every rank of its mesh (distributed.full_tensor:
+    all_reduce only, which gloo takes for a CUDA tensor). Collective."""
+    from numpywren_tpu_torch.parallel.distributed import full_tensor
+
+    out = {}
+    for name, res in results.items():
+        if name == "sharded_tsqr":
+            out["sharded_tsqr_r"] = full_tensor(res[1])
+        else:
+            out[name] = full_tensor(res)
+    return out
+
+
+def p21_bars(torch, ops: dict, full: dict, ref: dict = None) -> dict:
+    """The bars on whole results (one rank): the factor's residual in fp64
+    (<= 1e-4); each GEMM against the fp64 product (<= 1e-5); R against the
+    library's QR (signs fixed, <= 3e-5); with `ref`, the 1-rank results:
+    the GEMMs within 1e-5, the factor within 1e-4, R within 3e-5."""
+    exact = ops["g_a"].double() @ ops["g_b"].double()
+    s_exact = ops["g_a"].double() - ops["p"].double() @ ops["p"].double().T
+    r_lib = torch.linalg.qr(ops["x"], mode="r")[1]
+    row = {"cholesky_residual": residual(torch, ops["a"], full["sharded_cholesky"]),
+           "r_rel_diff_vs_library": rel_err(torch, sign_fixed(full["sharded_tsqr_r"]),
+                                            sign_fixed(r_lib))}
+    for name in ("sharded_gemm", "sharded_gemm_highest", "summa_gemm"):
+        row[f"{name}_rel_err_vs_fp64"] = rel_err(torch, full[name], exact)
+    row["summa_syrk_rel_err_vs_fp64"] = rel_err(torch, full["summa_syrk"], s_exact)
+    del exact, s_exact
+    require(row["cholesky_residual"] <= RESID_BAR,
+            f"P21: sharded_cholesky residual {row['cholesky_residual']} > {RESID_BAR}")
+    require(row["r_rel_diff_vs_library"] <= R_AGREE_BAR,
+            f"P21: sharded_tsqr R differs from the library's by {row['r_rel_diff_vs_library']}")
+    for k, v in row.items():
+        if k.endswith("_vs_fp64"):
+            require(v <= KERNEL_BAR, f"P21: {k} {v} > {KERNEL_BAR}")
+    if ref is not None:
+        row["cholesky_rel_diff_vs_1_rank"] = rel_err(torch, full["sharded_cholesky"],
+                                                     ref["sharded_cholesky"])
+        row["r_rel_diff_vs_1_rank"] = rel_err(torch, sign_fixed(full["sharded_tsqr_r"]),
+                                              sign_fixed(ref["sharded_tsqr_r"]))
+        for name in ("sharded_gemm", "sharded_gemm_highest", "summa_gemm", "summa_syrk"):
+            row[f"{name}_rel_diff_vs_1_rank"] = rel_err(torch, full[name], ref[name])
+        require(row["cholesky_rel_diff_vs_1_rank"] <= RESID_BAR,
+                f"P21: the factor differs from the 1-rank one by "
+                f"{row['cholesky_rel_diff_vs_1_rank']}")
+        require(row["r_rel_diff_vs_1_rank"] <= R_AGREE_BAR,
+                f"P21: R differs from the 1-rank R by {row['r_rel_diff_vs_1_rank']}")
+        for name in ("sharded_gemm", "sharded_gemm_highest", "summa_gemm", "summa_syrk"):
+            v = row[f"{name}_rel_diff_vs_1_rank"]
+            require(v <= KERNEL_BAR, f"P21: {name} differs from the 1-rank one by {v}")
+    return row
+
+
+def p21_single(torch, npw, sizes: dict, small: dict, seed: int, p2_seconds: float) -> dict:
+    """P21 (a): a 1-rank group joined by the usual initialize() through the
+    NPW_* variables (the card's backend: NCCL), a 1 x 1 mesh, the entry
+    points at full width, compensated; the group is closed after. Returns
+    the launches of matmul and matmul3."""
+    import torch.distributed as dist
+
+    from numpywren_tpu_torch.parallel import distributed, make_mesh
+
+    card = gpu_line()
+    env = {"NPW_COORDINATOR": f"127.0.0.1:{free_port()}", "NPW_NUM_PROCESSES": "1",
+           "NPW_PROCESS_ID": "0"}
+    os.environ.update(env)
+    cfg = npw.default_config()
+    compensated = cfg.compensated
+    try:
+        require(distributed.initialize() is False, "P21: one process is not multi-process")
+        require(dist.is_initialized() and dist.get_world_size() == 1, "P21: no 1-rank group")
+        backend = dist.get_backend()
+        mesh = make_mesh()
+        require(tuple(mesh.shape) == (1, 1), f"P21: mesh {tuple(mesh.shape)}")
+        cfg.compensated = True
+        p21_warm(torch, mesh, small, seed, "cuda")
+        ops = p21_operands(torch, sizes, seed, "cuda")
+        results, seconds, counts = p21_drive(torch, mesh, ops, P21_TILE, P21_TILE_ROWS)
+        q, r = results["sharded_tsqr"]
+        ortho, resid = p21_tsqr_quality(torch, mesh, ops["x"], q, r)
+        full = p21_gather(torch, results)
+        del results, q, r
+        bars = p21_bars(torch, ops, full)
+    finally:
+        cfg.compensated = compensated
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+    n = sizes["n_chol"]
+    row = {"phase": "P21", "part": "a", "ranks": 1, "mesh": [1, 1], "backend": backend,
+           "config": "compensated", "sizes": sizes, "seconds": seconds,
+           "cholesky_tflops": n ** 3 / 3 / seconds["sharded_cholesky"] / 1e12,
+           "p2_trapezoid_seconds": p2_seconds, "tsqr_ortho": ortho, "tsqr_residual": resid,
+           "launches": counts, "nvidia_smi": card, **bars}
+    emit(row)
+    require(ortho <= ORTHO_BAR and resid <= QR_RESID_BAR,
+            f"P21: sharded_tsqr ortho {ortho}, residual {resid}")
+    for k, v in counts.items():
+        require(v > 0, f"P21 (a): {k} was not launched")
+    return counts
+
+
+def p21_rank(torch, sizes: dict, small: dict, seed: int, device: str = "cuda") -> dict:
+    """One rank of P21 (b): joins a gloo group of NPW_NUM_PROCESSES through
+    the NPW_* variables (NCCL refuses two ranks on one card), runs the
+    entry points on a 2 x 2 mesh, gathers each result (all_reduce), and
+    rank 0 holds them to the bars and to the 1-rank results of the same
+    calls on a mesh of its own. Every rank requires that it launched
+    matmul3 and matmul (on a card) and imported no jax. Returns this
+    rank's seconds and launches; rank 0 its checks too."""
+    import torch.distributed as dist
+
+    from numpywren_tpu_torch.parallel import distributed, make_mesh
+
+    require(distributed.initialize(backend="gloo"), "P21 (b): not multi-process")
+    rank = distributed.process_index()
+    dev = None if device == "cuda" else device
+    mesh = make_mesh(shape=(2, 2), device=dev)
+    mesh1 = make_mesh(devices=[0], shape=(1, 1), device=dev)  # collective: every rank
+    p21_warm(torch, mesh, small, seed, device)
+    ops = p21_operands(torch, sizes, seed, device)
+    tile = min(P21_TILE, sizes["n_chol"] // 2)
+    tile_rows = min(P21_TILE_ROWS, sizes["m"] // 8)
+    results, seconds, counts = p21_drive(torch, mesh, ops, tile, tile_rows)
+    q, r = results["sharded_tsqr"]
+    ortho, resid = p21_tsqr_quality(torch, mesh, ops["x"], q, r)
+    full = p21_gather(torch, results)
+    del results, q, r
+    out = {"rank": rank, "seconds": seconds, "launches": counts,
+           "device": str(ops["a"].device), "tsqr_ortho": ortho, "tsqr_residual": resid}
+    if rank == 0:
+        ref_results, ref_seconds, _ = p21_drive(torch, mesh1, ops, tile, tile_rows)
+        ref = p21_gather(torch, ref_results)
+        del ref_results
+        out["one_rank_seconds"] = ref_seconds
+        out.update(p21_bars(torch, ops, full, ref))
+        del ref
+    del full, ops
+    dist.barrier()
+    require("jax" not in sys.modules, f"P21 (b) rank {rank}: jax was imported")
+    require("numpywren_tpu" not in sys.modules,
+            f"P21 (b) rank {rank}: the JAX package was imported")
+    require(ortho <= ORTHO_BAR and resid <= QR_RESID_BAR,
+            f"P21 (b) rank {rank}: sharded_tsqr ortho {ortho}, residual {resid}")
+    if device == "cuda":  # the plain versions on the CPU launch nothing
+        for k, v in counts.items():
+            require(v > 0, f"P21 (b) rank {rank}: {k} was not launched")
+    dist.destroy_process_group()
+    return out
+
+
+def run_ranks(phase: str, func: str, ranks: int, args: list, env: dict, timeout: int) -> list:
+    """chip_smoke.<func>(torch, *args) in `ranks` processes joined through
+    the NPW_* variables on a free localhost port, each returning its result
+    as JSON on its last line. A rank that fails fails the phase: the others
+    get a grace period, then every process still running is killed."""
+    import tempfile
+
+    port = free_port()
+    code = ("import json, sys, torch, chip_smoke; print(json.dumps(getattr("
+            "chip_smoke, sys.argv[1])(torch, *json.loads(sys.argv[2]))), flush=True)")
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for rank in range(ranks):
+            e = dict(os.environ, **env, NPW_COORDINATOR=f"127.0.0.1:{port}",
+                     NPW_NUM_PROCESSES=str(ranks), NPW_PROCESS_ID=str(rank))
+            out = open(os.path.join(tmp, f"{rank}.out"), "w+")
+            err = open(os.path.join(tmp, f"{rank}.err"), "w+")
+            procs.append((subprocess.Popen([sys.executable, "-c", code, func, json.dumps(args)],
+                                           cwd=here, env=e, stdout=out, stderr=err), out, err))
+        deadline, failed_at = time.time() + timeout, None
+        try:
+            while any(p.poll() is None for p, _, _ in procs):
+                if failed_at is None and any(p.poll() not in (None, 0) for p, _, _ in procs):
+                    failed_at = time.time()
+                if time.time() > deadline or (failed_at and time.time() > failed_at + 30):
+                    break
+                time.sleep(0.2)
+        finally:
+            for p, _, _ in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        results, bad = [], []
+        for rank, (p, out, err) in enumerate(procs):
+            out.seek(0)
+            err.seek(0)
+            lines, tail = out.read().splitlines(), err.read()[-3000:]
+            out.close()
+            err.close()
+            if p.returncode != 0 or not lines:
+                bad.append(f"rank {rank} exit {p.returncode}: {tail}")
+                continue
+            results.append(json.loads(lines[-1]))
+    require(not bad, f"{phase}: " + "\n".join(bad))
+    return results
+
+
+def p21_multi(torch, sizes: dict, small: dict, seed: int, device: str = "cuda") -> dict:
+    """P21 (b): P21_RANKS processes on the one card (run_ranks), compensated.
+    Their times are four processes time-sharing one card: no scaling claim
+    is made from them. Returns the launches summed over the ranks."""
+    t0 = time.perf_counter()
+    ranks = run_ranks("P21 (b)", "p21_rank", P21_RANKS, [sizes, small, seed, device],
+                      {"NPW_COMPENSATED": "1"}, P21_TIMEOUT)
+    counts = {"matmul": 0, "matmul3": 0}
+    for res in ranks:
+        emit({"phase": "P21", "part": "b", "ranks": P21_RANKS, "mesh": [2, 2],
+              "backend": "gloo", "config": "compensated", "sizes": sizes,
+              "note": "four processes time-sharing one card", **res})
+        for k in counts:
+            counts[k] += res["launches"][k]
+    emit({"phase": "P21", "part": "b", "seconds": time.perf_counter() - t0, "launches": counts})
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=32768, help="trapezoid phases' size")
@@ -3294,7 +3641,7 @@ def main(argv=None) -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     p1 = p1_kernels(torch, gen)
-    launches, _ = main_path(torch, npw, args.n, args.n_flat, args.seed)
+    launches, (p2_row, _, _) = main_path(torch, npw, args.n, args.n_flat, args.seed)
     p6 = p6_factor(torch, gen)
     ops_counts = p6_ops_path(torch, gen)
     p7 = p7_chain(torch, gen, args.m)
@@ -3312,11 +3659,17 @@ def main(argv=None) -> int:
                                          args.n_svd, args.seed, args.n_sv_default)
     qdwh_launches, _ = p20_qdwh_ooc(torch, jacobi, bdfac, args.n_ooc, args.seed)
     del jacobi, bdfac
+    torch.cuda.empty_cache()
+    p21a = p21_single(torch, npw, {"n_chol": args.n, "n_gemm": args.n_gemm, "m": args.m, "b": 512},
+                      P21_SMALL, args.seed, p2_row["seconds"])
+    torch.cuda.empty_cache()
+    p21b = p21_multi(torch, {"n_chol": P21B_N_CHOL, "n_gemm": args.n_gemm, "m": args.m, "b": 512},
+                     P21_SMALL, args.seed)
     for name in ("matmul", "matmul3"):
         launches[name] += spill_launches[name]
     launches["matmul"] += ops_counts["matmul"]
     launches.update(potrf=ops_counts["potrf"], trtri=ops_counts["trtri"], **tsqr_counts)
-    for counts in (model_launches, bdfac_launches, qdwh_launches):
+    for counts in (model_launches, bdfac_launches, qdwh_launches, p21a, p21b):
         for name, n in counts.items():
             launches[name] += n
 

@@ -20,7 +20,10 @@ device tier and the host tier; the out-of-core Cholesky and BDFAC
 family on TSQR, Jacobi, BDFAC and QDWH); the DSL ops
 (``ops.TORCH_KERNELS``), ``binops`` and ``checkpoint``; down to the GEMM
 kernels (``ops.gemm``, ``ops.gemm3``) and the factorization kernels
-(``ops.pallas_factor``). See ROADMAP.md for the rest.
+(``ops.pallas_factor``); the multi-device layer's first part
+(``parallel``: the mesh, the process group, the sharded store,
+``sharded_cholesky`` / ``sharded_gemm`` / ``sharded_tsqr`` and SUMMA on
+torch.distributed). See ROADMAP.md for the rest.
 
 ``__all__`` holds the reference's names and, beside them, the entry points
 that the JAX package loads lazily without listing them: ``cholesky``,

@@ -39,7 +39,7 @@ run the plain PyTorch versions). svd_jacobi and svd_refine return tensors
 on the input's device, the others ndarrays, as in the reference.
 
 Still raising NotImplementedError: `singular_values` on a mesh of more
-than one device (ROADMAP Queue 1 #6).
+than one device (ROADMAP Queue 1 #6c).
 """
 
 from numpywren_tpu_torch.alg_wrappers import bdfac, cholesky, gemm, tsqr, tsqr_r_factor

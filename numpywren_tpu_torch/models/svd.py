@@ -25,7 +25,7 @@ Counterpart of numpywren_tpu/models/svd.py:
   device SVD of the BDFAC's B.
 
 Not ported yet, raising NotImplementedError: a `mesh=` of more than one
-device (ROADMAP Queue 1 #6).
+device (ROADMAP Queue 1 #6c).
 
 Inputs: a tensor stays where it is, an ndarray goes to `device` (else the
 current CUDA device). Results are ndarrays, as in the reference. The
@@ -47,7 +47,7 @@ from numpywren_tpu_torch.ops.common import as_tensor, np_dtype, to_numpy
 __all__ = ["singular_values", "svd", "svd_tall", "randomized_svd"]
 
 _MESH = ("a mesh of more than one device: the multi-device BDFAC is not ported yet "
-         "(ROADMAP Queue 1 #6)")
+         "(ROADMAP Queue 1 #6c)")
 
 
 def _gk_band_sigma(bd: np.ndarray, max_band: int) -> np.ndarray:
@@ -271,7 +271,7 @@ def singular_values(x, tile: int = None, finish: str = "band",
     streaming spill executor past the device budget) and reads only the
     band blocks. finish="qdwh" takes an array or tensor through
     `_qdwh_svd` (compute_uv=False: no BDFAC, no host stage; a tiled input
-    keeps the BDFAC route). A mesh of more than one device (#6) raises
+    keeps the BDFAC route). A mesh of more than one device (#6c) raises
     NotImplementedError."""
     from numpywren_tpu_torch.compiler.lower import fused_bdfac, fused_tsqr
     from numpywren_tpu_torch.models import band

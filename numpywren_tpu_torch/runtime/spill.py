@@ -324,7 +324,7 @@ def out_of_core_cholesky(
     row bucket (`_bucket_tiles`); the padded rows are zeros and stay zeros
     through the updates and the solve, and writebacks carry the real rows
     only. `mesh` (a mesh of devices sharding the panels) is not ported yet:
-    anything but None raises (ROADMAP Queue 1 #6).
+    anything but None raises (ROADMAP Queue 1 #6b).
 
     `l.spill_stats` reports the distinct operand shapes each step saw
     (`update_compiles`, `factor_compiles`: what the JAX package's jit cache
@@ -335,7 +335,7 @@ def out_of_core_cholesky(
 
     if mesh is not None:
         raise NotImplementedError(
-            "out_of_core_cholesky over a device mesh is not ported yet (ROADMAP Queue 1 #6)")
+            "out_of_core_cholesky over a device mesh is not ported yet (ROADMAP Queue 1 #6b)")
     if a.shape[0] != a.shape[1] or a.tile[0] != a.tile[1]:
         raise ShapeError("out_of_core_cholesky needs a square matrix / square tiles")
     g = a.grid[0]
@@ -612,7 +612,7 @@ def out_of_core_bdfac(
     columns of a row panel likewise give zero reflector columns. Every
     upload zeroes its buffer's padding. stop_panels factors only the first
     so-many panel steps. `mesh` (a mesh of devices sharding the panels) is
-    not ported yet: anything but None raises (ROADMAP Queue 1 #6)."""
+    not ported yet: anything but None raises (ROADMAP Queue 1 #6c)."""
     from numpywren_tpu_torch.compiler.lower import (
         _matmul,
         _panel_lq_update_cholqr,
@@ -623,7 +623,7 @@ def out_of_core_bdfac(
 
     if mesh is not None:
         raise NotImplementedError(
-            "out_of_core_bdfac over a device mesh is not ported yet (ROADMAP Queue 1 #6)")
+            "out_of_core_bdfac over a device mesh is not ported yet (ROADMAP Queue 1 #6c)")
     if a.shape[0] != a.shape[1] or a.tile[0] != a.tile[1]:
         raise ShapeError("out_of_core_bdfac needs a square matrix / square tiles")
     g = a.grid[0]

@@ -20,6 +20,11 @@ Two tiers, named as in the JAX package:
   tiles are pinned when that device is CUDA, so copies to and from it can
   run asynchronously.
 
+With ``sharding=`` (a parallel.mesh.NamedSharding) the device tier is a
+DTensor over the mesh's ranks, each rank holding only its own block of the
+padded array; get_block and put_block are then collective over the mesh
+(every rank calls them alike) and move at most the tile.
+
 ``TiledSymmetricMatrix`` keeps the lower triangle on the host tier and
 mirrors both triangles on the device tier.
 
@@ -176,7 +181,12 @@ class TiledMatrix(_TiledBase):
     ``fill=None`` makes a read of an unwritten block without parent_fn raise
     BlockNotFoundError, and the padded tensor is allocated at first use. On
     the host tier a block exists once it is put; a missing one falls back
-    to parent_fn (not stored) or raises BlockNotFoundError."""
+    to parent_fn (not stored) or raises BlockNotFoundError.
+
+    `sharding` (a parallel.mesh.NamedSharding) lays the device tier out over
+    a mesh: `array` is a DTensor whose local block is all this rank
+    allocates, on the mesh's device. On the host tier it is the layout that
+    to_hbm() gives by default."""
 
     def __init__(
         self,
@@ -188,6 +198,7 @@ class TiledMatrix(_TiledBase):
         parent_fn: Optional[Callable] = None,
         fill: Optional[float] = 0.0,
         device=None,
+        sharding=None,
     ):
         if shape is None:
             raise ShapeError("shape is required")
@@ -197,9 +208,14 @@ class TiledMatrix(_TiledBase):
         self.shape = tuple(int(s) for s in shape)
         self.tile = tuple(int(t) for t in tile)
         self.dtype = torch_dtype(dtype)
+        if sharding is not None and storage == "hbm":
+            from numpywren_tpu_torch.parallel.mesh import mesh_device
+
+            device = mesh_device(sharding.mesh)
         self.device = torch.device(device) if device is not None else default_device()
         self.storage = storage
         self.parent_fn = parent_fn
+        self.sharding = sharding
         self._lock = threading.Lock()
         if storage == "host":
             self._tiles: Dict[Idx, torch.Tensor] = {}
@@ -213,23 +229,42 @@ class TiledMatrix(_TiledBase):
 
     @property
     def array(self) -> torch.Tensor:
-        """The padded flat tensor (device tier). Fused executors overwrite
-        it in place or commit a new one with replace_array()."""
+        """The padded flat tensor (device tier), a DTensor when sharded.
+        Fused executors overwrite it in place or commit a new one with
+        replace_array()."""
         if self.storage != "hbm":
             raise ValueError("array only available for hbm storage; use to_hbm()")
         if self._data is None:
-            self._data = torch.full(self.padded_shape, self._fill or 0.0,
-                                    dtype=self.dtype, device=self.device)
+            if self.sharding is not None:
+                from numpywren_tpu_torch.parallel.mesh import as_dtensor, local_box
+
+                local = tuple(s for _, s in local_box(self.padded_shape, self.sharding))
+                self._data = as_dtensor(torch.full(local, self._fill or 0.0, dtype=self.dtype,
+                                                   device=self.device),
+                                        self.padded_shape, self.sharding)
+            else:
+                self._data = torch.full(self.padded_shape, self._fill or 0.0,
+                                        dtype=self.dtype, device=self.device)
         return self._data
 
     def replace_array(self, new_array: torch.Tensor, mark_written: bool = True):
+        """Commit `new_array` as the padded tensor; a DTensor makes the store
+        sharded by its layout."""
         if self.storage != "hbm":
             raise ValueError("replace_array only for hbm storage")
         if tuple(new_array.shape) != self.padded_shape:
             raise ShapeError(f"expected padded shape {self.padded_shape}, "
                              f"got {tuple(new_array.shape)}")
         self._data = new_array
-        self.dtype, self.device = new_array.dtype, new_array.device
+        if hasattr(new_array, "device_mesh"):  # a DTensor
+            from numpywren_tpu_torch.parallel.mesh import NamedSharding
+
+            self.sharding = NamedSharding(new_array.device_mesh, tuple(new_array.placements))
+            self.device = new_array.to_local().device
+        else:
+            self.sharding = None
+            self.device = new_array.device
+        self.dtype = new_array.dtype
         if mark_written:
             self._written[:] = True
             self._cached[:] = False
@@ -238,13 +273,54 @@ class TiledMatrix(_TiledBase):
         ti, tj = self.tile
         return self.array[i * ti:(i + 1) * ti, j * tj:(j + 1) * tj]
 
+    def _local_overlap(self, i: int, j: int):
+        """(slices into this rank's block, slices into tile (i, j)) of the
+        part of tile (i, j) that this rank holds, or None."""
+        from numpywren_tpu_torch.parallel.mesh import local_box
+
+        box = local_box(self.padded_shape, self.sharding)
+        loc, tl = [], []
+        for (off, size), t, idx in zip(box, self.tile, (i, j)):
+            lo, hi = max(off, idx * t), min(off + size, (idx + 1) * t)
+            if lo >= hi:
+                return None
+            loc.append(slice(lo - off, hi - off))
+            tl.append(slice(lo - idx * t, hi - idx * t))
+        return tuple(loc), tuple(tl)
+
+    def _read_tile(self, i: int, j: int) -> torch.Tensor:
+        """Tile (i, j): a view of the device tier's tensor, or, sharded, a
+        new tensor assembled from the ranks that hold its parts (one
+        all_reduce per mesh axis of one tile; collective over the mesh)."""
+        if self.sharding is None:
+            return self._tile_view(i, j)
+        from numpywren_tpu_torch.parallel.mesh import is_primary, sum_over_mesh
+
+        out = torch.zeros(self.tile, dtype=self.dtype, device=self.device)
+        part = self._local_overlap(i, j)
+        if part is not None and is_primary(self.sharding):
+            out[part[1]] = self.array.to_local()[part[0]]
+        return sum_over_mesh(out, self.sharding.mesh)
+
+    def _write_tile(self, blk: torch.Tensor, i: int, j: int) -> None:
+        """Write the full tile `blk` as tile (i, j); sharded, each rank keeps
+        its own part of it (no data moves)."""
+        if self.sharding is None:
+            self._tile_view(i, j).copy_(blk, non_blocking=True)
+            return
+        part = self._local_overlap(i, j)
+        if part is not None:
+            self.array.to_local()[part[0]].copy_(blk[part[1]], non_blocking=True)
+
     # ------------------------------------------------------------- get/put
     def get_block(self, i: int, j: int) -> torch.Tensor:
         """Tile (i, j), always full tile-shaped (edge blocks padded): a view
         of the device tier's tensor, or the host tier's CPU tile.
 
         Reference behavior (matrix.py::get_block): on a miss, delegate to
-        parent_fn (lazy aliasing of scratch onto inputs), else error."""
+        parent_fn (lazy aliasing of scratch onto inputs), else error.
+        Sharded, every rank of the mesh calls it alike (collective) and gets
+        the tile, a new tensor, not a view."""
         self._check_idx(i, j)
         if self.storage == "host":
             with self._lock:
@@ -256,12 +332,12 @@ class TiledMatrix(_TiledBase):
             if self.parent_fn is not None:
                 # stage the fallback so repeated reads hit, but do NOT mark
                 # the block computed (parent_fn reads never write back)
-                self._tile_view(i, j).copy_(self._padded(self.parent_fn(self, i, j), i, j))
+                self._write_tile(self._padded(self.parent_fn(self, i, j), i, j), i, j)
                 self._cached[i, j] = True
             elif self._fill is None:
                 raise BlockNotFoundError(
                     f"block ({i},{j}) of {self.key} does not exist and no parent_fn")
-        return self._tile_view(i, j)
+        return self._read_tile(i, j)
 
     def _fallback(self, i: int, j: int):
         if self.parent_fn is not None:
@@ -293,14 +369,16 @@ class TiledMatrix(_TiledBase):
 
     def put_block(self, arr, i: int, j: int):
         """Store tile (i, j). Accepts full-tile or true-edge-shaped arrays;
-        idempotent (deterministic location), like the reference's S3 puts."""
+        idempotent (deterministic location), like the reference's S3 puts.
+        Sharded, every rank of the mesh calls it with the same tile and keeps
+        its own part (no data moves)."""
         self._check_idx(i, j)
         if self.storage == "host":
             blk = self._host_tile(arr, i, j)
             with self._lock:
                 self._tiles[(i, j)] = blk
             return (i, j)
-        self._tile_view(i, j).copy_(self._padded(arr, i, j))
+        self._write_tile(self._padded(arr, i, j), i, j)
         self._written[i, j] = True
         return (i, j)
 
@@ -330,7 +408,9 @@ class TiledMatrix(_TiledBase):
         self._written[i, j] = False
         self._cached[i, j] = False
         if was and self._fill is not None and self._data is not None:
-            self._tile_view(i, j).fill_(self._fill)  # a dense read sees the fill
+            # a dense read sees the fill
+            self._write_tile(torch.full(self.tile, self._fill, dtype=self.dtype,
+                                        device=self.device), i, j)
 
     def block_exists(self, i: int, j: int) -> bool:
         if self.storage == "host":
@@ -348,25 +428,24 @@ class TiledMatrix(_TiledBase):
         self._cached[:] = False
 
     # --------------------------------------------------------- tier moves
-    def to_hbm(self) -> "TiledMatrix":
-        """A copy on the device tier of `device` (spill-in). Blocks that do
-        not exist are staged from parent_fn (not marked computed)."""
+    def to_hbm(self, sharding=None) -> "TiledMatrix":
+        """A copy on the device tier of `device` (spill-in), laid out by
+        `sharding` (default: this store's). Blocks that do not exist are
+        staged from parent_fn (not marked computed). Sharded, each rank
+        copies only its own block; collective over the mesh."""
+        sharding = sharding if sharding is not None else self.sharding
         out = TiledMatrix(key=self.key + ":hbm", shape=self.shape, tile=self.tile,
                           dtype=self.dtype, device=self.device, parent_fn=self.parent_fn,
-                          fill=self._fill if self.storage == "hbm" else 0.0)
+                          fill=self._fill if self.storage == "hbm" else 0.0, sharding=sharding)
         if self.storage == "hbm":
-            out.replace_array(self.array.clone())
+            out.replace_array(self._relaid(sharding))
             out._written = self._written.copy()
             out._cached = self._cached.copy()
             return out
-        ti, tj = self.tile
-        arr = torch.zeros(self.padded_shape, dtype=self.dtype, device=self.device)
         with self._lock:
             tiles = dict(self._tiles)
         for (i, j), blk in tiles.items():
-            arr[i * ti:(i + 1) * ti, j * tj:(j + 1) * tj].copy_(blk, non_blocking=True)
-        out.replace_array(arr, mark_written=False)
-        for (i, j) in tiles:
+            out._write_tile(blk, i, j)
             out._written[i, j] = True
         if self.parent_fn is not None:  # the copy reads what this tier reads
             for (i, j) in self.block_idxs:
@@ -374,8 +453,26 @@ class TiledMatrix(_TiledBase):
                     out.get_block(i, j)
         return out
 
+    def _relaid(self, sharding) -> torch.Tensor:
+        """A copy of the device tier's array laid out by `sharding`: the
+        same layout, or an unsharded array whose own block each rank keeps.
+        A sharded array is not laid out anew (ValueError): that would pass
+        the whole matrix through every rank."""
+        from numpywren_tpu_torch.parallel.mesh import as_dtensor, local_block
+
+        src = self.array
+        if sharding == self.sharding:
+            if sharding is None:
+                return src.clone()
+            return as_dtensor(src.to_local().clone(), self.padded_shape, sharding)
+        if self.sharding is not None:
+            raise ValueError("to_hbm: a sharded device tier keeps its sharding; "
+                             f"got {sharding!r} for {self.sharding!r}")
+        return as_dtensor(local_block(src, sharding).clone(), self.padded_shape, sharding)
+
     def to_host(self) -> "TiledMatrix":
-        """A copy on the host tier (spill-out): the computed blocks."""
+        """A copy on the host tier (spill-out): the computed blocks
+        (collective over the mesh when sharded)."""
         out = TiledMatrix(key=self.key + ":host", shape=self.shape, tile=self.tile,
                           dtype=self.dtype, storage="host", parent_fn=self.parent_fn,
                           device=self.device)
@@ -385,7 +482,7 @@ class TiledMatrix(_TiledBase):
             return out
         for (i, j) in self.block_idxs:
             if self._written[i, j]:
-                out._tiles[(i, j)] = out._host_tile(self._tile_view(i, j), i, j)
+                out._tiles[(i, j)] = out._host_tile(self._read_tile(i, j), i, j)
         return out
 
 

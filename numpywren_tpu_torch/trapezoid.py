@@ -248,8 +248,10 @@ class TiledTrapezoidMatrix(_TiledBase):
     def numpy(self) -> np.ndarray:
         return to_numpy(self.to_array())
 
-    def to_hbm(self) -> TiledMatrix:
-        """A flat device-tier TiledMatrix copy."""
+    def to_hbm(self, sharding=None) -> TiledMatrix:
+        """A flat device-tier TiledMatrix copy, laid out by `sharding` (a
+        parallel.mesh.NamedSharding: each rank keeps its own block of the
+        flat array that this device's tier assembles)."""
         out = TiledMatrix(key=self.key + ":hbm", shape=self.shape, tile=self.tile,
                           dtype=self.dtype, fill=None, device=self.device)
         arr = self.to_array()
@@ -261,6 +263,10 @@ class TiledTrapezoidMatrix(_TiledBase):
                 idx = torch.arange(self.shape[0], pm, device=arr.device)
                 pad[idx, idx] = 1
             arr = pad
+        if sharding is not None:
+            from numpywren_tpu_torch.parallel.mesh import as_dtensor, local_block
+
+            arr = as_dtensor(local_block(arr, sharding).clone(), arr.shape, sharding)
         out.replace_array(arr, mark_written=False)
         out._written = (np.ones(out.grid, dtype=bool) if self.symmetric
                         else np.tril(np.ones(out.grid, dtype=bool)))

@@ -46,8 +46,11 @@ def _imports(path: Path):
             yield node.module
 
 
+WORKERS = [ROOT / "tests" / "torch_parallel_worker.py"]
+
+
 def test_no_jax_import_in_port_sources():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + WORKERS
     assert len(files) >= 15
     for path in files:
         for mod in _imports(path):
@@ -57,8 +60,8 @@ def test_no_jax_import_in_port_sources():
 def test_no_jax_package_import_in_port_sources():
     """The port keeps its own copies of the backend-neutral modules: no
     import whose top-level name is numpywren_tpu, in the package or in
-    chip_smoke.py."""
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    chip_smoke.py, nor in the port's rank worker."""
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + WORKERS
     for path in files:
         for mod in _imports(path):
             assert mod.split(".")[0] != "numpywren_tpu", f"{path}: imports {mod}"
@@ -150,3 +153,98 @@ def test_chip_smoke_fails_alone(tmp_path):
     shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
     proc = _run(["chip_smoke.py"], cwd=tmp_path)
     _assert_refused(proc)
+
+
+# P21 (b)'s ranks on the CPU at a tiny size: the kernels' plain versions
+_P21B = ("import torch, chip_smoke\n"
+         "chip_smoke.p21_multi(torch, {'n_chol': 256, 'n_gemm': 128, 'm': 2048, 'b': 32},\n"
+         "                     {'n_chol': 128, 'n_gemm': 64, 'm': 1024, 'b': 32}, 0, 'cpu')\n")
+
+
+def _p21b(cwd):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    return subprocess.run([sys.executable, "-c", _P21B], cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=300)
+
+
+def test_p21_ranks_rehearse_on_the_cpu():
+    """chip_smoke.py's P21 (b) runs its four ranks to their end here, on
+    the CPU: each reports, and rank 0's checks against the 1-rank results
+    hold."""
+    proc = _p21b(ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    ranks = [r for r in rows if "rank" in r]
+    assert sorted(r["rank"] for r in ranks) == [0, 1, 2, 3]
+    assert ranks[0]["cholesky_rel_diff_vs_1_rank"] <= 1e-4
+
+
+# Stand-ins for a card and for every phase before P21 (b), which then runs
+# its ranks on the CPU at a tiny size; a broadcast on rank 1 raises.
+_ONLY_P21B = """
+import pathlib as _pathlib
+
+import torch as _torch
+import torch.distributed as _dist
+from numpywren_tpu_torch.ops import _build as _b
+
+
+def _nothing(*args, **kw):
+    return None
+
+
+for _name in ("p1_kernels", "p6_factor", "p6_ops_path", "p7_chain", "tsqr_phases", "p13_qr",
+              "p14_qr_leaf", "p15_generic", "p16_host_tier", "p21_single"):
+    globals()[_name] = _nothing
+main_path = lambda *a, **kw: ({"matmul3": 0}, ({"seconds": 0.0}, None, None))
+p12_gemm = lambda *a, **kw: 0
+p17_spill = p18_models = p20_qdwh_ooc = lambda *a, **kw: ({}, None)
+p19_bdfac = lambda *a, **kw: ({}, None, None)
+gpu_line = lambda: "no card"
+_p21_multi, _main, _generator = p21_multi, main, _torch.Generator
+p21_multi = lambda torch, sizes, small, seed: _p21_multi(
+    torch, {"n_chol": 256, "n_gemm": 128, "m": 2048, "b": 32},
+    {"n_chol": 128, "n_gemm": 64, "m": 1024, "b": 32}, seed, "cpu")
+
+
+def main(argv=None):
+    _torch.cuda.is_available = lambda: True
+    _torch.cuda.get_device_name = lambda i=0: "no card"
+    _torch.Generator = lambda device=None: _generator()
+    _b.build, _b.library = (lambda: _pathlib.Path("none.so")), _nothing
+    return _main(argv)
+
+
+_broadcast = _dist.broadcast
+
+
+def _faulty_broadcast(tensor, *args, **kw):
+    if _dist.get_rank() == 1:
+        raise RuntimeError("injected collective fault")
+    return _broadcast(tensor, *args, **kw)
+
+
+_dist.broadcast = _faulty_broadcast
+
+"""
+
+
+def test_a_failing_rank_fails_chip_smoke(tmp_path):
+    """A collective that raises on one rank of P21 (b) makes chip_smoke.py,
+    run as a script through its main, exit 1 without the ok line, naming
+    the rank and its error; the other ranks are stopped."""
+    src = (ROOT / "chip_smoke.py").read_text()
+    tail = '\nif __name__ == "__main__":\n'
+    assert src.count(tail) == 1
+    (tmp_path / "chip_smoke.py").write_text(src.replace(tail, _ONLY_P21B + tail))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 1, proc.stderr[-3000:]
+    assert '"phase": "P0"' in proc.stdout  # main ran up to P21 (b)
+    assert "chip_smoke: FAIL: P21 (b): rank " in proc.stderr and "rank 1 exit 1" in proc.stderr
+    assert "injected collective fault" in proc.stderr
+    assert not any(json.loads(line).get("ok") is True
+                   for line in proc.stdout.splitlines() if line.startswith("{"))

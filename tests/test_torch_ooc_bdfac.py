@@ -190,7 +190,7 @@ def test_argument_errors():
         spill.out_of_core_bdfac(sq, panel_tiles=2)
     with pytest.raises(ValueError, match="unknown shape_mode"):
         spill.out_of_core_bdfac(sq, panel_tiles=1, shape_mode="pad")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #6c"):
         spill.out_of_core_bdfac(sq, panel_tiles=1, mesh=object())
 
 

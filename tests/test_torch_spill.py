@@ -304,7 +304,7 @@ def test_bucket_tiles_matches_jax():
 
 def test_mesh_raises_naming_its_roadmap_item():
     at, _ = _host(random_spd(64, seed=0))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #6b"):
         out_of_core_cholesky(at, mesh=object())
 
 

@@ -1,0 +1,311 @@
+"""Rank processes for the port's multi-process tests
+(tests/test_torch_parallel.py, tests/test_torch_distributed.py), as
+tests/distributed_worker.py is the JAX package's.
+
+Each rank joins a gloo group through numpywren_tpu_torch.parallel.distributed
+(NPW_COORDINATOR / NPW_NUM_PROCESSES / NPW_PROCESS_ID; NPW_MESH_SHAPE and
+NPW_COMPENSATED configure the port) and imports only the port. "parallel"
+runs the sharded entry points on <dir>/inputs.npz, at "high" and then under
+NPW_COMPENSATED=1, and rank 0 writes what the ranks computed (full_tensor()
+of each result, every rank's block geometry) to <dir>/out.npz. "distributed"
+runs the multi-process helpers and checks them against numpy. Both print
+"WORKER_OK <rank>" last.
+
+`start` forks the ranks from a forkserver that has imported torch and the
+port once (eight fresh interpreters would import them eight times), each
+rank writing its output to <dir>/rank<r>.log; `finish` waits for them and
+fails with every failing rank's output; `launch` does both. By hand, one
+process a rank with the NPW_* variables set:
+
+    python tests/torch_parallel_worker.py parallel|distributed <dir>
+"""
+
+import multiprocessing
+import os
+import socket
+import sys
+import time
+
+# what the forkserver imports once, before it forks the ranks
+PRELOAD = ["torch", "torch.distributed.tensor", "numpywren_tpu_torch.parallel",
+           "numpywren_tpu_torch.matrix_init", "torch_parallel_worker"]
+
+
+def _rank(mode: str, workdir: str, env: dict, rank: int) -> None:
+    """One rank, forked from the forkserver: its output to <dir>/rank<r>.log,
+    its NPW_* variables from `env` (the port reads its config afresh)."""
+    fd = os.open(os.path.join(workdir, f"rank{rank}.log"), os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+    os.dup2(fd, 1)
+    os.dup2(fd, 2)
+    os.close(fd)
+    for k in [k for k in os.environ if k.startswith("NPW_")]:
+        del os.environ[k]
+    os.environ.update(env)
+    import torch
+
+    from numpywren_tpu_torch import config
+
+    torch.set_num_threads(1)
+    config._default = None
+    run(mode, workdir)
+
+
+def start(mode: str, ranks: int, workdir: str, env=None):
+    """Start `ranks` processes of `mode` as one gloo group on a free
+    localhost port; `finish` waits for them."""
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(PRELOAD)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in range(ranks):
+        e = dict(env or {}, NPW_COORDINATOR=f"127.0.0.1:{port}", NPW_NUM_PROCESSES=str(ranks),
+                 NPW_PROCESS_ID=str(rank))
+        procs.append(ctx.Process(target=_rank, args=(mode, workdir, e, rank)))
+        procs[-1].start()
+    return workdir, procs
+
+
+def finish(started, timeout: int = 240):
+    """Wait for the ranks (killing any still running after `timeout`
+    seconds); fail with every failing rank's output."""
+    workdir, procs = started
+    deadline = time.time() + timeout
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.time()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    outs = []
+    for r in range(len(procs)):
+        with open(os.path.join(workdir, f"rank{r}.log")) as f:
+            outs.append(f.read())
+    bad = [f"rank {r} (exit {p.exitcode}):\n{out[-3000:]}"
+           for r, (p, out) in enumerate(zip(procs, outs))
+           if p.exitcode != 0 or f"WORKER_OK {r}" not in out]
+    assert not bad, "\n".join(bad)
+    return outs
+
+
+def launch(mode: str, ranks: int, workdir: str, env=None, timeout: int = 240):
+    """start, then finish."""
+    return finish(start(mode, ranks, workdir, env), timeout)
+
+
+# ---------------------------------------------------------------------------
+# the ranks
+# ---------------------------------------------------------------------------
+
+def _boxes(np, dt):
+    """Every rank's (rank, row offset, rows, col offset, cols) of the
+    DTensor `dt`'s local block, in mesh order, on every rank of its mesh."""
+    import torch
+
+    from numpywren_tpu_torch.parallel.mesh import NamedSharding, local_box, sum_over_mesh
+
+    mesh = dt.device_mesh
+    (r0, rs), (c0, cs) = local_box(dt.shape, NamedSharding(mesh, tuple(dt.placements)))
+    assert tuple(dt.to_local().shape) == (rs, cs)
+    p, q = mesh.get_coordinate()
+    rows = torch.zeros((mesh.size(), 5), dtype=torch.int64)
+    rows[p * mesh.shape[1] + q] = torch.tensor([int(mesh.mesh[p, q]), r0, rs, c0, cs])
+    return sum_over_mesh(rows, mesh).numpy()
+
+
+def run_parallel(workdir: str) -> None:
+    import numpy as np
+
+    from numpywren_tpu_torch import config
+    from numpywren_tpu_torch.exceptions import ShapeError
+    from numpywren_tpu_torch.parallel import (distributed, make_mesh, sharded_cholesky,
+                                              sharded_gemm, sharded_tsqr, tile_sharding)
+    from numpywren_tpu_torch.parallel.fabric import summa_gemm, summa_syrk
+
+    assert distributed.initialize(), "expected a multi-process run"
+    rank = distributed.process_index()
+    inp = dict(np.load(os.path.join(workdir, "inputs.npz")))
+    out = {}
+    mesh = make_mesh(device="cpu")  # NPW_MESH_SHAPE=2x4
+    out["mesh_shape"] = np.array(mesh.shape)
+    out["mesh_axes"] = np.array(mesh.mesh_dim_names)
+    mesh4 = make_mesh(devices=[0, 1, 2, 3], shape=(2, 2), device="cpu")
+    for mode in ("high", "compensated"):
+        os.environ["NPW_COMPENSATED"] = "1" if mode == "compensated" else "0"
+        config._default = None  # re-read the environment
+        assert config.default_config().compensated == (mode == "compensated")
+        l = sharded_cholesky(inp["spd"], tile=64, mesh=mesh)
+        out[f"{mode}/chol"] = l.full_tensor().numpy()
+        out[f"{mode}/chol_boxes"] = _boxes(np, l)
+        lt = sharded_cholesky(inp["spd"], tile=64, mesh=mesh, truncate=2)
+        out[f"{mode}/chol_truncate"] = lt.full_tensor().numpy()
+        c = sharded_gemm(inp["gemm_a"], inp["gemm_b"], mesh=mesh)
+        out[f"{mode}/gemm"] = c.full_tensor().numpy()
+        out[f"{mode}/gemm_boxes"] = _boxes(np, c)
+        for leaves in (8, 11):
+            r = sharded_tsqr(inp[f"tsqr_{leaves}"], tile_rows=64, mesh=mesh)
+            out[f"{mode}/tsqr_{leaves}"] = r.full_tensor().numpy()
+        q, r = sharded_tsqr(inp["tsqr_q"], tile_rows=64, mesh=mesh, compute_q=True)
+        out[f"{mode}/tsqr_q_q"] = q.full_tensor().numpy()
+        out[f"{mode}/tsqr_q_r"] = r.full_tensor().numpy()
+        out[f"{mode}/tsqr_q_boxes"] = _boxes(np, q)
+        if rank < 4:  # the 2x2 mesh of ranks 0-3, as the reference's jax.devices()[:4]
+            c = summa_gemm(inp["summa_a"], inp["summa_b"], mesh=mesh4)
+            out[f"{mode}/summa"] = distributed.full_tensor(c).numpy()
+            c2 = summa_gemm(inp["summa_sq"], inp["summa_sq"], mesh=mesh4)
+            out[f"{mode}/summa_sq_boxes"] = _boxes(np, c2)
+            out[f"{mode}/syrk"] = distributed.full_tensor(
+                summa_syrk(inp["syrk_s"], inp["syrk_p"], mesh=mesh4)).numpy()
+        try:
+            summa_gemm(inp["summa_sq"], inp["summa_sq"], mesh=mesh)
+            out[f"{mode}/summa_nonsquare_raised"] = np.array(False)
+        except ShapeError:
+            out[f"{mode}/summa_nonsquare_raised"] = np.array(True)
+    config._default = None
+    os.environ["NPW_COMPENSATED"] = "0"
+    _store_cases(np, inp, out, mesh, tile_sharding(mesh))
+    # the configured mesh shape (tests/test_spill.py's mesh_shape case)
+    cfg = config.default_config()
+    cfg.mesh_shape = (1, 8)
+    out["mesh_cfg_1x8"] = np.array(make_mesh(device="cpu").shape)
+    cfg.mesh_shape = (3, 5)  # a shape for another rank count: the most-square one
+    out["mesh_cfg_3x5"] = np.array(make_mesh(device="cpu").shape)
+    try:  # an explicit shape for another rank count
+        make_mesh(shape=(3, 3), device="cpu")
+        out["mesh_bad_shape_raised"] = np.array(False)
+    except ValueError:
+        out["mesh_bad_shape_raised"] = np.array(True)
+    bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+           or m.split(".")[0] == "numpywren_tpu"]
+    assert not bad, f"rank {rank} imported {bad[:5]}"
+    distributed.sync()
+    if rank == 0:
+        np.savez(os.path.join(workdir, "out.npz"), **out)
+    distributed.sync()
+
+
+def _store_cases(np, inp, out, mesh, sh):
+    """The store's sharding= arguments: shard_matrix (also symmetric),
+    TiledMatrix(sharding=) with get_block/put_block, and to_hbm(sharding=)
+    from the host tier, the unsharded device tier and the trapezoid tier,
+    and from a sharded tier to its own layout (another one raises)."""
+    import torch
+
+    from numpywren_tpu_torch.matrix_init import shard_matrix
+    from numpywren_tpu_torch.tiled import TiledMatrix
+    from numpywren_tpu_torch.trapezoid import TiledTrapezoidMatrix, TrapezoidMatrix
+
+    from numpywren_tpu_torch.parallel import distributed
+    from numpywren_tpu_torch.parallel.mesh import replicated
+
+    x = inp["store"]  # (200, 136): padded (224, 160), whose rank blocks split tiles
+    m = shard_matrix(x, tile=(32, 32), sharding=sh)
+    out["store/boxes"] = _boxes(np, m.array)
+    out["store/numpy"] = m.numpy()
+    out["store/blocks"] = np.stack([m.get_block(i, j).numpy() for (i, j) in m.block_idxs])
+    m.put_block(inp["store_tile"], 3, 2)
+    out["store/after_put"] = m.numpy()
+    out["store/written"] = np.array(m.block_idxs_exist)
+    s = shard_matrix(inp["spd"][:200, :200], tile=(32, 32), sharding=sh, symmetric=True)
+    out["store/symmetric_full"] = distributed.full_tensor(s.array).numpy()
+    t = TiledMatrix(shape=(200, 136), tile=(32, 32), sharding=sh)
+    t.put_block(inp["store_tile"], 3, 2)
+    t.put_block(inp["store_tile"][:8, :], 6, 0)  # an edge block, its true shape
+    out["store/put_get"] = t.get_block(3, 2).numpy()
+    out["store/put_edge"] = t.get_block(6, 0).numpy()
+    out["store/put_numpy"] = t.numpy()
+    host = shard_matrix(x, tile=(32, 32), storage="host", device="cpu")
+    h = host.to_hbm(sharding=sh)
+    out["store/to_hbm"] = h.numpy()
+    out["store/to_hbm_boxes"] = _boxes(np, h.array)
+    out["store/to_hbm_back"] = h.to_host().numpy()
+    out["store/to_hbm_same"] = h.to_hbm().numpy()  # a sharded tier keeps its layout
+    dev = shard_matrix(x, tile=(32, 32), device="cpu")  # the unsharded device tier
+    hd = dev.to_hbm(sharding=sh)
+    out["store/dev_to_hbm"] = hd.numpy()
+    out["store/dev_to_hbm_boxes"] = _boxes(np, hd.array)
+    try:  # another layout of a sharded tier would pass the whole array through each rank
+        h.to_hbm(sharding=replicated(sh.mesh))
+        out["store/relayout_raised"] = np.array(False)
+    except ValueError:
+        out["store/relayout_raised"] = np.array(True)
+    trap = TiledTrapezoidMatrix(
+        TrapezoidMatrix.from_array(torch.from_numpy(inp["spd"]), panel=64, device="cpu"),
+        tile=32, symmetric=True)
+    th = trap.to_hbm(sharding=sh)
+    out["store/trap_to_hbm"] = distributed.full_tensor(th.array).numpy()
+    out["store/trap_boxes"] = _boxes(np, th.array)
+
+
+def run_distributed(workdir: str) -> None:
+    """tests/distributed_worker.py's checks, on the port: host-0 data
+    broadcast, the sharded Cholesky and GEMM over the mesh of every rank,
+    each rank binding its own rows with host_local_array, gather_to_hosts
+    of a per-rank array, and a final barrier."""
+    import numpy as np
+
+    from numpywren_tpu_torch.matrix_init import random_spd
+    from numpywren_tpu_torch.parallel import (distributed, make_mesh, mesh_sharding,
+                                              sharded_cholesky, sharded_gemm)
+    from numpywren_tpu_torch.parallel.mesh import P
+
+    assert distributed.initialize(), "expected a multi-process run"
+    n_procs = int(os.environ["NPW_NUM_PROCESSES"])
+    assert distributed.process_count() == n_procs and distributed.is_multi_host()
+    assert distributed.initialize()  # idempotent
+    rank = distributed.process_index()
+    mesh = make_mesh(device="cpu")
+    assert mesh.size() == n_procs
+
+    # identical input everywhere (host-0 data broadcast, the S3-read analog)
+    a_local = random_spd(512, seed=3) if rank == 0 else np.zeros((1,), np.float64)
+    a = distributed.broadcast_from_host0(a_local)
+    assert a.dtype == np.float32 and a.shape == (512, 512)
+    np.testing.assert_array_equal(a, random_spd(512, seed=3))
+
+    l = sharded_cholesky(a, tile=64, mesh=mesh)
+    l_np = distributed.gather_to_hosts(l)
+    res = np.linalg.norm(l_np @ l_np.T - a) / np.linalg.norm(a)
+    assert res < 1e-4, f"cholesky residual {res}"
+
+    c_np = distributed.gather_to_hosts(sharded_gemm(a, a, mesh=mesh))
+    ref = a.astype(np.float64) @ a.astype(np.float64)
+    err = np.abs(c_np - ref).max() / np.abs(ref).max()
+    assert err < 1e-4, f"gemm error {err}"
+
+    # each rank binds only its own rows: the mesh rows split them, the
+    # mesh columns replicate them
+    sh = mesh_sharding(mesh, P(mesh.mesh_dim_names[0], None))
+    rows = 512 // mesh.shape[0]
+    p = mesh.get_coordinate()[0]
+    g = distributed.host_local_array(a[p * rows:(p + 1) * rows], (512, 512), sh)
+    assert tuple(g.shape) == (512, 512) and tuple(g.to_local().shape) == (rows, 512)
+    np.testing.assert_array_equal(distributed.gather_to_hosts(g), a)
+    per_rank = np.full((2, 3), float(rank))
+    np.testing.assert_array_equal(distributed.gather_to_hosts(per_rank),
+                                  np.repeat(np.arange(n_procs, dtype=float), 2)[:, None]
+                                  * np.ones((1, 3)))
+    np.testing.assert_array_equal(distributed.gather_to_hosts(np.float64(rank)),
+                                  np.arange(n_procs, dtype=float))
+    bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+           or m.split(".")[0] == "numpywren_tpu"]
+    assert not bad, f"rank {rank} imported {bad[:5]}"
+    distributed.sync("npw_test_done")
+
+
+def run(mode: str, workdir: str) -> None:
+    {"parallel": run_parallel, "distributed": run_distributed}[mode](workdir)
+    import torch.distributed as dist
+
+    from numpywren_tpu_torch.parallel import distributed
+
+    rank = distributed.process_index()
+    dist.destroy_process_group()
+    print(f"WORKER_OK {rank}", flush=True)
+
+
+if __name__ == "__main__":
+    run(sys.argv[1], sys.argv[2])
