@@ -219,6 +219,25 @@ multi-device layer (P21):
       alone (the GEMMs within 1e-5, the factor within 1e-4, R within
       3e-5); TSQR's orthogonality and residual summed over the ranks'
       rows; every rank must launch matmul3 and matmul and import no jax.
+      Then the fabric's calls (parallel.fabric, runtime.spill): in (a)
+      cholesky_2d at --n panel 1024 with lookahead on and off, cholesky_1d,
+      cholqr3s_sharded with Q on --m x 512, cholqr2_sharded with Q on
+      65,536 x 256, tsqr_butterfly on --m x 512 and
+      out_of_core_cholesky(mesh=) on a host tier of A (tile 512, W =
+      2048), each twice in a row (both times reported), then matmul3 at
+      cholesky_2d's first bulk update ((n - 1024)² by K = 1024, c a view)
+      against matmul3_ref and _matmul_split_ref, timed in turns with
+      addmm; in (b) the three Cholesky forms and the mesh out-of-core
+      Cholesky at P21B_N_CHOL and cholqr3s_sharded with Q on a kappa = 1e6
+      65,536 x 256 panel, whose chains and extras passes rank 0 requires
+      equal on every rank, each held on rank 0 to the same call on a
+      1-rank mesh (the factors within 1e-4, R within 3e-5). The factors'
+      residuals <= 1e-4, Q's orthogonality and residual the TSQR bars (the
+      kappa panel's residual <= 3e-5, P21_KAPPA_RESID_BAR), R within 3e-5
+      of the library's QR (cholqr3s_sharded's within 1e-4, its chain's
+      convergence target, and within 3e-5 of the single-device chain's);
+      each card rank requires matmul3 launched by every Cholesky form, the
+      mesh out-of-core Cholesky and the compensated cholqr3s apply.
       Part (b)'s times are four processes time-sharing one card: no
       scaling claim is made from them
 
@@ -237,6 +256,7 @@ from __future__ import annotations
 import argparse
 import importlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -3404,6 +3424,194 @@ def p21_bars(torch, ops: dict, full: dict, ref: dict = None) -> dict:
     return row
 
 
+P21_KAPPA = 1e6           # part (b)'s cholqr3s_sharded operand (P10's)
+# ||QR - X||_F / ||X||_F of that operand's compensated chain: its applies are
+# matmul3 (bf16x3, MATMUL3_FP64_BAR against fp64 each), and the chain on one
+# device reaches 1.66e-5 there (the plain versions on the CPU), above
+# QR_RESID_BAR, which the true-FP32 chain meets (6.9e-7)
+P21_KAPPA_RESID_BAR = 3e-5
+P21_M_SMALL, P21_B_SMALL = 65536, 256   # cholqr2_sharded's (a) and the kappa operand's (b) shape
+P21_OOC_PANEL_TILES = SPILL_PANEL_TILES  # the mesh out-of-core Cholesky's W: 4 tiles of 512
+FABRIC_MATMUL3 = ("cholesky_2d", "cholesky_2d_no_lookahead", "cholesky_1d", "out_of_core_cholesky")
+
+
+def p21_fabric_operands(torch, sizes: dict, seed: int, device: str) -> dict:
+    """The fabric entries' operands beside p21_operands': P11's 65,536 x 256
+    (cholqr2_sharded, part (a)) and P10's kappa = 1e6 panel of that shape
+    (cholqr3s_sharded, part (b)), made alike on every rank."""
+    gen = torch.Generator(device=device).manual_seed(seed + 21)
+    m, b = min(P21_M_SMALL, sizes["m"]), min(P21_B_SMALL, sizes["b"])
+    u, _ = torch.linalg.qr(torch.randn(m, b, generator=gen, device=device))
+    v, _ = torch.linalg.qr(torch.randn(b, b, generator=gen, device=device))
+    s = torch.logspace(0, -math.log10(P21_KAPPA), b, device=device)
+    return {"x_small": torch.randn(m, b, generator=gen, device=device),
+            "x_kappa": (u * s) @ v.T}
+
+
+def p21_host_tier(torch, a, tile: int):
+    """A as a host tier computing on its device (on the CPU, a plain one)."""
+    from numpywren_tpu_torch.matrix_init import shard_matrix
+
+    if a.device.type == "cuda":
+        return host_tier(torch, a, tile)
+    return shard_matrix(a.numpy(), tile=(tile, tile), storage="host", device="cpu")
+
+
+def p21_fabric_drive(torch, mesh, ops: dict, fab: dict, panel: int, ooc_tile: int,
+                     part: str, repeat: int = 1) -> tuple:
+    """The fabric entries once each on `mesh` (every rank of it calls
+    this): (a) cholesky_2d with lookahead on and off, cholesky_1d,
+    cholqr3s_sharded with Q on ops["x"], cholqr2_sharded with Q on
+    fab["x_small"], tsqr_butterfly on ops["x"], out_of_core_cholesky(mesh=)
+    on a host tier of ops["a"]; (b) the Cholesky forms, the out-of-core
+    Cholesky and cholqr3s_sharded with Q on fab["x_kappa"]. Each case runs
+    `repeat` times in a row. Returns (the last run's results, each case's
+    seconds: host clock from a barrier to a synchronize, every run's,
+    each case's matmul / matmul3 launches on this rank in its last run,
+    with the cholqr3s chain's chains and extras passes)."""
+    import torch.distributed as dist
+
+    from numpywren_tpu_torch.compiler import lower
+    from numpywren_tpu_torch.parallel.fabric import (cholesky_1d, cholesky_2d, cholqr2_sharded,
+                                                     cholqr3s_sharded, tsqr_butterfly)
+    from numpywren_tpu_torch.runtime import out_of_core_cholesky
+
+    a = ops["a"]
+    tier = p21_host_tier(torch, a, ooc_tile)
+    cases = [
+        ("cholesky_2d", lambda: cholesky_2d(a, mesh, panel=panel)),
+        ("cholesky_2d_no_lookahead", lambda: cholesky_2d(a, mesh, panel=panel, lookahead=False)),
+        ("cholesky_1d", lambda: cholesky_1d(a, mesh, panel=panel)),
+        ("out_of_core_cholesky", lambda: out_of_core_cholesky(
+            tier, panel_tiles=P21_OOC_PANEL_TILES, mesh=mesh)),
+    ]
+    if part == "a":
+        cases += [
+            ("cholqr3s_sharded", lambda: cholqr3s_sharded(ops["x"], mesh, compute_q=True)),
+            ("cholqr2_sharded", lambda: cholqr2_sharded(fab["x_small"], mesh, compute_q=True)),
+            ("tsqr_butterfly", lambda: tsqr_butterfly(ops["x"], mesh)),
+        ]
+    else:
+        cases.append(("cholqr3s_sharded_kappa",
+                      lambda: cholqr3s_sharded(fab["x_kappa"], mesh, compute_q=True)))
+    cuda = a.device.type == "cuda"
+    results, seconds, launches = {}, {}, {}
+    for name, call in cases:
+        seconds[name] = []
+        for _ in range(repeat):
+            results[name] = None  # the previous run's result goes first
+            if mesh.size() > 1:
+                dist.barrier()
+            if cuda:
+                torch.cuda.synchronize()
+            reset_launch_counts()
+            lower.reset_chain_passes()
+            t0 = time.perf_counter()
+            results[name] = call()
+            if cuda:
+                torch.cuda.synchronize()
+            seconds[name].append(time.perf_counter() - t0)
+        counts = launch_counts()
+        launches[name] = {k: counts[k] for k in ("matmul", "matmul3")}
+        if name.startswith("cholqr3s"):
+            launches[name]["chain_passes"] = dict(lower.CHAIN_PASSES)
+    return results, seconds, launches
+
+
+def p21_fabric_bars(torch, mesh, ops: dict, fab: dict, results: dict) -> tuple:
+    """Each fabric result held to its bar on this rank (collective: Q's
+    quality sums over the mesh): the factors' residual in fp64 (<= 1e-4),
+    the out-of-core factor's too; Q's orthogonality and residual (<= 1e-4,
+    <= 1e-5) and R against the library's QR (<= 3e-5; not the kappa = 1e6
+    panel's). Returns (the numbers, each factor or R whole on this rank)."""
+    a = ops["a"]
+    row, whole = {}, {}
+    for name in ("cholesky_2d", "cholesky_2d_no_lookahead", "cholesky_1d"):
+        whole[name] = results[name]
+    l = results["out_of_core_cholesky"]
+    whole["out_of_core_cholesky"] = (host_tiles_to_card(torch, l, a.shape[0])
+                                     if a.device.type == "cuda"
+                                     else torch.from_numpy(l.numpy())).tril()
+    for name, l in whole.items():
+        row[f"{name}_residual"] = residual(torch, a, l)
+        require(row[f"{name}_residual"] <= RESID_BAR,
+                f"P21: {name} residual {row[f'{name}_residual']} > {RESID_BAR}")
+    r_lib = {"x": torch.linalg.qr(ops["x"], mode="r")[1]}
+    if "cholqr2_sharded" in results:
+        r_lib["x_small"] = torch.linalg.qr(fab["x_small"], mode="r")[1]
+    for name, x in (("cholqr3s_sharded", "x"), ("cholqr2_sharded", "x_small"),
+                    ("cholqr3s_sharded_kappa", "x_kappa")):
+        if name not in results:
+            continue
+        q, r = results[name]
+        ortho, resid = p21_tsqr_quality(torch, mesh, ops[x] if x in ops else fab[x], q, r)
+        row[f"{name}_ortho"], row[f"{name}_residual"] = ortho, resid
+        resid_bar = P21_KAPPA_RESID_BAR if x == "x_kappa" else QR_RESID_BAR
+        require(ortho <= ORTHO_BAR and resid <= resid_bar,
+                f"P21: {name} ortho {ortho}, residual {resid} (bars {ORTHO_BAR}, {resid_bar})")
+        whole[name] = r.to_local()
+    if "tsqr_butterfly" in results:
+        whole["tsqr_butterfly"] = results["tsqr_butterfly"].to_local()
+    for name, x in (("cholqr3s_sharded", "x"), ("cholqr2_sharded", "x_small"),
+                    ("tsqr_butterfly", "x")):
+        if name in whole:
+            v = rel_err(torch, sign_fixed(whole[name]), sign_fixed(r_lib[x]))
+            row[f"{name}_r_rel_diff_vs_library"] = v
+            # the chain stops once its Gram is within conv_tol = 1e-4 of I,
+            # so its R is held to the library's QR at the orthogonality bar,
+            # and to the single-device chain's R at R_AGREE_BAR
+            bar = ORTHO_BAR if name == "cholqr3s_sharded" else R_AGREE_BAR
+            require(v <= bar, f"P21: {name}'s R differs from the library's by {v} > {bar}")
+    if "cholqr3s_sharded" in whole:
+        from numpywren_tpu_torch.compiler.lower import fused_cholqr3s_fn
+
+        r_chain = fused_cholqr3s_fn()(ops["x"])
+        v = row["cholqr3s_sharded_r_rel_diff_vs_one_device"] = rel_err(
+            torch, sign_fixed(whole["cholqr3s_sharded"]), sign_fixed(r_chain))
+        require(v <= R_AGREE_BAR, f"P21: cholqr3s_sharded's R differs from the single-device "
+                                  f"chain's by {v}")
+    return row, whole
+
+
+def p21_fabric_agree(torch, whole: dict, ref: dict) -> dict:
+    """This mesh's factors and R against the 1-rank ones: the factors
+    within 1e-4, R within 3e-5 (signs fixed)."""
+    row = {}
+    for name, got in whole.items():
+        if name.startswith(("cholesky", "out_of_core")):
+            v = row[f"{name}_rel_diff_vs_1_rank"] = rel_err(torch, got, ref[name])
+            require(v <= RESID_BAR, f"P21: {name} differs from the 1-rank one by {v}")
+        else:
+            v = row[f"{name}_r_rel_diff_vs_1_rank"] = rel_err(torch, sign_fixed(got),
+                                                              sign_fixed(ref[name]))
+            require(v <= R_AGREE_BAR, f"P21: {name}'s R differs from the 1-rank R by {v}")
+    return row
+
+
+def p21_matmul3_bulk(torch, gen, n: int, panel: int, card: str) -> dict:
+    """matmul3 at cholesky_2d's first bulk update on one rank at n: c a
+    view of an n² buffer from row and column `panel` ((n - panel)² by K =
+    panel), against matmul3_ref (KERNEL_BAR) and _matmul_split_ref at two
+    planes (SPLIT_BAR), timed in turns with addmm."""
+    from numpywren_tpu_torch.ops import gemm3
+
+    gemm = gemm_module()
+    buf = torch.randn(n, n, generator=gen, device="cuda")
+    c = buf[panel:, panel:]
+    rows = torch.randn(n - panel, panel, generator=gen, device="cuda")
+    cols = torch.randn(n - panel, panel, generator=gen, device="cuda")
+    m = n - panel
+    row = product_row(torch, "P21", card, "matmul3:cholesky_2d_bulk", m, panel, m,
+                      lambda: gemm3.matmul3(rows, cols, c, tb=True),
+                      lambda: gemm3.matmul3_ref(rows, cols, c, tb=True),
+                      lambda: torch.addmm(c, rows, cols.T, alpha=-1.0),
+                      lambda: gemm._matmul_split_ref(rows, cols.T, c, alpha=-1.0, beta=1.0,
+                                                     planes=2),
+                      SPLIT_BAR, 3)
+    del buf, c, rows, cols
+    torch.cuda.empty_cache()
+    return row
+
 def p21_single(torch, npw, sizes: dict, small: dict, seed: int, p2_seconds: float) -> dict:
     """P21 (a): a 1-rank group joined by the usual initialize() through the
     NPW_* variables (the card's backend: NCCL), a 1 x 1 mesh, the entry
@@ -3434,6 +3642,16 @@ def p21_single(torch, npw, sizes: dict, small: dict, seed: int, p2_seconds: floa
         full = p21_gather(torch, results)
         del results, q, r
         bars = p21_bars(torch, ops, full)
+        del full
+        torch.cuda.empty_cache()
+        fab = p21_fabric_operands(torch, sizes, seed, "cuda")
+        fres, fsec, flaunch = p21_fabric_drive(torch, mesh, ops, fab, P21_TILE, SPILL_TILE, "a",
+                                               repeat=2)
+        fbars, _ = p21_fabric_bars(torch, mesh, ops, fab, fres)
+        del fres, fab, ops
+        torch.cuda.empty_cache()
+        bulk = p21_matmul3_bulk(torch, torch.Generator(device="cuda").manual_seed(seed),
+                                sizes["n_chol"], P21_TILE, card)
     finally:
         cfg.compensated = compensated
         if dist.is_initialized():
@@ -3447,10 +3665,26 @@ def p21_single(torch, npw, sizes: dict, small: dict, seed: int, p2_seconds: floa
            "p2_trapezoid_seconds": p2_seconds, "tsqr_ortho": ortho, "tsqr_residual": resid,
            "launches": counts, "nvidia_smi": card, **bars}
     emit(row)
+    emit({"phase": "P21", "part": "a", "entries": "fabric", "ranks": 1, "mesh": [1, 1],
+          "backend": backend, "config": "compensated", "panel": P21_TILE,
+          "ooc": {"tile": SPILL_TILE, "panel_tiles": P21_OOC_PANEL_TILES},
+          "seconds": {k: v[-1] for k, v in fsec.items()}, "seconds_runs": fsec,
+          "launches": flaunch,
+          "cholesky_2d_tflops": n ** 3 / 3 / fsec["cholesky_2d"][-1] / 1e12,
+          "cholesky_1d_tflops": n ** 3 / 3 / fsec["cholesky_1d"][-1] / 1e12,
+          "matmul3_bulk": {k: bulk[k] for k in ("shape", "ms", "plain_ms", "library_ms",
+                                                 "bound_ms", "bound_by", "rel_err",
+                                                 "rel_err_split_ref", "max_abs_err")},
+          "nvidia_smi": card, **fbars})
     require(ortho <= ORTHO_BAR and resid <= QR_RESID_BAR,
             f"P21: sharded_tsqr ortho {ortho}, residual {resid}")
     for k, v in counts.items():
         require(v > 0, f"P21 (a): {k} was not launched")
+    for name in FABRIC_MATMUL3 + ("cholqr3s_sharded",):
+        require(flaunch[name]["matmul3"] > 0, f"P21 (a): {name} launched no matmul3")
+    for c in flaunch.values():
+        for k in counts:
+            counts[k] += c[k]
     return counts
 
 
@@ -3462,6 +3696,7 @@ def p21_rank(torch, sizes: dict, small: dict, seed: int, device: str = "cuda") -
     calls on a mesh of its own. Every rank requires that it launched
     matmul3 and matmul (on a card) and imported no jax. Returns this
     rank's seconds and launches; rank 0 its checks too."""
+    import numpy as np
     import torch.distributed as dist
 
     from numpywren_tpu_torch.parallel import distributed, make_mesh
@@ -3489,7 +3724,27 @@ def p21_rank(torch, sizes: dict, small: dict, seed: int, device: str = "cuda") -
         out["one_rank_seconds"] = ref_seconds
         out.update(p21_bars(torch, ops, full, ref))
         del ref
-    del full, ops
+    del full
+    # the fabric entries on the 2 x 2 mesh, then (rank 0) on a 1-rank mesh
+    fab = p21_fabric_operands(torch, sizes, seed, device)
+    ooc_tile = min(SPILL_TILE, sizes["n_chol"] // 8)
+    fres, fsec, flaunch = p21_fabric_drive(torch, mesh, ops, fab, tile, ooc_tile, "b")
+    passes = flaunch["cholqr3s_sharded_kappa"]["chain_passes"]
+    every = distributed.gather_to_hosts(np.array([passes["chains"], passes["extras"]]))
+    fbars, whole = p21_fabric_bars(torch, mesh, ops, fab, fres)
+    del fres
+    out.update(fabric_seconds=fsec, fabric_launches=flaunch, chain_passes=passes, **fbars)
+    if rank == 0:
+        every = every.reshape(-1, 2)
+        out["chain_passes_by_rank"] = every.tolist()
+        require((every == every[0]).all(), f"P21 (b): the ranks' chain passes differ: {every}")
+        ref_res, ref_sec, _ = p21_fabric_drive(torch, mesh1, ops, fab, tile, ooc_tile, "b")
+        _, ref_whole = p21_fabric_bars(torch, mesh1, ops, fab, ref_res)
+        del ref_res
+        out["fabric_one_rank_seconds"] = ref_sec
+        out.update(p21_fabric_agree(torch, whole, ref_whole))
+        del ref_whole
+    del whole, fab, ops
     dist.barrier()
     require("jax" not in sys.modules, f"P21 (b) rank {rank}: jax was imported")
     require("numpywren_tpu" not in sys.modules,
@@ -3499,6 +3754,12 @@ def p21_rank(torch, sizes: dict, small: dict, seed: int, device: str = "cuda") -
     if device == "cuda":  # the plain versions on the CPU launch nothing
         for k, v in counts.items():
             require(v > 0, f"P21 (b) rank {rank}: {k} was not launched")
+        for name in FABRIC_MATMUL3 + ("cholqr3s_sharded_kappa",):
+            require(flaunch[name]["matmul3"] > 0,
+                    f"P21 (b) rank {rank}: {name} launched no matmul3")
+    for c in flaunch.values():
+        for k in counts:
+            counts[k] += c[k]
     dist.destroy_process_group()
     return out
 

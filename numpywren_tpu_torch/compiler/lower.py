@@ -333,7 +333,8 @@ def reset_chain_passes() -> None:
 
 def _cholqr_adaptive(p: torch.Tensor, rows: bool = False, max_passes: int = 16,
                      pallas_chain: Optional[bool] = None, precision: str = "high",
-                     conv_tol: float = 1e-4, gemm_inv: Optional[bool] = None):
+                     conv_tol: float = 1e-4, gemm_inv: Optional[bool] = None,
+                     psum_mesh=None, global_m: Optional[int] = None):
     """Adaptive CholeskyQR chain: thin QR (rows=False: p = q r, r upper
     b x b) or thin LQ (rows=True: p = l q, l lower b x b) of p by repeated
     Gram-Cholesky passes with shift-on-breakdown.
@@ -364,9 +365,18 @@ def _cholqr_adaptive(p: torch.Tensor, rows: bool = False, max_passes: int = 16,
 
     precision routes the applies of the inverse to the tall operand
     (`_tsqr_matmul`); the Grams and the b x b algebra stay true FP32, the
-    reference's HIGHEST smalls."""
+    reference's HIGHEST smalls.
+
+    psum_mesh (a DeviceMesh; the reference's psum_axes): `p` is this rank's
+    shard along the non-b axis, and every real Gram is all_reduced over the
+    mesh (`sum_over_mesh`); global_m is then the operand's true height, for
+    the shift. The chain kernel is off there. Every host read takes the
+    value of the mesh's first rank (one broadcast), so every rank takes the
+    same branches and the same number of extras passes, and so enters the
+    same all_reduces, whatever bits the all_reduce gave each rank."""
     b = p.shape[0] if rows else p.shape[1]
-    m = p.shape[1] if rows else p.shape[0]
+    m_loc = p.shape[1] if rows else p.shape[0]
+    m = global_m if global_m is not None else m_loc
     eye = torch.eye(b, dtype=p.dtype, device=p.device)
     u = torch.finfo(torch.float32).eps
     shift_c = 4.0 * u * (m * b) ** 0.5
@@ -376,8 +386,19 @@ def _cholqr_adaptive(p: torch.Tensor, rows: bool = False, max_passes: int = 16,
     if gemm_inv is None:
         gemm_inv = _flag("NPW_GEMM_INV")
 
+    if psum_mesh is not None:
+        from numpywren_tpu_torch.parallel.mesh import broadcast_flat, sum_over_mesh
+
+    def host(v) -> float:
+        """One host read of the 0-d `v`: over a mesh, the first rank's."""
+        if psum_mesh is not None:
+            v = broadcast_flat(v.reshape(1).clone(), 0, psum_mesh)
+        return float(v)
+
     def gram_dev(x):
         g = x @ x.T if rows else x.T @ x
+        if psum_mesh is not None:
+            sum_over_mesh(g, psum_mesh)
         e = g - eye
         return g, e, torch.max(torch.abs(e))
 
@@ -402,7 +423,7 @@ def _cholqr_adaptive(p: torch.Tensor, rows: bool = False, max_passes: int = 16,
         """Extras pass: cleanup in the near-orthonormal regime, a full
         shifted factor otherwise; one host read of the deviation."""
         g, e, dev = gram_dev(x)
-        dev = float(dev)
+        dev = host(dev)
         l, linv = neumann_fold(e) if dev < 1e-1 else shifted_linv(g)
         return apply_linv(x, linv), l, dev < conv_gate
 
@@ -417,7 +438,7 @@ def _cholqr_adaptive(p: torch.Tensor, rows: bool = False, max_passes: int = 16,
 
     CHAIN_PASSES["chains"] += 1
     g1, _, _ = gram_dev(p)
-    if pallas_chain and chain_supported(m, b, p.dtype):
+    if pallas_chain and psum_mesh is None and chain_supported(m_loc, b, p.dtype):
         q, total, conv, _ = cholqr2_chain_pallas(
             g1, p, rows=rows, shift_c=float(shift_c), conv_gate=float(conv_gate),
             precision=precision)
@@ -430,7 +451,7 @@ def _cholqr_adaptive(p: torch.Tensor, rows: bool = False, max_passes: int = 16,
         # near-singular G2 indefinite, so a shifted pass 2 shifts past it
         rb1 = torch.max(torch.sum(torch.abs(linv1), dim=1))
         err2 = 3.0 * u * rb1 * rb1 * torch.max(torch.sum(torch.abs(g1), dim=1))
-        dev2 = float(dev2)
+        dev2 = host(dev2)
         l2, linv2 = neumann_fold(e2) if dev2 < 1e-1 else shifted_linv(g2, err2)
         # converged only via the cleanup branch (a shifted pass 2 carries
         # the err2-inflated shift; the extras correct it)

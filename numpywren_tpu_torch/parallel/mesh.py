@@ -178,6 +178,36 @@ def sum_over_mesh(x: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
     return x
 
 
+def flat_index(mesh: DeviceMesh) -> int:
+    """This rank's index on the mesh flattened row-major (the reference's
+    ``mesh.devices.reshape(-1)``): pi * c + pj."""
+    coord = mesh.get_coordinate()
+    return int(np.ravel_multi_index(tuple(coord), tuple(mesh.shape)))
+
+
+def broadcast_flat(x: torch.Tensor, root: int, mesh: DeviceMesh) -> torch.Tensor:
+    """Broadcast into `x` (in place, and returned) the `x` of the rank at
+    flat index `root`, with the mesh's own axis groups (creating a group of
+    the flattened mesh would be collective over the whole world): along
+    the cols axis within the root's mesh row, then along the rows axis from
+    that row. Collective over the mesh: every rank calls it with the same
+    root and a tensor of the same shape and dtype."""
+    rows, cols = mesh.shape
+    r0, c0 = divmod(int(root), cols)
+    pi, pj = mesh.get_coordinate()
+    if cols > 1 and pi == r0:
+        dist.broadcast(x, src=int(mesh.mesh[r0, c0]), group=mesh.get_group(1))
+    if rows > 1:
+        dist.broadcast(x, src=int(mesh.mesh[r0, pj]), group=mesh.get_group(0))
+    return x
+
+
+def flat_rows(mesh: DeviceMesh) -> NamedSharding:
+    """Rows split over the mesh flattened row-major (the reference's
+    ``P("d", None)`` on ``Mesh(devices.reshape(-1), ("d",))``)."""
+    return NamedSharding(mesh, (Shard(0),) * mesh.ndim)
+
+
 def box_slices(box) -> tuple:
     return tuple(slice(o, o + s) for o, s in box)
 

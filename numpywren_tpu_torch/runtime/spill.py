@@ -323,8 +323,24 @@ def out_of_core_cholesky(
     | 'full', default 'pow2') pads every device panel and strip to its
     row bucket (`_bucket_tiles`); the padded rows are zeros and stay zeros
     through the updates and the solve, and writebacks carry the real rows
-    only. `mesh` (a mesh of devices sharding the panels) is not ported yet:
-    anything but None raises (ROADMAP Queue 1 #6b).
+    only.
+
+    mesh (a DeviceMesh; every rank of it calls this with its own host tier
+    holding the same matrix): each device panel and host-loaded strip is
+    ROW-SHARDED over the mesh flattened row-major where its row count
+    divides the rank count (rank f holds rows [f h, (f + 1) h) of it), and
+    whole on every rank otherwise. The update is local to each rank (its
+    rows of the strip by the strip's W rows at the panel's columns, loaded
+    whole); the factor step sums the W x W top whole onto every rank (one
+    all_reduce of the rows each holds), factors it redundantly, and each
+    rank solves its own rows below it. Each rank has its own host memory,
+    and a later panel's strips need rows that other ranks factored, so the
+    factored panel is gathered whole onto every rank (one all_reduce of
+    the zero-masked shares): it serves the next panel's newest strip and is
+    written back to every rank's host tier. Checkpoints are written by the
+    mesh's first rank; every call starts with a barrier over the mesh, so
+    a resume reads them on every rank (checkpoint_dir must be one directory
+    that every rank sees). Collective over the mesh.
 
     `l.spill_stats` reports the distinct operand shapes each step saw
     (`update_compiles`, `factor_compiles`: what the JAX package's jit cache
@@ -333,9 +349,6 @@ def out_of_core_cholesky(
     from numpywren_tpu_torch.compiler.lower import _raise_if_not_spd, _sub_matmul, fused_cholesky
     from numpywren_tpu_torch.config import default_config
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "out_of_core_cholesky over a device mesh is not ported yet (ROADMAP Queue 1 #6b)")
     if a.shape[0] != a.shape[1] or a.tile[0] != a.tile[1]:
         raise ShapeError("out_of_core_cholesky needs a square matrix / square tiles")
     g = a.grid[0]
@@ -344,6 +357,27 @@ def out_of_core_cholesky(
     lower_mirror = type(a).__name__ == "TiledSymmetricMatrix" or getattr(a, "_lower_only", False)
     dev = a.device
     streams = _Streams(dev)
+    n_dev, me = 1, 0
+    if mesh is not None:
+        from torch.distributed.device_mesh import DeviceMesh
+
+        from numpywren_tpu_torch.parallel.mesh import flat_index, sum_over_mesh
+
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a DeviceMesh (parallel.make_mesh), got "
+                            f"{type(mesh).__name__}")
+        n_dev, me = mesh.size(), flat_index(mesh)
+        # a barrier: the first rank has finished any earlier call (and its
+        # checkpoint writes) before any rank reads the manifest below
+        float(sum_over_mesh(torch.zeros(1, dtype=a.dtype, device=dev), mesh)[0])
+
+    def share(rows: int):
+        """This rank's rows [lo, hi) of a device panel or strip of `rows`
+        rows: a 1/n_dev share where it divides, else all of them."""
+        if n_dev > 1 and rows % n_dev == 0:
+            h = rows // n_dev
+            return me * h, (me + 1) * h
+        return 0, rows
 
     l_out = out or TiledMatrix(
         key=a.key + ":ooc_L", shape=a.shape, tile=a.tile, dtype=a.dtype, storage="host",
@@ -369,16 +403,28 @@ def out_of_core_cholesky(
         update_shapes.add((tuple(panel.shape), tuple(l_strip.shape), tuple(l_top.shape)))
         _sub_matmul(panel, l_strip, l_top, tb=True, precision=precision, out=panel)
 
-    def factor_panel(panel):
-        """panel = [D; B]: D := chol(D); B := B D⁻ᵀ, in place. Returns the
-        diagonal blocks' factor statuses, which the writer checks before
-        the panel is written back: the factor loop never waits for them."""
+    def factor_panel(panel, lo=None):
+        """panel = [D; B]: D := chol(D); B := B D⁻ᵀ, in place. With `lo`,
+        `panel` is this rank's rows [lo, lo + h) of it: D is summed whole
+        onto every rank from the rows each holds (one all_reduce) and
+        factored on every rank, and each rank solves its own rows below it.
+        Returns the diagonal blocks' factor statuses, which the writer
+        checks before the panel is written back: the factor loop never
+        waits for them."""
         factor_shapes.add(tuple(panel.shape))
-        w_cols = panel.shape[1]
-        top = panel[:w_cols]
+        h, w_cols = panel.shape
+        if lo is None:
+            top, k = panel[:w_cols], w_cols
+        else:
+            k = min(h, max(w_cols - lo, 0))  # this rank's rows inside D
+            top = torch.zeros((w_cols, w_cols), dtype=panel.dtype, device=dev)
+            top[lo:lo + k] = panel[:k]
+            sum_over_mesh(top, mesh)
         infos = []
         fused_cholesky(top, t, precision=precision, infos=infos)
-        rest = panel[w_cols:]
+        if lo is not None:
+            panel[:k] = top[lo:lo + k]
+        rest = panel[k:]
         if rest.shape[0]:
             torch.linalg.solve_triangular(top.T, rest, upper=True, left=False, out=rest)
         return infos
@@ -398,7 +444,7 @@ def out_of_core_cholesky(
 
     writer = concurrent.futures.ThreadPoolExecutor(max_workers=1)
     writer_futures = {}
-    # the device copy of the most recent factored panel, (row0_t, buffer)
+    # the device copy of the most recent factored panel, (its first row, buffer)
     recent = {}
     # compute-stream events after each update fed by a host-loaded strip
     strip_done = collections.deque()
@@ -414,27 +460,28 @@ def out_of_core_cholesky(
             return max(rows_bt, panel_tiles + nxt_bt)
         return rows_bt
 
-    def suffix(hit, c0_t: int, rows_t: int):
-        row0_t, arr = hit
-        if row0_t <= c0_t and (c0_t - row0_t + rows_t) * t <= arr.shape[0]:
-            return arr[(c0_t - row0_t) * t:(c0_t - row0_t + rows_t) * t]
+    def rows_of(hit, r0: int, rows: int):
+        """Rows [r0, r0 + rows) of a device copy (its first row, buffer), or
+        None where it does not hold them all."""
+        row0, arr = hit
+        if row0 <= r0 and r0 - row0 + rows <= arr.shape[0]:
+            return arr[r0 - row0:r0 - row0 + rows]
         return None
 
-    def load_strip(q: int, c0_t: int, rows_t: int, q_w: int):
-        """L strip rows [c0_t, c0_t + rows_t) of panel q, rows_t possibly
-        bucket-padded past the grid: the padding rows are zeros. Returns
-        (strip, whether it was loaded from the host)."""
-        real_t = min(rows_t, g - c0_t)
+    def load_strip(q: int, r0: int, rows: int, q_w: int):
+        """Rows [r0, r0 + rows) of panel q's L, possibly bucket-padded past
+        the grid: the padding rows are zeros. Returns (strip, whether it was
+        loaded from the host); a host load covers whole tiles."""
         hit = recent.get(q)
         if hit is not None:
-            arr = suffix(hit, c0_t, rows_t)
+            arr = rows_of(hit, r0, rows)
             if arr is not None:
                 event("strip_hit_device", q)
                 return arr, False
         if cache is not None:
             hit = cache.get(q)
             if hit is not None:
-                arr = suffix(hit, c0_t, rows_t)
+                arr = rows_of(hit, r0, rows)
                 if arr is not None:
                     return arr, False
         # host path: panel q's writeback must have landed first
@@ -445,31 +492,39 @@ def out_of_core_cholesky(
         event("strip_load", q)
         while len(strip_done) >= _STRIPS_IN_FLIGHT:
             strip_done.popleft().synchronize()
+        t0, t1 = r0 // t, cdiv(r0 + rows, t)
+        real_t = max(0, min(t1, g) - t0)
         with streams.on(streams.h2d):
-            arr = torch.empty((rows_t * t, q_w * t), dtype=a.dtype, device=dev)
+            arr = torch.empty(((t1 - t0) * t, q_w * t), dtype=a.dtype, device=dev)
             arr[real_t * t:].zero_()
-            _panel_from_host(l_out, c0_t, q * panel_tiles, real_t, q_w, out=arr)
+            _panel_from_host(l_out, t0, q * panel_tiles, real_t, q_w, out=arr)
             ready = streams.mark(streams.h2d)
         streams.wait(streams.compute, ready, arr)
         if cache is not None:
-            cache.put(q, (c0_t, arr))
-        return arr, True
+            cache.put(q, (t0 * t, arr))
+        return arr[r0 - t0 * t:r0 - t0 * t + rows], True
 
     def upload_panel(s: int):
         """Input panel s in a device buffer of serve_rows_t rows (the rows
-        past the real ones zero), its copies issued on the upload stream.
-        Returns (buffer, the event the copies end at)."""
+        past the real ones zero), its copies issued on the upload stream;
+        where its bucket is shared over a mesh (`share`), this rank's rows
+        alone, a view of a buffer of the whole tiles covering them. Returns
+        (buffer, the event the copies end at)."""
         c0 = s * panel_tiles
         w_t = min(panel_tiles, g - c0)
         rows_t = g - c0
-        alloc_t = serve_rows_t(s, _bucket_tiles(rows_t, g, shape_mode))
+        rows_bt = _bucket_tiles(rows_t, g, shape_mode)
+        lo, hi = share(rows_bt * t)
+        shared = hi - lo < rows_bt * t
+        t0, t1 = (lo // t, cdiv(hi, t)) if shared else (0, serve_rows_t(s, rows_bt))
+        real_t = max(0, min(t1, rows_t) - t0)
         with streams.on(streams.h2d):
-            buf = torch.empty((alloc_t * t, w_t * t), dtype=a.dtype, device=dev)
-            buf[rows_t * t:].zero_()
-            _panel_from_host(a, c0, c0, rows_t, w_t, lower_mirror=lower_mirror, out=buf)
+            buf = torch.empty(((t1 - t0) * t, w_t * t), dtype=a.dtype, device=dev)
+            buf[real_t * t:].zero_()
+            _panel_from_host(a, c0 + t0, c0, real_t, w_t, lower_mirror=lower_mirror, out=buf)
             ready = streams.mark(streams.h2d)
         event("upload", s)
-        return buf, ready
+        return (buf[lo - t0 * t:hi - t0 * t] if shared else buf), ready
 
     def write_back(s: int, c0: int, buf, real_rows: int, factored, infos):
         # the manifest counts panels: never commit past a failed writeback
@@ -491,7 +546,7 @@ def out_of_core_cholesky(
         for i in range(rows_t):
             for j in range(w_t):
                 l_out.adopt_block(slab[i, j], c0 + i, c0 + j)
-        if ckpt.path:
+        if ckpt.path and me == 0:
             ckpt.save_panel(s, slab.permute(0, 2, 1, 3).reshape(real_rows, -1).numpy(), meta)
 
     # prefetch thread: input panels up to pipeline_width - 1 ahead
@@ -517,20 +572,37 @@ def out_of_core_cholesky(
             fut = prefetched.pop(s, None)
             buf, ready = fut.result() if fut is not None else upload_panel(s)
             streams.wait(streams.compute, ready, buf)
-            panel = buf[:rows_bt * t]
+            lo, hi = share(rows_bt * t)
+            shared = hi - lo < rows_bt * t
+            panel = buf if shared else buf[:rows_bt * t]
             # stream updates from previously factored panels
             for q in range(s):
                 q_w = min(panel_tiles, g - q * panel_tiles)
-                l_strip, from_host = load_strip(q, c0, rows_bt, q_w)
-                update(panel, l_strip, l_strip[:w_t * t])
+                if shared:  # this rank's rows of the strip, and its top whole
+                    l_strip, from_host = load_strip(q, c0 * t + lo, hi - lo, q_w)
+                    l_top, top_from_host = load_strip(q, c0 * t, w_t * t, q_w)
+                    from_host = from_host or top_from_host
+                else:
+                    l_strip, from_host = load_strip(q, c0 * t, rows_bt * t, q_w)
+                    l_top = l_strip[:w_t * t]
+                update(panel, l_strip, l_top)
                 if from_host and streams.cuda:
                     strip_done.append(streams.mark(streams.compute))
-                del l_strip  # freed before the next strip is allocated
-            infos = factor_panel(panel)
+                del l_strip, l_top  # freed before the next strip is allocated
+            if shared:
+                infos = factor_panel(panel, lo)
+                # the factored panel whole on every rank: one all_reduce
+                buf = torch.zeros((serve_rows_t(s, rows_bt) * t, w_t * t), dtype=a.dtype,
+                                  device=dev)
+                buf[lo:hi] = panel
+                sum_over_mesh(buf, mesh)
+                del panel
+            else:
+                infos = factor_panel(panel)
             factored = streams.mark(streams.compute)
             event("factor", s)
             recent.clear()
-            recent[s] = (c0, buf)
+            recent[s] = (c0 * t, buf)
             # backpressure: each queued writeback pins a device panel, so
             # cap outstanding jobs at pipeline_width before submitting
             pending = [s2 for s2, f in writer_futures.items() if not f.done()]

@@ -302,10 +302,37 @@ def test_bucket_tiles_matches_jax():
         spill._bucket_tiles(3, 13, "nope")
 
 
-def test_mesh_raises_naming_its_roadmap_item():
-    at, _ = _host(random_spd(64, seed=0))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #6b"):
-        out_of_core_cholesky(at, mesh=object())
+def test_mesh_raises_naming_its_roadmap_item(tmp_path):
+    """mesh= takes a DeviceMesh (anything else raises TypeError, naming
+    it); on a 1 x 1 mesh (a gloo group of one rank in this process, closed
+    after) the panel stream is the mesh-less one: the same factor bit for
+    bit, and a checkpoint the mesh-less call resumes. The sharded cases run
+    on eight ranks in tests/test_torch_fabric.py."""
+    import socket
+
+    import torch.distributed as dist
+
+    from numpywren_tpu_torch import parallel
+
+    a = random_spd(256, seed=0)
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        out_of_core_cholesky(_host(a)[0], mesh=object())
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    parallel.distributed.initialize(f"127.0.0.1:{port}", 1, 0)
+    try:
+        mesh = parallel.make_mesh(device="cpu")
+        ck = str(tmp_path / "ck")
+        lm = out_of_core_cholesky(_host(a)[0], panel_tiles=2, mesh=mesh, checkpoint_dir=ck,
+                                  stop_panels=2)
+    finally:
+        dist.destroy_process_group()
+    full = out_of_core_cholesky(_host(a)[0], panel_tiles=2, checkpoint_dir=ck)
+    np.testing.assert_array_equal(full.numpy(), out_of_core_cholesky(_host(a)[0],
+                                                                     panel_tiles=2).numpy())
+    np.testing.assert_array_equal(lm.numpy()[:, :128], full.numpy()[:, :128])
+    _check(a, full)
 
 
 def test_non_spd_raises_with_no_manifest_entry(tmp_path):

@@ -7,9 +7,11 @@ Each rank joins a gloo group through numpywren_tpu_torch.parallel.distributed
 NPW_COMPENSATED configure the port) and imports only the port. "parallel"
 runs the sharded entry points on <dir>/inputs.npz, at "high" and then under
 NPW_COMPENSATED=1, and rank 0 writes what the ranks computed (full_tensor()
-of each result, every rank's block geometry) to <dir>/out.npz. "distributed"
-runs the multi-process helpers and checks them against numpy. Both print
-"WORKER_OK <rank>" last.
+of each result, every rank's block geometry) to <dir>/out.npz. "fabric"
+runs the block-cyclic Cholesky, the sharded CholeskyQR, the butterfly TSQR
+and the out-of-core Cholesky on meshes of rank subsets, and rank 0 writes
+what they computed to <dir>/out.npz. "distributed" runs the multi-process
+helpers and checks them against numpy. All print "WORKER_OK <rank>" last.
 
 `start` forks the ranks from a forkserver that has imported torch and the
 port once (eight fresh interpreters would import them eight times), each
@@ -17,9 +19,10 @@ rank writing its output to <dir>/rank<r>.log; `finish` waits for them and
 fails with every failing rank's output; `launch` does both. By hand, one
 process a rank with the NPW_* variables set:
 
-    python tests/torch_parallel_worker.py parallel|distributed <dir>
+    python tests/torch_parallel_worker.py parallel|fabric|distributed <dir>
 """
 
+import json
 import multiprocessing
 import os
 import socket
@@ -123,7 +126,9 @@ def run_parallel(workdir: str) -> None:
     from numpywren_tpu_torch.exceptions import ShapeError
     from numpywren_tpu_torch.parallel import (distributed, make_mesh, sharded_cholesky,
                                               sharded_gemm, sharded_tsqr, tile_sharding)
-    from numpywren_tpu_torch.parallel.fabric import summa_gemm, summa_syrk
+    from numpywren_tpu_torch.parallel.fabric import (cholesky_1d, cholesky_2d, cholqr2_sharded,
+                                                     cholqr3s_sharded, summa_gemm, summa_syrk,
+                                                     tsqr_butterfly)
 
     assert distributed.initialize(), "expected a multi-process run"
     rank = distributed.process_index()
@@ -164,6 +169,20 @@ def run_parallel(workdir: str) -> None:
             out[f"{mode}/summa_nonsquare_raised"] = np.array(False)
         except ShapeError:
             out[f"{mode}/summa_nonsquare_raised"] = np.array(True)
+    # each fabric name of ROADMAP Queue 1 #6b, with an argument the
+    # reference refuses: the exception's name
+    for name, call in (
+        ("cholesky_1d", lambda: cholesky_1d(np.ones((64, 32), np.float32), mesh=mesh)),
+        ("cholesky_2d", lambda: cholesky_2d(inp["spd"], mesh=mesh, panel=96)),
+        ("cholqr2_sharded", lambda: cholqr2_sharded(np.ones((100, 8), np.float32), mesh=mesh)),
+        ("cholqr3s_sharded", lambda: cholqr3s_sharded(np.ones((100, 8), np.float32), mesh=mesh)),
+        ("tsqr_butterfly", lambda: tsqr_butterfly(inp["tsqr_8"], mesh=mesh, b_fac=1)),
+    ):
+        try:
+            call()
+            out[f"bad_args/{name}"] = np.array("none")
+        except Exception as e:  # the test names the one expected
+            out[f"bad_args/{name}"] = np.array(type(e).__name__)
     config._default = None
     os.environ["NPW_COMPENSATED"] = "0"
     _store_cases(np, inp, out, mesh, tile_sharding(mesh))
@@ -296,8 +315,166 @@ def run_distributed(workdir: str) -> None:
     distributed.sync("npw_test_done")
 
 
+# the fabric cases' meshes, made on every rank in this order: (1, p) for the
+# one-axis cases, then the 2-D shapes, each on ranks 0 .. r*c - 1
+FABRIC_MESHES = [(1, 2), (1, 4), (1, 5), (1, 6), (1, 7), (1, 8), (2, 2), (2, 4), (4, 2)]
+
+
+def run_fabric(workdir: str) -> None:
+    """tests/test_fabric.py's block-cyclic Cholesky, sharded CholeskyQR and
+    butterfly TSQR cases, and tests/test_spill.py's out-of-core Cholesky on
+    a mesh, on the meshes of FABRIC_MESHES (each made collectively, every
+    case run by the ranks of its mesh) with inputs from <dir>/inputs.npz.
+    Rank 0 writes the results (whole factors, R, Q, logs) to out.npz."""
+    import numpy as np
+    import torch
+
+    from numpywren_tpu_torch import config
+    from numpywren_tpu_torch.compiler import lower
+    from numpywren_tpu_torch.compiler.lower import fused_tsqr
+    from numpywren_tpu_torch.exceptions import ShapeError
+    from numpywren_tpu_torch.matrix_init import shard_matrix
+    from numpywren_tpu_torch.parallel import distributed, make_mesh
+    from numpywren_tpu_torch.parallel.distributed import full_tensor
+    from numpywren_tpu_torch.parallel.fabric import (cholesky_1d, cholesky_2d, cholqr2_sharded,
+                                                     cholqr3s_sharded, tsqr_butterfly)
+    from numpywren_tpu_torch.parallel.mesh import sum_over_mesh
+    from numpywren_tpu_torch.runtime import out_of_core_cholesky
+
+    assert distributed.initialize(), "expected a multi-process run"
+    rank = distributed.process_index()
+    inp = dict(np.load(os.path.join(workdir, "inputs.npz")))
+    meshes = {shape: make_mesh(devices=list(range(shape[0] * shape[1])), shape=shape,
+                               device="cpu") for shape in FABRIC_MESHES}
+    mesh8 = meshes[(2, 4)]
+    out = {}
+
+    def on(shape):
+        return rank < shape[0] * shape[1]
+
+    def chol(fn, key, a, shape, **kw):
+        if on(shape):
+            out[key] = fn(inp[a], mesh=meshes[shape], panel=kw.pop("panel", 16), **kw).numpy()
+
+    # butterfly TSQR
+    for p in (2, 4, 8):
+        if on((1, p)):
+            out[f"bf/{p}"] = tsqr_butterfly(inp[f"bf/{p}"], mesh=meshes[(1, p)]).to_local().numpy()
+    for p, b_fac in ((6, 4), (5, 3), (6, 2), (8, 4), (8, 8), (7, 2)):
+        if on((1, p)):
+            out[f"bf_ragged/{p}_{b_fac}"] = tsqr_butterfly(
+                inp[f"bf_ragged/{p}"], mesh=meshes[(1, p)], axis="cols", b_fac=b_fac
+            ).to_local().numpy()
+    if on((1, 6)):
+        st = tsqr_butterfly(inp["bf_same"], mesh=meshes[(1, 6)], axis="cols", b_fac=4,
+                            _return_stacked=True)
+        out["bf_same"] = full_tensor(st).numpy()
+        out["bf_same_shape"] = np.array(st.shape)
+    if on((1, 4)):
+        try:
+            tsqr_butterfly(inp["bf_bad"], mesh=meshes[(1, 4)], axis="cols", b_fac=1)
+            out["bf_bad_raised"] = np.array(False)
+        except ShapeError:
+            out["bf_bad_raised"] = np.array(True)
+    out["bf_vs_fused"] = tsqr_butterfly(inp["bf_vs_fused"], mesh=meshes[(1, 8)]).to_local().numpy()
+    out["bf_vs_fused/fused"] = fused_tsqr(torch.from_numpy(inp["bf_vs_fused"]), 32).numpy()
+    out["bf_flat_2x4"] = tsqr_butterfly(inp["bf_vs_fused"], mesh=mesh8).to_local().numpy()
+
+    # CholeskyQR over row shards
+    for p in (4, 8):
+        if on((1, p)):
+            q, r = cholqr2_sharded(inp[f"cq2/{p}"], mesh=meshes[(1, p)], compute_q=True)
+            out[f"cq2/{p}/q"], out[f"cq2/{p}/r"] = full_tensor(q).numpy(), r.to_local().numpy()
+    out["cq2_r_only"] = cholqr2_sharded(inp["cq2_r_only"], mesh=mesh8).to_local().numpy()
+    if on((1, 4)):
+        lower.reset_chain_passes()
+        q, r = cholqr3s_sharded(inp["cq3s_robust"], mesh=meshes[(1, 4)], compute_q=True)
+        passes = torch.zeros((4, 2), dtype=torch.int64)
+        passes[rank] = torch.tensor([lower.CHAIN_PASSES["chains"], lower.CHAIN_PASSES["extras"]])
+        out["cq3s_robust/passes"] = sum_over_mesh(passes, meshes[(1, 4)]).numpy()
+        out["cq3s_robust/q"], out["cq3s_robust/r"] = full_tensor(q).numpy(), r.to_local().numpy()
+        q2 = cholqr2_sharded(inp["cq3s_robust"], mesh=meshes[(1, 4)], compute_q=True)[0]
+        out["cq3s_robust/q2"] = full_tensor(q2).numpy()
+    q, r = cholqr3s_sharded(inp["cq3s_wellcond"], mesh=meshes[(1, 8)], compute_q=True)
+    out["cq3s_wellcond/q"], out["cq3s_wellcond/r"] = full_tensor(q).numpy(), r.to_local().numpy()
+
+    # block-cyclic Cholesky
+    for la in (False, True):
+        for nb, p in ((8, 8), (8, 4), (10, 4), (3, 8)):
+            chol(cholesky_1d, f"c1d/{nb}_{p}/{la}", f"c1d/{nb}_{p}", (1, p), lookahead=la)
+        for (r, c), nb in (((2, 2), 6), ((2, 4), 8), ((2, 2), 5), ((1, 4), 7), ((4, 2), 4)):
+            chol(cholesky_2d, f"c2d/{r}x{c}_{nb}/{la}", f"c2d/{r}x{c}_{nb}", (r, c), lookahead=la)
+        if on((1, 4)):
+            log = []
+            out[f"c1d_order/{la}"] = cholesky_1d(inp["c1d_order"], mesh=meshes[(1, 4)], panel=16,
+                                                 lookahead=la, schedule_log=log).numpy()
+            out[f"c1d_order/{la}/log"] = np.array([repr(e) for e in log])
+            log = []
+            out[f"c2d_order/{la}"] = cholesky_2d(inp["c2d_order"], mesh=meshes[(2, 2)], panel=16,
+                                                 lookahead=la, schedule_log=log).numpy()
+            out[f"c2d_order/{la}/log"] = np.array([repr(e) for e in log])
+    clog = []
+    out["c2d_volume"] = cholesky_2d(inp["c2d_volume"], mesh=mesh8, panel=16,
+                                    collective_log=clog).numpy()
+    out["c2d_volume/clog"] = np.array([repr(e) for e in clog])
+    if on((2, 2)):
+        os.environ["NPW_COMPENSATED"] = "1"
+        config._default = None
+        try:
+            assert config.default_config().compensated
+            out["c2d_compensated"] = cholesky_2d(inp["c2d_compensated"], mesh=meshes[(2, 2)],
+                                                 panel=32).numpy()
+        finally:
+            os.environ["NPW_COMPENSATED"] = "0"
+            config._default = None
+        for fn in (cholesky_1d, cholesky_2d):
+            key = f"gather/{fn.__name__}"
+            out[f"{key}/device"] = fn(inp["gather"], mesh=meshes[(2, 2)], panel=32).numpy()
+            host = fn(inp["gather"], mesh=meshes[(2, 2)], panel=32, gather="host")
+            out[f"{key}/is_ndarray"] = np.array(isinstance(host, np.ndarray))
+            out[f"{key}/host"] = np.asarray(host)
+
+    # the out-of-core Cholesky on the mesh of every rank
+    at = shard_matrix(inp["ooc_mesh"], tile=(64, 64), storage="host", device="cpu")
+    out["ooc_mesh"] = out_of_core_cholesky(at, panel_tiles=4, mesh=mesh8).numpy()
+    ck = os.path.join(workdir, "ck")
+    calls = {"n": 0}
+
+    class Boom(Exception):
+        pass
+
+    def bomb(kind, s):
+        if kind == "factor":
+            calls["n"] += 1
+            if calls["n"] == 2:
+                raise Boom()
+
+    try:
+        out_of_core_cholesky(shard_matrix(inp["ooc_resume"], tile=(32, 32), storage="host",
+                                          device="cpu"),
+                             panel_tiles=4, mesh=mesh8, checkpoint_dir=ck, on_event=bomb)
+        out["ooc_resume/bomb_fired"] = np.array(False)
+    except Boom:
+        out["ooc_resume/bomb_fired"] = np.array(True)
+    distributed.sync()  # rank 0 has written its checkpoint
+    with open(os.path.join(ck, "manifest.json")) as f:
+        out["ooc_resume/panels_done"] = np.array(json.load(f)["panels_done"])
+    at2 = shard_matrix(inp["ooc_resume"], tile=(32, 32), storage="host", device="cpu")
+    l2 = out_of_core_cholesky(at2, panel_tiles=4, mesh=mesh8, checkpoint_dir=ck)
+    out["ooc_resume"] = l2.numpy()
+    out["ooc_resume/panels_run"] = np.array(l2.spill_stats["panels"])
+
+    bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+           or m.split(".")[0] == "numpywren_tpu"]
+    assert not bad, f"rank {rank} imported {bad[:5]}"
+    distributed.sync()
+    if rank == 0:
+        np.savez(os.path.join(workdir, "out.npz"), **out)
+    distributed.sync()
+
+
 def run(mode: str, workdir: str) -> None:
-    {"parallel": run_parallel, "distributed": run_distributed}[mode](workdir)
+    {"parallel": run_parallel, "distributed": run_distributed, "fabric": run_fabric}[mode](workdir)
     import torch.distributed as dist
 
     from numpywren_tpu_torch.parallel import distributed
