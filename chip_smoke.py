@@ -238,6 +238,24 @@ multi-device layer (P21):
       convergence target, and within 3e-5 of the single-device chain's);
       each card rank requires matmul3 launched by every Cholesky form, the
       mesh out-of-core Cholesky and the compensated cholqr3s apply.
+      Then the distributed BDFAC: in (a) bdfac_1d and bdfac_2d (lookahead
+      on and off, and at "highest") on P19's X at tile 512 and
+      out_of_core_bdfac(mesh=) on P20's --n-ooc Gaussian tier (tile 512,
+      W = 2048), each twice, held by P19's BDFAC bars and P20's
+      invariants; bdfac_2d's time split in a new process
+      (fresh_bdfac_profile); matmul3 at bdfac_2d's first bulk update
+      (n x (n - 512) less n x 512 by 512 x (n - 512)) against matmul3_ref
+      and _matmul_split_ref, timed in turns with addmm; in (b) bdfac_1d,
+      bdfac_2d and the mesh out-of-core BDFAC of P19's X,
+      singular_values(mesh=) at P21_SV_N, tile 256, on the 2 x 2 mesh
+      (bdfac_2d) and a 1 x 4 one (bdfac_1d), and the dry run
+      (parallel.dryrun, its ten stages); every rank's results the same
+      (fingerprints), held on rank 0 to the 1-rank call (sigma within
+      1e-4 sigma_max; B within 1e-4, P21_BDFAC_B_BAR, by b_agreement:
+      B up to Yamamoto signs and its last block column's orthogonal
+      factors) and to the bars above; each card
+      rank requires matmul3 launched by the three BDFAC forms, (a) matmul
+      by the "highest" call.
       Part (b)'s times are four processes time-sharing one card: no
       scaling claim is made from them
 
@@ -2478,17 +2496,18 @@ def require_chains(phase: str, n: int, tile: int, row: dict, cholqr: bool = True
     require(row["chains"] == want, f"{phase}: {row['chains']} chains, {want} expected")
 
 
-def fresh_bdfac_profile(torch, n: int, tile: int) -> dict:
-    """One warm compensated fused BDFAC sweep of a Gaussian n x n (tile
-    `tile`) under torch.profiler, in the process that calls it (P19 runs it
-    in_new_process): busy ms as the union of the device's activity
-    intervals and the idle share against the call's CUDA-event ms; the ms of
-    the sweep's parts by CUDA events recorded around each call of
-    compiler.lower's _cholqr_adaptive (the chains, with their Grams,
-    cholesky_ex, solve_triangular and host reads) and _matmul / _sub_matmul
-    (the panel updates' products), each span its kernels and any idle
-    between them, the rest of the call beside them; and the device ms of
-    the kernels by name group."""
+def fresh_bdfac_profile(torch, n: int, tile: int, form: str = "fused") -> dict:
+    """One warm compensated BDFAC sweep of a Gaussian n x n (tile `tile`)
+    under torch.profiler, in the process that calls it (P19 and P21 run it
+    in_new_process): form "fused" is compiler.lower.fused_bdfac, "bdfac_2d"
+    parallel.fabric.bdfac_2d on the 1 x 1 mesh of a 1-rank group. Busy ms
+    as the union of the device's activity intervals and the idle share
+    against the call's CUDA-event ms; the ms of the sweep's parts by CUDA
+    events recorded around each call of _cholqr_adaptive (the chains, with
+    their Grams, cholesky_ex, solve_triangular and host reads) and _matmul
+    / _sub_matmul (the panel updates' products), each span its kernels and
+    any idle between them, the rest of the call beside them; and the device
+    ms of the kernels by name group."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2499,19 +2518,29 @@ def fresh_bdfac_profile(torch, n: int, tile: int) -> dict:
     _build.build()
     config.default_config().compensated = True
     x = torch.randn(n, n, generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    if form == "fused":
+        mod, call = lower, lambda: lower.fused_bdfac(x, tile)
+    else:
+        from numpywren_tpu_torch.parallel import distributed, fabric, make_mesh
+
+        os.environ.update(NPW_COORDINATOR=f"127.0.0.1:{free_port()}", NPW_NUM_PROCESSES="1",
+                          NPW_PROCESS_ID="0")
+        distributed.initialize()
+        mesh = make_mesh()
+        mod, call = fabric, lambda: fabric.bdfac_2d(x, mesh, tile=tile)
     spans = {"chains": [], "products": []}
     for key, name in (("chains", "_cholqr_adaptive"), ("products", "_matmul"),
                       ("products", "_sub_matmul")):
-        def timed(*a, _real=getattr(lower, name), _key=key, **kw):
+        def timed(*a, _real=getattr(mod, name), _key=key, **kw):
             begin, end_ = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             begin.record()
             out = _real(*a, **kw)
             end_.record()
             spans[_key].append((begin, end_))
             return out
-        setattr(lower, name, timed)
+        setattr(mod, name, timed)
 
-    lower.fused_bdfac(x, tile)
+    call()
     torch.cuda.synchronize()
     for attempt in range(1, 4):
         for v in spans.values():
@@ -2519,7 +2548,7 @@ def fresh_bdfac_profile(torch, n: int, tile: int) -> dict:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             start.record()
-            lower.fused_bdfac(x, tile)
+            call()
             end.record()
             torch.cuda.synchronize()
         acts = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -2536,7 +2565,11 @@ def fresh_bdfac_profile(torch, n: int, tile: int) -> dict:
     parts = {k: sum(b.elapsed_time(e) for b, e in v) for k, v in spans.items()}
     parts["rest"] = call_ms - parts["chains"] - parts["products"]
     busy = union_ms((e.time_range.start, e.time_range.end) for e in acts)
-    return {"n": n, "tile": tile, "config": "compensated", "call_ms": call_ms,
+    if form != "fused":
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+    return {"n": n, "tile": tile, "form": form, "config": "compensated", "call_ms": call_ms,
             "device_busy_ms": busy, "idle_share": 1.0 - busy / call_ms,
             "ms_by_part": parts, "calls_by_part": {k: len(v) for k, v in spans.items()},
             "device_ms_by_kernel": by_kernel, "activities": len(acts),
@@ -3038,6 +3071,19 @@ def band_excess(torch, b, w: int) -> float:
     return max(float(torch.tril(b, -1).abs().max()), float(torch.triu(b, 2 * w).abs().max()))
 
 
+def ooc_invariants(torch, bc, x_f: float, x_gram: float, w: int) -> tuple:
+    """The large out-of-core BDFAC's bars on B = bc (on the card) of an X
+    with ||X||_F = x_f and ||XᵀX||_F = x_gram: ||B||_F and ||BᵀB||_F within
+    1e-3 of X's, nothing below the diagonal or past 2w - 1 (1e-5 of
+    ||X||_F). Returns (the numbers, whether they hold)."""
+    q = {"fro_err_over_fro": abs(float(torch.linalg.norm(bc.double())) - x_f) / x_f,
+         "gram_fro_err_over_fro": abs(gram_fro64(torch, bc) - x_gram) / x_gram,
+         "band_excess_over_fro": band_excess(torch, bc, w) / x_f}
+    return q, (q["fro_err_over_fro"] <= OOC_INVARIANT_BAR
+               and q["gram_fro_err_over_fro"] <= OOC_INVARIANT_BAR
+               and q["band_excess_over_fro"] <= OOC_BAND_BAR)
+
+
 def fresh_ooc_bdfac_profile(torch, n: int, tile: int, pt: int, seed: int) -> dict:
     """One compensated out_of_core_bdfac of an n x n Gaussian host tier
     (tile `tile`, panel_tiles pt) under torch.profiler (P17's
@@ -3236,13 +3282,8 @@ def p20_qdwh_ooc(torch, jacobi: dict, bdfac: dict, n_ooc: int, seed: int):
     torch.cuda.empty_cache()
 
     def invariants(bc):
-        q = {"fro_err_over_fro": abs(float(torch.linalg.norm(bc.double())) - xb_f) / xb_f,
-             "gram_fro_err_over_fro": abs(gram_fro64(torch, bc) - xb_gram) / xb_gram,
-             "band_excess_over_fro": band_excess(torch, bc, t * pt) / xb_f,
-             "reference_seconds": ref_s}
-        return q, (q["fro_err_over_fro"] <= OOC_INVARIANT_BAR
-                   and q["gram_fro_err_over_fro"] <= OOC_INVARIANT_BAR
-                   and q["band_excess_over_fro"] <= OOC_BAND_BAR)
+        q, ok = ooc_invariants(torch, bc, xb_f, xb_gram, t * pt)
+        return dict(q, reference_seconds=ref_s), ok
 
     row = ooc_run("compensated", xh, n_ooc, t, pt, compensated=True, check=invariants)
     require(row["launches"]["matmul3"] > 0, f"P20 ooc_bdfac {n_ooc}: {row['launches']}")
@@ -3468,10 +3509,7 @@ def p21_fabric_drive(torch, mesh, ops: dict, fab: dict, panel: int, ooc_tile: in
     `repeat` times in a row. Returns (the last run's results, each case's
     seconds: host clock from a barrier to a synchronize, every run's,
     each case's matmul / matmul3 launches on this rank in its last run,
-    with the cholqr3s chain's chains and extras passes)."""
-    import torch.distributed as dist
-
-    from numpywren_tpu_torch.compiler import lower
+    with the cholqr3s chain's chains and extras passes: `run_cases`)."""
     from numpywren_tpu_torch.parallel.fabric import (cholesky_1d, cholesky_2d, cholqr2_sharded,
                                                      cholqr3s_sharded, tsqr_butterfly)
     from numpywren_tpu_torch.runtime import out_of_core_cholesky
@@ -3494,7 +3532,19 @@ def p21_fabric_drive(torch, mesh, ops: dict, fab: dict, panel: int, ooc_tile: in
     else:
         cases.append(("cholqr3s_sharded_kappa",
                       lambda: cholqr3s_sharded(fab["x_kappa"], mesh, compute_q=True)))
-    cuda = a.device.type == "cuda"
+    return run_cases(torch, mesh, cases, repeat, a.device.type == "cuda")
+
+
+def run_cases(torch, mesh, cases, repeat: int, cuda: bool) -> tuple:
+    """Each (name, call) of `cases` `repeat` times in a row on every rank of
+    `mesh`: (the last run's results, each case's seconds, host clock from a
+    barrier to a synchronize, every run's, each case's matmul / matmul3
+    launches on this rank in its last run, with the chains' chains and
+    extras passes of a cholqr3s case)."""
+    import torch.distributed as dist
+
+    from numpywren_tpu_torch.compiler import lower
+
     results, seconds, launches = {}, {}, {}
     for name, call in cases:
         seconds[name] = []
@@ -3612,11 +3662,241 @@ def p21_matmul3_bulk(torch, gen, n: int, panel: int, card: str) -> dict:
     torch.cuda.empty_cache()
     return row
 
-def p21_single(torch, npw, sizes: dict, small: dict, seed: int, p2_seconds: float) -> dict:
+P21_BDFAC_TILE = 512                 # the distributed BDFAC's tile on P19's X
+P21_SV_N, P21_SV_TILE = 2048, 256    # singular_values(mesh=)'s size and tile in (b)
+FABRIC_BDFAC = ("bdfac_1d", "bdfac_2d", "out_of_core_bdfac")  # each launches matmul3
+# B of four ranks against one rank's, by b_agreement (|B|, and the last
+# block column's sigma). B itself is fixed only up to Yamamoto signs and
+# the last block column's orthogonal factors, and a sign flips at
+# rounding level: on an NVIDIA H100 (700 W) at 8192/512, compensated,
+# seeds 0-5, four ranks moved B by up to 0.119 raw and |B| by 0.0372, and
+# b_agreement by 6.48-6.60e-5 (a one-ulp change of X and "highest" 7.8e-5
+# at most); rank 1's Wᵀ·trailing share dropped or its bulk update skipped
+# at step 8 moved it by 0.108-0.131 (experiments/torch_bdfac_agreement.py).
+P21_BDFAC_B_BAR = 1e-4
+DRYRUN_STAGES = 13                   # dryrun_multichip's numbers on a mesh of 4 (stage 4 has 3)
+
+
+def p21_bdfac_sizes(sizes: dict) -> dict:
+    """The BDFAC calls' sizes: n (P19's --n-bdfac) at its tile, the
+    out-of-core tier's tile (W = OOC_PANEL_TILES tiles), singular_values' n
+    and tile; a rehearsal's small sizes cut them alike."""
+    n = sizes.get("n_bdfac", sizes["n_chol"])
+    n_sv = sizes.get("n_sv", n // 2)
+    return {"n": n, "tile": min(P21_BDFAC_TILE, n // 4), "ooc_tile": min(OOC_TILE, n // 8),
+            "n_sv": n_sv, "sv_tile": min(P21_SV_TILE, n_sv // 4)}
+
+
+def p21_bdfac_cases(mesh, x, tile: int, tier, part: str) -> list:
+    """(name, call) of the distributed BDFAC on `mesh`: bdfac_1d and
+    bdfac_2d of x at `tile`, in (a) also bdfac_2d without lookahead and at
+    "highest", then out_of_core_bdfac(mesh=) of the host tier `tier` (W =
+    OOC_PANEL_TILES of its tiles)."""
+    from numpywren_tpu_torch.parallel.fabric import bdfac_1d, bdfac_2d
+    from numpywren_tpu_torch.runtime.spill import out_of_core_bdfac
+
+    cases = [("bdfac_1d", lambda: bdfac_1d(x, mesh, tile=tile)),
+             ("bdfac_2d", lambda: bdfac_2d(x, mesh, tile=tile))]
+    if part == "a":
+        cases += [("bdfac_2d_no_lookahead", lambda: bdfac_2d(x, mesh, tile=tile, lookahead=False)),
+                  ("bdfac_2d_highest", lambda: bdfac_2d(x, mesh, tile=tile, precision="highest"))]
+    cases.append(("out_of_core_bdfac",
+                  lambda: out_of_core_bdfac(tier, panel_tiles=OOC_PANEL_TILES, mesh=mesh)))
+    return cases
+
+
+def whole_tier(torch, m, n: int, device: str):
+    """A host-tier result as one (n, n) tensor on `device`."""
+    return host_tiles_to_card(torch, m, n) if device == "cuda" else torch.from_numpy(m.numpy())
+
+
+def p21_ooc_sigma(torch, bc, sv_ref, x_f: float, w: int) -> tuple:
+    """P20's bars on an out-of-core B of a matrix with sigma sv_ref (fp64,
+    descending) and ||X||_F = x_f: sigma within 1e-4 of sigma_max, ||B||_F
+    within 1e-3, the band. Returns (the numbers, whether they hold)."""
+    q = {"sv_err_over_max": float((sigma_by_gram(torch, bc) - sv_ref).abs().max() / sv_ref[0]),
+         "fro_err_over_fro": abs(float(torch.linalg.norm(bc.double())) - x_f) / x_f,
+         "band_excess_over_fro": band_excess(torch, bc, w) / x_f}
+    return q, (q["sv_err_over_max"] <= BDFAC_BAR and q["fro_err_over_fro"] <= BDFAC_FRO_BAR
+               and q["band_excess_over_fro"] <= OOC_BAND_BAR)
+
+
+def p21_matmul3_bdfac_bulk(torch, gen, n: int, tile: int, card: str) -> dict:
+    """matmul3 at bdfac_2d's first bulk update on one rank at n: c a view of
+    an n² buffer from column `tile` (n x (n - tile)), less W (n x tile) by
+    SᵀW1 (tile x (n - tile)), against matmul3_ref (KERNEL_BAR) and
+    _matmul_split_ref at two planes (SPLIT_BAR), timed in turns with
+    addmm."""
+    from numpywren_tpu_torch.ops import gemm3
+
+    gemm = gemm_module()
+    buf = torch.randn(n, n, generator=gen, device="cuda")
+    c = buf[:, tile:]
+    w = torch.randn(n, tile, generator=gen, device="cuda")
+    sw1 = torch.randn(tile, n - tile, generator=gen, device="cuda")
+    row = product_row(torch, "P21", card, "matmul3:bdfac_2d_bulk", n, tile, n - tile,
+                      lambda: gemm3.matmul3(w, sw1, c),
+                      lambda: gemm3.matmul3_ref(w, sw1, c),
+                      lambda: torch.addmm(c, w, sw1, alpha=-1.0),
+                      lambda: gemm._matmul_split_ref(w, sw1, c, alpha=-1.0, beta=1.0, planes=2),
+                      SPLIT_BAR, 3)
+    del buf, c, w, sw1
+    torch.cuda.empty_cache()
+    return row
+
+
+def p21_bdfac_single(torch, mesh, bdfac: dict, n_ooc: int, seed: int, card: str) -> dict:
+    """P21 (a)'s distributed BDFAC on the 1 x 1 mesh, compensated: the
+    p21_bdfac_cases on P19's X (`bdfac`: its x, sv_ref, x_f) at tile 512,
+    each twice, held by P19's bars (sigma(B) by sigma_by_gram); the
+    out-of-core one on P20's 32768 Gaussian tier (tile 512, W = 2048), held
+    by P20's invariants; bdfac_2d's time split in a new process; matmul3 at
+    bdfac_2d's first bulk update. Emits one row; returns the launches of
+    matmul and matmul3 summed over the calls."""
+    x, sv_ref, x_f = bdfac["x"], bdfac["sv_ref"], bdfac["x_f"]
+    n, t = x.shape[0], P21_BDFAC_TILE
+    gen = torch.Generator(device="cuda").manual_seed(seed + 20)  # P20's n_ooc operand
+    xb = torch.randn(n_ooc, n_ooc, generator=gen, device="cuda")
+    xb_f, xb_gram = float(torch.linalg.norm(xb.double())), gram_fro64(torch, xb)
+    tier = host_tier(torch, xb, OOC_TILE)
+    del xb
+    torch.cuda.empty_cache()
+    res, sec, launches = run_cases(torch, mesh, p21_bdfac_cases(mesh, x, t, tier, "a"), 2, True)
+    bars = {}
+    for name in ("bdfac_1d", "bdfac_2d", "bdfac_2d_no_lookahead", "bdfac_2d_highest"):
+        bars[name] = bdfac_quality(torch, x, res.pop(name), t, sv_ref, x_f)
+        require_bdfac(f"P21 (a) {name}", bars[name])
+    bc = host_tiles_to_card(torch, res.pop("out_of_core_bdfac"), n_ooc)
+    bars["out_of_core_bdfac"], ok = ooc_invariants(torch, bc, xb_f, xb_gram,
+                                                   OOC_TILE * OOC_PANEL_TILES)
+    require(ok, f"P21 (a) out_of_core_bdfac: {bars['out_of_core_bdfac']}")
+    del bc, tier
+    torch.cuda.empty_cache()
+    prof = in_new_process("P21", "fresh_bdfac_profile", n, t, "bdfac_2d")
+    bulk = p21_matmul3_bdfac_bulk(torch, torch.Generator(device="cuda").manual_seed(seed), n, t,
+                                  card)
+    emit({"phase": "P21", "part": "a", "entries": "bdfac", "ranks": 1, "mesh": [1, 1],
+          "config": "compensated", "n": n, "tile": t,
+          "ooc": {"n": n_ooc, "tile": OOC_TILE, "panel_tiles": OOC_PANEL_TILES},
+          "seconds": {k: v[-1] for k, v in sec.items()}, "seconds_runs": sec,
+          "launches": launches, "bars": bars, "bdfac_2d_profile": prof,
+          "matmul3_bulk": {k: bulk[k] for k in ("shape", "ms", "plain_ms", "library_ms",
+                                                 "bound_ms", "bound_by", "rel_err",
+                                                 "rel_err_split_ref", "max_abs_err")},
+          "nvidia_smi": card})
+    for name in FABRIC_BDFAC + ("bdfac_2d_no_lookahead",):
+        require(launches[name]["matmul3"] > 0, f"P21 (a): {name} launched no matmul3")
+    require(launches["bdfac_2d_highest"]["matmul"] > 0,
+            "P21 (a): bdfac_2d at \"highest\" launched no matmul")
+    return {k: sum(c[k] for c in launches.values()) for k in ("matmul", "matmul3")}
+
+
+def b_agreement(torch, b, ref, w: int) -> float:
+    """B against ref up to what the sweep leaves free, over ||ref||_F: |B|
+    against |ref| but in the last w columns (a Yamamoto sign that differs
+    flips a row or a column of B), and the singular values of the last w
+    columns (the LQ side's last reflector fixes them up to an orthogonal
+    factor on the right, the last QR on the left)."""
+    b, ref = b.double(), ref.double()
+    head = torch.linalg.norm(b[:, :-w].abs() - ref[:, :-w].abs())
+    tail = torch.linalg.norm(sigma_by_gram(torch, b[:, -w:]) - sigma_by_gram(torch, ref[:, -w:]))
+    return float(torch.hypot(head, tail) / torch.linalg.norm(ref))
+
+
+def fingerprint(torch, b) -> list:
+    """Three fp64 sums of b (its entries, their squares, row-weighted):
+    equal bits give equal sums."""
+    b64 = b.double()
+    rows = torch.arange(1, b.shape[0] + 1, dtype=torch.float64, device=b.device)
+    return [float(b64.sum()), float((b64 * b64).sum()), float((rows @ b64).sum())]
+
+
+def p21_bdfac_rank(torch, mesh, mesh1, sizes: dict, seed: int, device: str) -> tuple:
+    """P21 (b)'s distributed BDFAC on one rank of the 2 x 2 mesh:
+    bdfac_1d, bdfac_2d and out_of_core_bdfac(mesh=) of P19's X,
+    singular_values(mesh=) on the 2 x 2 mesh (bdfac_2d) and on a 1 x 4 one
+    (bdfac_1d), and the dry run. Every rank's B and sigma are the same
+    (fingerprints); rank 0 holds each to the same call on its 1-rank mesh
+    (sigma within 1e-4 sigma_max, B within P21_BDFAC_B_BAR) and to P19's
+    bars against sigma_by_gram of X. Returns (this rank's numbers, its
+    launches by call)."""
+    import numpy as np
+
+    from numpywren_tpu_torch.models import singular_values
+    from numpywren_tpu_torch.parallel import distributed, make_mesh
+    from numpywren_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    bs = p21_bdfac_sizes(sizes)
+    rank = distributed.process_index()
+    mesh14 = make_mesh(shape=(1, 4), device=None if device == "cuda" else device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(bs["n"], bs["n"], generator=gen, device=device)  # P19's X
+    x_sv = torch.randn(bs["n_sv"], bs["n_sv"], generator=gen, device=device)
+    tier = p21_host_tier(torch, x, bs["ooc_tile"])
+    t, w = bs["tile"], bs["ooc_tile"] * OOC_PANEL_TILES
+
+    def svals(m):
+        return lambda: torch.as_tensor(singular_values(x_sv, tile=bs["sv_tile"], mesh=m).copy(),
+                                       device=device)
+
+    cases = p21_bdfac_cases(mesh, x, t, tier, "b") + [
+        ("singular_values_2x2", svals(mesh)), ("singular_values_1x4", svals(mesh14)),
+        ("dryrun_multichip", lambda: dryrun_multichip(mesh))]
+    res, sec, launches = run_cases(torch, mesh, cases, 1, device == "cuda")
+    stages = res.pop("dryrun_multichip")
+    res["out_of_core_bdfac"] = whole_tier(torch, res["out_of_core_bdfac"], bs["n"], device)
+    names = [k for k in res]
+    every = distributed.gather_to_hosts(np.array([fingerprint(torch, res[k]) for k in names]))
+    out = {"bdfac_sizes": bs, "bdfac_seconds": sec, "bdfac_launches": launches,
+           "dryrun_stages": stages}
+    require(len(stages) == DRYRUN_STAGES, f"P21 (b) rank {rank}: dry run stages {sorted(stages)}")
+    if rank == 0:
+        every = every.reshape(-1, len(names), 3)
+        out["same_on_every_rank"] = {k: bool((every[:, i] == every[0, i]).all())
+                                     for i, k in enumerate(names)}
+        require(all(out["same_on_every_rank"].values()),
+                f"P21 (b): results differ between ranks: {out['same_on_every_rank']}")
+        ref, ref_sec, _ = run_cases(torch, mesh1, p21_bdfac_cases(mesh1, x, t, tier, "b") + [
+            ("singular_values", svals(mesh1))], 1, device == "cuda")
+        ref["out_of_core_bdfac"] = whole_tier(torch, ref["out_of_core_bdfac"], bs["n"], device)
+        out["bdfac_one_rank_seconds"] = ref_sec
+        x_f = float(torch.linalg.norm(x.double()))
+        sv_x, sv_ref = sigma_by_gram(torch, x), sigma_by_gram(torch, x_sv)
+        checks = {}
+        for name in ("bdfac_1d", "bdfac_2d"):
+            checks[name] = bdfac_quality(torch, x, res[name], t, sv_x, x_f)
+            require_bdfac(f"P21 (b) {name}", checks[name])
+        checks["out_of_core_bdfac"], ok = p21_ooc_sigma(torch, res["out_of_core_bdfac"], sv_x,
+                                                        x_f, w)
+        require(ok, f"P21 (b) out_of_core_bdfac: {checks['out_of_core_bdfac']}")
+        for name in FABRIC_BDFAC:
+            checks[name]["rel_diff_vs_1_rank"] = rel_err(torch, res[name], ref[name])
+            v = checks[name]["agreement_vs_1_rank"] = b_agreement(
+                torch, res[name], ref[name], w if name == "out_of_core_bdfac" else t)
+            require(v <= P21_BDFAC_B_BAR,
+                    f"P21 (b): {name}'s B differs from the 1-rank B by {v} > {P21_BDFAC_B_BAR}")
+        for name in ("singular_values_2x2", "singular_values_1x4"):
+            s = res[name]
+            checks[name] = {
+                "err_vs_1_rank_over_max": float((s - ref["singular_values"]).abs().max()
+                                                / ref["singular_values"][0]),
+                "err_vs_fp64_over_max": float((s.double() - sv_ref).abs().max() / sv_ref[0])}
+            require(max(checks[name].values()) <= SV_BAR, f"P21 (b) {name}: {checks[name]}")
+        out["bdfac_checks"] = checks
+    if device == "cuda":
+        for name in FABRIC_BDFAC:
+            require(launches[name]["matmul3"] > 0,
+                    f"P21 (b) rank {rank}: {name} launched no matmul3")
+    return out, launches
+
+
+def p21_single(torch, npw, sizes: dict, small: dict, seed: int, p2_seconds: float,
+               bdfac: dict, n_ooc: int) -> dict:
     """P21 (a): a 1-rank group joined by the usual initialize() through the
     NPW_* variables (the card's backend: NCCL), a 1 x 1 mesh, the entry
-    points at full width, compensated; the group is closed after. Returns
-    the launches of matmul and matmul3."""
+    points at full width, compensated, then the distributed BDFAC on P19's
+    operands (`bdfac`) and P20's n_ooc tier (p21_bdfac_single); the group
+    is closed after. Returns the launches of matmul and matmul3."""
     import torch.distributed as dist
 
     from numpywren_tpu_torch.parallel import distributed, make_mesh
@@ -3652,6 +3932,7 @@ def p21_single(torch, npw, sizes: dict, small: dict, seed: int, p2_seconds: floa
         torch.cuda.empty_cache()
         bulk = p21_matmul3_bulk(torch, torch.Generator(device="cuda").manual_seed(seed),
                                 sizes["n_chol"], P21_TILE, card)
+        bd_counts = p21_bdfac_single(torch, mesh, bdfac, n_ooc, seed, card)
     finally:
         cfg.compensated = compensated
         if dist.is_initialized():
@@ -3682,7 +3963,7 @@ def p21_single(torch, npw, sizes: dict, small: dict, seed: int, p2_seconds: floa
         require(v > 0, f"P21 (a): {k} was not launched")
     for name in FABRIC_MATMUL3 + ("cholqr3s_sharded",):
         require(flaunch[name]["matmul3"] > 0, f"P21 (a): {name} launched no matmul3")
-    for c in flaunch.values():
+    for c in list(flaunch.values()) + [bd_counts]:
         for k in counts:
             counts[k] += c[k]
     return counts
@@ -3745,6 +4026,8 @@ def p21_rank(torch, sizes: dict, small: dict, seed: int, device: str = "cuda") -
         out.update(p21_fabric_agree(torch, whole, ref_whole))
         del ref_whole
     del whole, fab, ops
+    bout, blaunch = p21_bdfac_rank(torch, mesh, mesh1, sizes, seed, device)
+    out.update(bout)
     dist.barrier()
     require("jax" not in sys.modules, f"P21 (b) rank {rank}: jax was imported")
     require("numpywren_tpu" not in sys.modules,
@@ -3757,7 +4040,7 @@ def p21_rank(torch, sizes: dict, small: dict, seed: int, device: str = "cuda") -
         for name in FABRIC_MATMUL3 + ("cholqr3s_sharded_kappa",):
             require(flaunch[name]["matmul3"] > 0,
                     f"P21 (b) rank {rank}: {name} launched no matmul3")
-    for c in flaunch.values():
+    for c in list(flaunch.values()) + list(blaunch.values()):
         for k in counts:
             counts[k] += c[k]
     dist.destroy_process_group()
@@ -3817,8 +4100,10 @@ def p21_multi(torch, sizes: dict, small: dict, seed: int, device: str = "cuda") 
     Their times are four processes time-sharing one card: no scaling claim
     is made from them. Returns the launches summed over the ranks."""
     t0 = time.perf_counter()
-    ranks = run_ranks("P21 (b)", "p21_rank", P21_RANKS, [sizes, small, seed, device],
-                      {"NPW_COMPENSATED": "1"}, P21_TIMEOUT)
+    # a rehearsal's ranks share the host's cores: one OpenMP thread each
+    env = {"NPW_COMPENSATED": "1", **({"OMP_NUM_THREADS": "1"} if device == "cpu" else {})}
+    ranks = run_ranks("P21 (b)", "p21_rank", P21_RANKS, [sizes, small, seed, device], env,
+                      P21_TIMEOUT)
     counts = {"matmul": 0, "matmul3": 0}
     for res in ranks:
         emit({"phase": "P21", "part": "b", "ranks": P21_RANKS, "mesh": [2, 2],
@@ -3919,12 +4204,14 @@ def main(argv=None) -> int:
     bdfac_launches, _, bdfac = p19_bdfac(torch, npw, args.n_bdfac, args.n_bdfac_kappa, args.n_sv,
                                          args.n_svd, args.seed, args.n_sv_default)
     qdwh_launches, _ = p20_qdwh_ooc(torch, jacobi, bdfac, args.n_ooc, args.seed)
-    del jacobi, bdfac
+    del jacobi  # P19's operands stay for P21 (a)'s BDFAC
     torch.cuda.empty_cache()
     p21a = p21_single(torch, npw, {"n_chol": args.n, "n_gemm": args.n_gemm, "m": args.m, "b": 512},
-                      P21_SMALL, args.seed, p2_row["seconds"])
+                      P21_SMALL, args.seed, p2_row["seconds"], bdfac, args.n_ooc)
+    del bdfac
     torch.cuda.empty_cache()
-    p21b = p21_multi(torch, {"n_chol": P21B_N_CHOL, "n_gemm": args.n_gemm, "m": args.m, "b": 512},
+    p21b = p21_multi(torch, {"n_chol": P21B_N_CHOL, "n_gemm": args.n_gemm, "m": args.m, "b": 512,
+                             "n_bdfac": args.n_bdfac, "n_sv": P21_SV_N},
                      P21_SMALL, args.seed)
     for name in ("matmul", "matmul3"):
         launches[name] += spill_launches[name]

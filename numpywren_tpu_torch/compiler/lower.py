@@ -596,13 +596,41 @@ def _yamamoto_signs(d: torch.Tensor) -> torch.Tensor:
     return -torch.where(d >= 0, torch.ones_like(d), -torch.ones_like(d))
 
 
+def _yamamoto_reflector(q, q1, fast_s: bool = False, gemm_inv=None,
+                        e_rows: Optional[slice] = None, e_from: int = 0):
+    """The Yamamoto basis-kernel reflector H = I - W S Wᵀ of the thin Q of a
+    b-wide panel: Sigma = diag(-sign(Q1_ii)) (`_yamamoto_signs`),
+    W = Q Sigma - E, S⁻¹ = I - Sigma Q1ᵀ (Q1 the leading b x b block of Q,
+    E the leading b columns of I). Hᵀ panel = E Sigma R; the row form (LQ)
+    passes qrᵀ and Q1rᵀ and takes Wᵀ. S comes from the normal equations
+    (fast_s: `_small_inv_t` of W's leading block Q1 Sigma - I) or an LU
+    inverse.
+
+    `q` may be a share of Q's rows (over a mesh, `q1` then the whole Q1 on
+    every rank): its rows e_rows hold E's rows from e_from on (default: E's
+    b rows at the top of `q`; an empty slice where it holds none). Returns
+    (Sigma, W, S⁻¹, S)."""
+    b = q1.shape[0]
+    eye = torch.eye(b, dtype=q.dtype, device=q.device)
+    sigma = _yamamoto_signs(torch.diagonal(q1))
+    w = q * sigma[None, :]
+    e_rows = slice(0, b) if e_rows is None else e_rows
+    k = len(range(*e_rows.indices(w.shape[0])))
+    w[e_rows] -= eye[e_from:e_from + k]
+    s_inv = eye - sigma[:, None] * q1.T
+    if fast_s:
+        s = _small_inv_t(q1 * sigma[None, :] - eye, gemm_inv=gemm_inv).T
+    else:
+        s = torch.linalg.inv_ex(s_inv)[0]
+    return sigma, w, s_inv, s
+
+
 def _panel_qr_update_cholqr(panel, trailing, precision: str, want_reflector: bool = False,
                             conv_tol: float = 1e-4, fast_s: bool = False,
                             gemm_inv=None, pallas_chain=None):
     """Products-only counterpart of `_panel_qr_update`: thin Q, R from the
     shifted CholeskyQR chain, then the full orthogonal factor as a Yamamoto
-    basis-kernel reflector H = I - W S Wᵀ, W = Q Sigma - E,
-    S⁻¹ = I - Sigma Q1ᵀ (E the leading b columns of I). Hᵀ panel = E Sigma R
+    basis-kernel reflector (`_yamamoto_reflector`). Hᵀ panel = E Sigma R
     and Hᵀ trailing = trailing - W (Sᵀ (Wᵀ trailing)), written in place.
     fast_s takes Sᵀ by the normal equations (`_small_inv_t`), else by an
     LU inverse. A square panel (rows == b) uses H = Q Sigma directly: there
@@ -611,26 +639,18 @@ def _panel_qr_update_cholqr(panel, trailing, precision: str, want_reflector: boo
     b = panel.shape[1]
     q, r = _cholqr3s(panel, precision, conv_tol=conv_tol, gemm_inv=gemm_inv,
                      pallas_chain=pallas_chain)
-    sigma = _yamamoto_signs(torch.diagonal(q[:b]))
     if panel.shape[0] == b:
+        sigma = _yamamoto_signs(torch.diagonal(q[:b]))
         h = q * sigma[None, :]
         if trailing is not None and trailing.shape[1]:
             trailing.copy_(_matmul(h, trailing, ta=True, precision=precision))
         if want_reflector:
             return sigma[:, None] * r, trailing, ("dense", h)
         return sigma[:, None] * r, trailing
-    q1 = q[:b]
-    eye = torch.eye(b, dtype=q.dtype, device=q.device)
-    w = q * sigma[None, :]
-    w[:b] -= eye
-    s_inv = eye - sigma[:, None] * q1.T
+    sigma, w, s_inv, s = _yamamoto_reflector(q, q[:b], fast_s, gemm_inv)
     if trailing is not None and trailing.shape[1]:
-        if fast_s:
-            st = _small_inv_t(w[:b], gemm_inv=gemm_inv)
-        else:
-            st = torch.linalg.inv_ex(s_inv)[0].T
         w1 = _matmul(w, trailing, ta=True, precision=precision)      # (b, c)
-        sw1 = _matmul(st, w1, precision=precision)                   # Sᵀ W1, narrow side
+        sw1 = _matmul(s.T, w1, precision=precision)                  # Sᵀ W1, narrow side
         _sub_matmul(trailing, w, sw1, precision=precision, out=trailing)
     if want_reflector:
         return sigma[:, None] * r, trailing, ("yam", w, s_inv)
@@ -649,17 +669,9 @@ def _panel_lq_update_cholqr(panel, body, precision: str, want_reflector: bool = 
     b = panel.shape[0]
     qr_, l = _cholqr3s_rows(panel, precision, conv_tol=conv_tol, gemm_inv=gemm_inv,
                             pallas_chain=pallas_chain)
-    q1 = qr_[:, :b]
-    sigma = _yamamoto_signs(torch.diagonal(q1))
-    eye = torch.eye(b, dtype=qr_.dtype, device=qr_.device)
-    wr = qr_ * sigma[:, None]                                       # (b, m): Wᵀ
-    wr[:, :b] -= eye
-    s_inv = eye - sigma[:, None] * q1
+    sigma, w, s_inv, s_row = _yamamoto_reflector(qr_.T, qr_[:, :b].T, fast_s, gemm_inv)
+    wr = w.T                                                        # (b, m): Wᵀ
     if body is not None and body.shape[0]:
-        if fast_s:
-            s_row = _small_inv_t(wr[:, :b].T, gemm_inv=gemm_inv).T
-        else:
-            s_row = torch.linalg.inv_ex(s_inv)[0]
         u1 = _matmul(body, wr, tb=True, precision=precision)         # (rows, b) = body W
         u1s = _matmul(u1, s_row, precision=precision)                # narrow side
         _sub_matmul(body, u1s, wr, precision=precision, out=body)

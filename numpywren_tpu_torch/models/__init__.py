@@ -38,8 +38,8 @@ the current CUDA device (a host without one raises; pass device="cpu" to
 run the plain PyTorch versions). svd_jacobi and svd_refine return tensors
 on the input's device, the others ndarrays, as in the reference.
 
-Still raising NotImplementedError: `singular_values` on a mesh of more
-than one device (ROADMAP Queue 1 #6c).
+`singular_values(mesh=)` on a mesh of more than one device runs stage 1
+as the distributed BDFAC (parallel.fabric.bdfac_1d / bdfac_2d).
 """
 
 from numpywren_tpu_torch.alg_wrappers import bdfac, cholesky, gemm, tsqr, tsqr_r_factor

@@ -23,9 +23,9 @@ Counterpart of numpywren_tpu/models/svd.py:
   and `torch.linalg.eigh` of its h, no host stage): `svd(method="qdwh")`,
   `singular_values(finish="qdwh")` and `svd(uv_finish="device")`, the
   device SVD of the BDFAC's B.
-
-Not ported yet, raising NotImplementedError: a `mesh=` of more than one
-device (ROADMAP Queue 1 #6c).
+- `singular_values(mesh=)` on a mesh of more than one device: stage 1 is
+  the distributed BDFAC (`parallel.fabric.bdfac_2d` on a 2-D mesh,
+  `bdfac_1d` on a flat one), which returns only the band blocks.
 
 Inputs: a tensor stays where it is, an ndarray goes to `device` (else the
 current CUDA device). Results are ndarrays, as in the reference. The
@@ -46,8 +46,17 @@ from numpywren_tpu_torch.ops.common import as_tensor, np_dtype, to_numpy
 
 __all__ = ["singular_values", "svd", "svd_tall", "randomized_svd"]
 
-_MESH = ("a mesh of more than one device: the multi-device BDFAC is not ported yet "
-         "(ROADMAP Queue 1 #6c)")
+
+def _mesh_size(mesh) -> int:
+    """The device count of `mesh`: a DeviceMesh's size(), else its `size`
+    attribute (the reference reads jax's Mesh.size); 1 for None."""
+    if mesh is None:
+        return 1
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if isinstance(mesh, DeviceMesh):
+        return mesh.size()
+    return getattr(mesh, "size", 1)
 
 
 def _gk_band_sigma(bd: np.ndarray, max_band: int) -> np.ndarray:
@@ -271,16 +280,38 @@ def singular_values(x, tile: int = None, finish: str = "band",
     streaming spill executor past the device budget) and reads only the
     band blocks. finish="qdwh" takes an array or tensor through
     `_qdwh_svd` (compute_uv=False: no BDFAC, no host stage; a tiled input
-    keeps the BDFAC route). A mesh of more than one device (#6c) raises
-    NotImplementedError."""
+    keeps the BDFAC route).
+
+    mesh: a DeviceMesh of more than one device (a mesh of one runs the
+    single-device path) routes stage 1 through the distributed reduction,
+    `parallel.fabric.bdfac_2d` where both mesh dimensions exceed 1, else
+    `bdfac_1d`, which hands back the band blocks alone (O(n * tile) host
+    bytes; x stays where it is and each rank copies its own blocks). Every
+    rank of the mesh calls it with the same x and gets the same sigma. It
+    takes a square array with n a multiple of tile and no panel_method,
+    else ValueError; a band whose ||B||_F strays from ||X||_F by more than
+    1e-3 raises RuntimeError (no rank-safe rerun exists there). The finish
+    is the reference's: the packed band to LAPACK, or the shuffled
+    Golub-Kahan eigensolve without it (finish="dense": a host SVD of B)."""
     from numpywren_tpu_torch.compiler.lower import fused_bdfac, fused_tsqr
     from numpywren_tpu_torch.models import band
 
     if finish not in ("band", "dense", "qdwh"):
         raise ValueError(f"unknown finish {finish!r}")
-    if mesh is not None and getattr(mesh, "size", 1) > 1:
-        raise NotImplementedError(f"singular_values(mesh=...): {_MESH}")
-    if hasattr(x, "get_block"):
+    use_mesh = _mesh_size(mesh) > 1
+    tiled = hasattr(x, "get_block")
+    if finish == "qdwh" and not tiled:
+        x = as_tensor(x, device)
+        if x.dim() != 2:
+            raise ValueError(f"singular_values expects a matrix, got {tuple(x.shape)}")
+        s = to_numpy(_qdwh_svd(x.float(), compute_uv=False))
+        return np.sort(s)[::-1][:min(x.shape)].astype(np.float64)
+    if tiled:
+        if use_mesh:
+            raise ValueError(
+                "mesh-distributed singular_values takes a square array, not a tiled matrix; "
+                "materialize (utils.get_local_matrix) or run the tiled input through the "
+                "executor stack")
         import numpywren_tpu_torch as npw
 
         prog, b_mat, _ = npw.bdfac(x)
@@ -292,17 +323,22 @@ def singular_values(x, tile: int = None, finish: str = "band",
             return band.band_sigma_packed(ab, nn, nn, 0, ku)[: x.shape[0]]
         except RuntimeError:
             return _gk_band_from_blocks(b_mat)[: x.shape[0]]
-    x = as_tensor(x, device)
-    if x.dim() != 2:
+    # on a mesh x stays where it is: each rank copies only its own blocks
+    x = (x if isinstance(x, torch.Tensor) else np.asarray(x)) if use_mesh \
+        else as_tensor(x, device)
+    if x.ndim != 2:
         raise ValueError(f"singular_values expects a matrix, got {tuple(x.shape)}")
-    if finish == "qdwh":
-        s = to_numpy(_qdwh_svd(x.float(), compute_uv=False))
-        return np.sort(s)[::-1][:min(x.shape)].astype(np.float64)
     if tile is None:
-        n_min = min(x.shape) if x.numel() else 0
+        n_min = min(x.shape)
         tile = (512 if (finish == "dense" or n_min <= 2048 or band.lapack_available())
                 else 128)
     if x.shape[0] != x.shape[1]:
+        if use_mesh:
+            # the rectangular pre-reduction is single-device
+            raise ValueError(
+                f"mesh-distributed singular_values supports square inputs only, got "
+                f"{tuple(x.shape)}; QR-reduce to the square R factor first (e.g. "
+                "parallel.cholqr2_sharded)")
         # one CholeskyQR chain reduces to the square R (sigma(A) = sigma(R))
         a = x if x.shape[0] > x.shape[1] else x.T
         r = fused_tsqr(a.float(), tile_rows=a.shape[0], method="cholqr3s")
@@ -313,6 +349,8 @@ def singular_values(x, tile: int = None, finish: str = "band",
     auto_panel = panel_method is None
     if n_pad != n and panel_method is None:
         panel_method = "house"
+    if use_mesh:
+        return _mesh_singular_values(x, n, n_pad, tile, finish, panel_method, mesh)
     bd = fused_bdfac(_padded(x, n_pad), tile=tile, panel_method=panel_method, donate=True)
     if auto_panel and panel_method != "house" and not _frobenius_kept(x, bd):
         bd = fused_bdfac(_padded(x, n_pad), tile=tile, panel_method="house", donate=True)
@@ -331,6 +369,51 @@ def singular_values(x, tile: int = None, finish: str = "band",
         else:
             s = _band_sigma(bd64, max_band=2 * tile, device=x.device)
     return s[:n]
+
+
+def _dense_band(diags, sups, n: int, t: int) -> np.ndarray:
+    bd = np.zeros((n, n), np.float64)
+    for k, d in enumerate(diags):
+        bd[k * t:(k + 1) * t, k * t:(k + 1) * t] = d
+        if sups[k] is not None:
+            bd[k * t:(k + 1) * t, (k + 1) * t:(k + 2) * t] = sups[k]
+    return bd
+
+
+def _mesh_singular_values(x, n: int, n_pad: int, tile: int, finish: str, panel_method,
+                          mesh) -> np.ndarray:
+    """singular_values' mesh route (see there): the distributed BDFAC's band
+    blocks, the Frobenius invariant, then the reference's finish."""
+    from numpywren_tpu_torch.models.band import band_sigma_packed
+    from numpywren_tpu_torch.parallel.fabric import bdfac_1d, bdfac_2d
+
+    if n_pad != n:
+        raise ValueError(
+            f"mesh-distributed singular_values needs n ({n}) to be a multiple of tile "
+            f"({tile}): zero-padding would make the trailing panels rank-deficient, which the "
+            "distributed CholeskyQR panels cannot factor")
+    if panel_method is not None:
+        raise ValueError(
+            f"panel_method={panel_method!r} is not supported on the mesh-distributed path "
+            "(the distributed BDFAC factors panels by shifted CholeskyQR only); use the "
+            "single-device path for inputs that need Householder panels")
+    reduce_fn = bdfac_2d if min(mesh.shape) > 1 else bdfac_1d
+    diags, sups = reduce_fn(x, mesh=mesh, tile=tile, return_band=True)
+    na = float(torch.linalg.norm(torch.as_tensor(x).double()))
+    nb_ = float(np.sqrt(sum(float(np.sum(np.square(b, dtype=np.float64)))
+                            for b in diags + [s for s in sups if s is not None])))
+    if not np.isfinite(nb_) or abs(nb_ - na) > 1e-3 * max(na, 1e-30):
+        raise RuntimeError(
+            f"distributed BDFAC lost the Frobenius-norm invariant (||A||={na:.6g} vs "
+            f"||B||={nb_:.6g}): the input is too ill-conditioned or rank-deficient for "
+            "CholeskyQR panels; run without mesh= for the rank-safe single-device path")
+    if finish == "dense":
+        return np.linalg.svd(_dense_band(diags, sups, n, tile), compute_uv=False)[:n]
+    ab, nn, ku = _packed_band_from_lists(diags, sups, n, tile)
+    try:
+        return band_sigma_packed(ab, nn, nn, 0, ku)[:n]
+    except RuntimeError:
+        return _gk_band_sigma(_dense_band(diags, sups, n, tile), max_band=2 * tile)[:n]
 
 
 def _route_default_method(shape, platform: str = None) -> str:

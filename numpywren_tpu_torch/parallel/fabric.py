@@ -23,8 +23,9 @@ rank makes alike by construction (the rank's coordinates, or a value
 broadcast from the mesh's first rank), so no rank skips a collective that
 the others enter.
 
-Not ported yet: the distributed BDFAC (``bdfac_1d``, ``bdfac_2d``, ROADMAP
-Queue 1 #6c), which raises NotImplementedError naming its item.
+The distributed BDFAC (``bdfac_1d``, ``bdfac_2d``) keeps the reference's
+collectives, logs and results; its tile² inverses read tiles broadcast
+from one owner, so every rank holds the same bits.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from numpywren_tpu_torch.compiler.lower import (
     _sub_matmul,
     _tsqr_matmul,
     _use_compensated,
+    _yamamoto_reflector,
 )
 from numpywren_tpu_torch.exceptions import ShapeError
 from numpywren_tpu_torch.ops.common import check_precision, default_precision, torch_dtype
@@ -656,24 +658,341 @@ def tsqr_butterfly(a, mesh: Optional[DeviceMesh] = None, *, axis: Optional[str] 
     return as_dtensor(r.contiguous(), (b, b), NamedSharding(mesh, (Replicate(), Replicate())))
 
 
+
+
 # ---------------------------------------------------------------------------
-# Not ported yet: the distributed BDFAC (ROADMAP Queue 1 #6c)
+# Distributed BDFAC (block bidiagonalization)
 # ---------------------------------------------------------------------------
 
-def _not_ported(name: str, item: str):
-    raise NotImplementedError(f"parallel.fabric.{name} is not ported yet (ROADMAP Queue 1 {item})")
+def _check_bdfac(a, tile: int, what: str) -> int:
+    n = a.shape[0]
+    if a.ndim != 2 or a.shape[1] != n:
+        raise ShapeError(f"{what} needs a square matrix, got {tuple(a.shape)}")
+    if n % tile:
+        raise ShapeError(f"n {n} must be a multiple of tile {tile}")
+    return n
 
 
+def _from_root(get, shape, root: int, mine: bool, mesh: DeviceMesh, dtype, dev) -> torch.Tensor:
+    """The block `get()` of the rank at flat index `root`, on every rank of
+    the mesh (a copy: `get` is called on the root alone). Collective over
+    the mesh."""
+    buf = get().clone(memory_format=torch.contiguous_format) if mine \
+        else torch.empty(shape, dtype=dtype, device=dev)
+    return broadcast_flat(buf, root, mesh)
 
-def bdfac_1d(a, mesh=None, *, tile: int = 256, precision=None, lookahead: bool = True,
-             return_band: bool = False, collective_log: Optional[list] = None,
-             schedule_log: Optional[list] = None):
-    """Distributed BDFAC over a 1-D mesh (ROADMAP Queue 1 #6c)."""
-    _not_ported("bdfac_1d", "#6c")
+
+def _first_slot(j: int, mine: int, m: int, count: int) -> int:
+    """The first of this rank's `count` block slots (slot s holds global
+    block mine + s*m) whose global block is >= j."""
+    return min(max(-(-(j - mine) // m), 0), count)
 
 
-def bdfac_2d(a, mesh=None, *, tile: int = 256, precision=None, lookahead: bool = True,
-             return_band: bool = False, collective_log: Optional[list] = None,
-             schedule_log: Optional[list] = None):
-    """Distributed BDFAC over a 2-D mesh (ROADMAP Queue 1 #6c)."""
-    _not_ported("bdfac_2d", "#6c")
+def _bdfac_setup(a, tile: int, precision, mesh):
+    """(tile, blocks a side, dtype, precision, device)."""
+    dtype = torch_dtype(a.dtype)
+    return (tile, a.shape[0] // tile, dtype, check_precision(precision or default_precision(dtype)),
+            mesh_device(mesh))
+
+
+def bdfac_1d(a, mesh: Optional[DeviceMesh] = None, *, tile: int = 256, precision=None,
+             lookahead: bool = True, return_band: bool = False,
+             collective_log: Optional[list] = None, schedule_log: Optional[list] = None):
+    """Block bidiagonalization (compiler.lower.fused_bdfac's sweep) with
+    ROW blocks of `tile` distributed block-cyclically over the mesh
+    flattened row-major (global row block j on flat rank j mod P), each
+    rank holding its blocks as a (slots * tile, n) stack: the full column
+    extent is local, so the right-side (LQ) applies need no collective.
+
+    Per step k, the collectives of the reference:
+
+      1. ``qr_gram``: the QR panel's adaptive CholeskyQR chain
+         (`_cholqr_adaptive(psum_mesh=mesh)`) all_reduces its Grams (one in
+         the converged chain; extras passes fire only on breakdown) and
+         broadcasts each host decision from the mesh's first rank;
+         ``qr_q1``: the panel's top block, broadcast from its owner
+         (`broadcast_flat`), so the Yamamoto S is the same bits on every
+         rank;
+      2. ``qr_w1``: Wᵀ·trailing, one all_reduce of (tile, n - c1) partial
+         products, after which the two-sided update is local;
+      3. ``lq_rowpan``: the owner's updated row panel, broadcast; every
+         rank runs the row-form chain on it redundantly (no collective) and
+         applies the row reflector to its own rows.
+
+    The updates run on the live rows only (the reference masks full
+    stacks: the same values), through `_matmul`/`_sub_matmul` (the matmul3
+    kernel under compensated, the matmul kernel at "highest"); the tile² S
+    inverses are `torch.linalg.inv_ex`. lookahead=True updates row block k
+    alone first ("strip"), broadcasts the LQ panel, then runs the bulk
+    update ("qr_bulk") before the LQ body. schedule_log receives ("strip" |
+    "qr_bulk" | "lq_panel" | "lq_body", k), collective_log ("<kind>", k,
+    floats a rank): the reference's lists.
+
+    `a` is a host array (or a tensor), the same on every rank: each rank
+    copies only its own row blocks. Returns the dense (n, n) block upper
+    bidiagonal B (sigma(B) = sigma(a)) on every rank, or with
+    return_band=True the (diag_blocks, super_blocks) lists of host (tile,
+    tile) arrays (the last super block None), fetched block by block (one
+    broadcast each), identical on every rank. Collective over the mesh."""
+    n = _check_bdfac(a, tile, "bdfac_1d")
+    mesh = mesh or make_mesh()
+    t, nb, dtype, precision, dev = _bdfac_setup(a, tile, precision, mesh)
+    p, me = mesh.size(), flat_index(mesh)
+    nbl = -(-nb // p)                      # row-block slots a rank
+    mine = range(me, nb, p)                # slot s holds global row block mine[s]
+    nv = len(mine)
+    a = _as_host(a)
+    local = torch.zeros((nbl * t, n), dtype=dtype, device=dev)
+    if nv:
+        local[:nv * t].copy_(_host_or_tensor(a, _block_rows(mine, t), np.arange(n)))
+    clog = collective_log if collective_log is not None else []
+    slog = schedule_log if schedule_log is not None else []
+
+    def from_owner(get, shape, owner):
+        return _from_root(get, shape, owner, me == owner, mesh, dtype, dev)
+
+    for k in range(nb):
+        c0, c1 = k * t, (k + 1) * t
+        owner, slot = k % p, k // p
+        mine_k = me == owner
+        own = slice(slot * t, (slot + 1) * t)
+        s0, s1 = _first_slot(k, me, p, nv), _first_slot(k + 1, me, p, nv)
+        live, body_rows = slice(s0 * t, nv * t), slice(s1 * t, nv * t)
+        # QR panel: block column k's live rows, zeros elsewhere (a row
+        # permutation of the global panel: the Gram is the same)
+        pan = torch.zeros((nbl * t, t), dtype=dtype, device=dev)
+        pan[live] = local[live, c0:c1]
+        q, r_mat = _cholqr_adaptive(pan, precision=precision, psum_mesh=mesh, global_m=n - c0)
+        clog.append(("qr_gram", k, t * t))
+        q1 = from_owner(lambda: q[own], (t, t), owner)
+        clog.append(("qr_q1", k, t * t))
+        # the Yamamoto reflector, E's rows on the owner
+        sigma, w, _, s = _yamamoto_reflector(q, q1, e_rows=own if mine_k else slice(0, 0))
+        # panel columns -> E Sigma R on the owner; finished rows keep theirs
+        local[live, c0:c1] = 0
+        if mine_k:
+            local[own, c0:c1] = sigma[:, None] * r_mat
+        if k == nb - 1:
+            break
+        st = s.T
+        trail = local[live, c1:]
+        w1 = (_matmul(w[live], trail, ta=True, precision=precision) if s0 < nv
+              else torch.zeros((t, n - c1), dtype=dtype, device=dev))
+        sum_over_mesh(w1, mesh)
+        clog.append(("qr_w1", k, t * (n - c1)))
+        sw1 = _matmul(st, w1, precision=precision)
+        do_lq = nb - k - 1 >= 2
+        if lookahead and do_lq:
+            # critical path first: row block k (the LQ panel's one input)
+            slog.append(("strip", k))
+            if mine_k:
+                strip = local[own, c1:]
+                _sub_matmul(strip, w[own], sw1, precision=precision, out=strip)
+        else:
+            slog.append(("qr_bulk", k))
+            if s0 < nv:
+                _sub_matmul(trail, w[live], sw1, precision=precision, out=trail)
+        if not do_lq:
+            continue  # a single superdiagonal block lands in the band as it is
+        slog.append(("lq_panel", k))
+        row_pan = from_owner(lambda: local[own, c1:], (t, n - c1), owner)
+        clog.append(("lq_rowpan", k, t * (n - c1)))
+        # the row-form chain, replicated: every rank has the same bits
+        qr_, l_mat = _cholqr_adaptive(row_pan, rows=True, precision=precision)
+        sig_r, wr, _, s_row = _yamamoto_reflector(qr_.T, qr_[:, :t].T)
+        wr = wr.T
+        body = local[body_rows, c1:]
+        if lookahead:
+            # the deferred bulk update: the live rows but row block k
+            slog.append(("qr_bulk", k))
+            if s1 < nv:
+                _sub_matmul(body, w[body_rows], sw1, precision=precision, out=body)
+        slog.append(("lq_body", k))
+        if s1 < nv:
+            u1 = _matmul(body, wr, tb=True, precision=precision)
+            _sub_matmul(body, _matmul(u1, s_row, precision=precision), wr, precision=precision,
+                        out=body)
+        if mine_k:  # row block k -> [L Sigma_r | 0]
+            row = local[own, c1:]
+            row.zero_()
+            row[:, :t] = l_mat * sig_r[None, :]
+
+    if return_band:
+        diags, sups = [], []
+        for j in range(nb):
+            s = j // p
+            hi = min((j + 2) * t, n)
+            win = from_owner(lambda: local[s * t:(s + 1) * t, j * t:hi], (t, hi - j * t),
+                             j % p).cpu().numpy()
+            diags.append(win[:, :t])
+            sups.append(win[:, t:] if j + 1 < nb else None)
+        return diags, sups
+    out = torch.zeros((n, n), dtype=dtype, device=dev)
+    for s, j in enumerate(mine):
+        out[j * t:(j + 1) * t] = local[s * t:(s + 1) * t]
+    del local
+    return sum_over_mesh(out, mesh)
+
+
+def bdfac_2d(a, mesh: Optional[DeviceMesh] = None, *, tile: int = 256, precision=None,
+             lookahead: bool = True, return_band: bool = False,
+             collective_log: Optional[list] = None, schedule_log: Optional[list] = None):
+    """Block bidiagonalization over an (r x c) mesh with 2-D block-cyclic
+    tiles (global block (i, j) on mesh rank (i mod r, j mod c)): the
+    mesh-scalable form of `bdfac_1d`, each collective (tile, tile) or
+    O(tile * n / mesh dim) floats a rank.
+
+    QR phase of step k: the chain's Grams all_reduced over the mesh
+    (``qr_gram``; mesh column k mod c holds the panel, the others add
+    zeros), the top block broadcast from its owner (``qr_q1``), the
+    reflector W broadcast along the cols axis from mesh column k mod c
+    (``qr_wbcast``, n_loc_r * tile), Wᵀ·trailing all_reduced over the rows
+    axis (``qr_w1``, tile * (n_loc_c - c1s)), then a local update. LQ
+    phase: the mirror (``lq_gram``, ``lq_q1``; W_r broadcast along the rows
+    axis from mesh row k mod r, ``lq_wrbcast``; body·W_rᵀ all_reduced over
+    the cols axis, ``lq_u1``). The updates run over the reference's
+    conservative static region (r0s, c1s, r1s, c1b: the slots below them
+    are dead on every rank, so the products shrink with progress; the at
+    most one stale block a dimension inside it is masked in the small
+    operand), through `_matmul`/`_sub_matmul` (the matmul3 kernel under
+    compensated, the matmul kernel at "highest"). lookahead, the logs, `a`
+    and the results as in `bdfac_1d`. Collective over the mesh."""
+    n = _check_bdfac(a, tile, "bdfac_2d")
+    mesh = mesh or make_mesh()
+    t, nb, dtype, precision, dev = _bdfac_setup(a, tile, precision, mesh)
+    rows_ax, cols_ax = mesh.mesh_dim_names
+    r, c = mesh.shape
+    pi, pj = mesh.get_coordinate()
+    nbr, nbc = -(-nb // r), -(-nb // c)
+    n_loc_r, n_loc_c = nbr * t, nbc * t
+    my_r, my_c = range(pi, nb, r), range(pj, nb, c)
+    nvr, nvc = len(my_r), len(my_c)
+    a = _as_host(a)
+    # local block (s, q) = global block (pi + s*r, pj + q*c), zero past the grid
+    local = torch.zeros((n_loc_r, n_loc_c), dtype=dtype, device=dev)
+    if nvr and nvc:
+        local[:nvr * t, :nvc * t].copy_(
+            _host_or_tensor(a, _block_rows(my_r, t), _block_rows(my_c, t)))
+    clog = collective_log if collective_log is not None else []
+    slog = schedule_log if schedule_log is not None else []
+
+    def slot(k, mine_, m, count):
+        return min(max((k - mine_) // m, 0), count - 1)
+
+    def root(i, j):
+        return (i % r) * c + j % c
+
+    def from_root(get, i, j, mine_):
+        return _from_root(get, (t, t), root(i, j), mine_, mesh, dtype, dev)
+
+    for k in range(nb):
+        ok_col, ok_row = pj == k % c, pi == k % r
+        s_k, t_k = slot(k, pi, r, nbr), slot(k, pj, c, nbc)
+        own_r, own_c = slice(s_k * t, (s_k + 1) * t), slice(t_k * t, (t_k + 1) * t)
+        live_r = slice(_first_slot(k, pi, r, nvr) * t, nvr * t)
+        # ---- QR phase: block column k ----
+        pan = torch.zeros((n_loc_r, t), dtype=dtype, device=dev)
+        if ok_col:
+            pan[live_r] = local[live_r, own_c]
+        q, r_mat = _cholqr_adaptive(pan, precision=precision, psum_mesh=mesh, global_m=n - k * t)
+        clog.append(("qr_gram", k, t * t))
+        q1 = from_root(lambda: q[own_r], k, k, ok_row and ok_col)
+        clog.append(("qr_q1", k, t * t))
+        # the Yamamoto column reflector, E's rows on the owner
+        sigma, w, _, s = _yamamoto_reflector(q, q1,
+                                             e_rows=own_r if ok_row and ok_col else slice(0, 0))
+        if ok_col:  # panel column -> E Sigma R on the owner; dead rows keep theirs
+            local[live_r, own_c] = 0
+            if ok_row:
+                local[own_r, own_c] = sigma[:, None] * r_mat
+        if k == nb - 1:
+            break
+        # W broadcast along the cols axis from mesh column k mod c
+        my_w = broadcast_along(w, cols_ax, k % c, mesh)
+        clog.append(("qr_wbcast", k, n_loc_r * t))
+        st = s.T
+        # the conservative static region: rows from r0s, columns from c1s
+        r0s, c1s = (k // r) * t, ((k + 1) // c) * t
+        trail = local[r0s:, c1s:]
+        w1 = _matmul(my_w[r0s:], trail, ta=True, precision=precision)
+        if r > 1:
+            dist.all_reduce(w1, group=mesh.get_group(0))
+        clog.append(("qr_w1", k, t * (n_loc_c - c1s)))
+        sw1 = _matmul(st, w1, precision=precision)
+        # the stale columns (global block <= k) masked in the small operand
+        sw1[:, :_first_slot(k + 1, pj, c, nvc) * t - c1s] = 0
+        sw1[:, max(nvc * t - c1s, 0):] = 0
+        do_lq = nb - k - 1 >= 2
+        if lookahead and do_lq:
+            # critical path first: row block k alone, then the LQ panel's
+            # collectives, then the bulk update
+            slog.append(("strip", k))
+            if ok_row:
+                strip = local[own_r, c1s:]
+                _sub_matmul(strip, my_w[own_r], sw1, precision=precision, out=strip)
+        else:
+            slog.append(("qr_bulk", k))
+            _sub_matmul(trail, my_w[r0s:], sw1, precision=precision, out=trail)
+        if not do_lq:
+            continue  # the single superdiagonal block lands in the band as it is
+        # ---- LQ phase: block row k ----
+        t_k1 = slot(k + 1, pj, c, nbc)
+        ok_col1 = pj == (k + 1) % c
+        own_c1 = slice(t_k1 * t, (t_k1 + 1) * t)
+        live_c = slice(_first_slot(k + 1, pj, c, nvc) * t, nvc * t)
+        slog.append(("lq_panel", k))
+        pan_r = torch.zeros((t, n_loc_c), dtype=dtype, device=dev)
+        if ok_row:
+            pan_r[:, live_c] = local[own_r, live_c]
+        qr_, l_mat = _cholqr_adaptive(pan_r, rows=True, precision=precision, psum_mesh=mesh,
+                                      global_m=(nb - k - 1) * t)
+        clog.append(("lq_gram", k, t * t))
+        q1r = from_root(lambda: qr_[:, own_c1], k, k + 1, ok_row and ok_col1)
+        clog.append(("lq_q1", k, t * t))
+        # the row reflector, broadcast along the rows axis from mesh row k mod r
+        sig_r, wr, _, s_row = _yamamoto_reflector(
+            qr_.T, q1r.T, e_rows=own_c1 if ok_row and ok_col1 else slice(0, 0))
+        my_wr = broadcast_along(wr.T, rows_ax, k % r, mesh)
+        clog.append(("lq_wrbcast", k, t * n_loc_c))
+        if lookahead:
+            # the deferred QR bulk update, without row block k
+            slog.append(("qr_bulk", k))
+            if ok_row:
+                my_w[own_r] = 0
+            _sub_matmul(trail, my_w[r0s:], sw1, precision=precision, out=trail)
+        slog.append(("lq_body", k))
+        r1s, c1b = ((k + 1) // r) * t, ((k + 1) // c) * t
+        body = local[r1s:, c1b:]
+        u1 = _matmul(body, my_wr[:, c1b:], tb=True, precision=precision)
+        # rows of global block <= k (or past the grid) are not body rows
+        u1[:_first_slot(k + 1, pi, r, nvr) * t - r1s] = 0
+        u1[max(nvr * t - r1s, 0):] = 0
+        if c > 1:
+            dist.all_reduce(u1, group=mesh.get_group(1))
+        clog.append(("lq_u1", k, (n_loc_r - r1s) * t))
+        _sub_matmul(body, _matmul(u1, s_row, precision=precision), my_wr[:, c1b:],
+                    precision=precision, out=body)
+        if ok_row:  # block row k -> [L Sigma_r at block column k+1 | zeros]
+            local[own_r, live_c] = 0
+            if ok_col1:
+                local[own_r, own_c1] = l_mat * sig_r[None, :]
+
+    def blk(i, j):
+        return local[(i // r) * t:(i // r + 1) * t, (j // c) * t:(j // c + 1) * t]
+
+    def mine_blk(i, j):
+        return pi == i % r and pj == j % c
+
+    if return_band:
+        diags, sups = [], []
+        for j in range(nb):
+            diags.append(from_root(lambda: blk(j, j), j, j, mine_blk(j, j)).cpu().numpy())
+            sups.append(from_root(lambda: blk(j, j + 1), j, j + 1, mine_blk(j, j + 1))
+                        .cpu().numpy() if j + 1 < nb else None)
+        return diags, sups
+    out = torch.zeros((n, n), dtype=dtype, device=dev)
+    for i in my_r:
+        for j in my_c:
+            out[i * t:(i + 1) * t, j * t:(j + 1) * t] = blk(i, j)
+    del local
+    return sum_over_mesh(out, mesh)

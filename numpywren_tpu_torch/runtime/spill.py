@@ -266,6 +266,22 @@ def _check_update(panel: torch.Tensor, l_strip: torch.Tensor, l_top: torch.Tenso
             f"top {tuple(l_top.shape)} {l_top.stride()}, K {k}")
 
 
+def _join_mesh(mesh, dtype, dev):
+    """(rank count, this rank's flat index) of `mesh`, (1, 0) for None,
+    after a barrier over it; anything but a DeviceMesh raises TypeError."""
+    if mesh is None:
+        return 1, 0
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from numpywren_tpu_torch.parallel.mesh import flat_index, sum_over_mesh
+
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a DeviceMesh (parallel.make_mesh), got "
+                        f"{type(mesh).__name__}")
+    float(sum_over_mesh(torch.zeros(1, dtype=dtype, device=dev), mesh)[0])
+    return mesh.size(), flat_index(mesh)
+
+
 def out_of_core_cholesky(
     a: TiledMatrix,
     panel_tiles: int = 4,
@@ -357,19 +373,11 @@ def out_of_core_cholesky(
     lower_mirror = type(a).__name__ == "TiledSymmetricMatrix" or getattr(a, "_lower_only", False)
     dev = a.device
     streams = _Streams(dev)
-    n_dev, me = 1, 0
+    # the barrier: the first rank has finished any earlier call (and its
+    # checkpoint writes) before any rank reads the manifest below
+    n_dev, me = _join_mesh(mesh, a.dtype, dev)
     if mesh is not None:
-        from torch.distributed.device_mesh import DeviceMesh
-
-        from numpywren_tpu_torch.parallel.mesh import flat_index, sum_over_mesh
-
-        if not isinstance(mesh, DeviceMesh):
-            raise TypeError(f"mesh must be a DeviceMesh (parallel.make_mesh), got "
-                            f"{type(mesh).__name__}")
-        n_dev, me = mesh.size(), flat_index(mesh)
-        # a barrier: the first rank has finished any earlier call (and its
-        # checkpoint writes) before any rank reads the manifest below
-        float(sum_over_mesh(torch.zeros(1, dtype=a.dtype, device=dev), mesh)[0])
+        from numpywren_tpu_torch.parallel.mesh import sum_over_mesh
 
     def share(rows: int):
         """This rank's rows [lo, hi) of a device panel or strip of `rows`
@@ -645,16 +653,17 @@ def out_of_core_bdfac(
 
     Per W-wide panel step (W = panel_tiles * tile): the column panel is
     QR-factored on the device (the shifted CholeskyQR chain and a Yamamoto
-    reflector, `_panel_qr_update_cholqr`, conv_tol 1e-5, Sᵀ folded once a
-    panel by `_small_inv_t`); the trailing column panels stream through the
-    device, each taking Hᵀ chunk = chunk - W (Sᵀ (Wᵀ chunk)); while two or
-    more superdiagonal panels remain, the row panel is LQ-factored
-    (`_panel_lq_update_cholqr`) and the row panels below it stream through
-    once more, each taking chunk H. The final square panel keeps its R
-    only. The large products go through `compiler.lower._matmul` /
-    `_sub_matmul` at `precision` (compensated "high": matmul3, where the
-    left operand is not transposed; "highest": the matmul kernel; plain
-    "high": torch.matmul in true FP32); the b x b algebra is true FP32.
+    reflector, `_yamamoto_reflector`, conv_tol 1e-5, Sᵀ folded once a
+    panel by the normal equations); the trailing column panels stream
+    through the device, each taking Hᵀ chunk = chunk - W (Sᵀ (Wᵀ chunk));
+    while two or more superdiagonal panels remain, the row panel is
+    LQ-factored (the row form of the same) and the row panels below it
+    stream through once more, each taking chunk H. The final square panel
+    keeps its R only. The large products go through
+    `compiler.lower._matmul` / `_sub_matmul` at `precision` (compensated
+    "high": matmul3, where the left operand is not transposed; "highest":
+    the matmul kernel; plain "high": torch.matmul in true FP32); the b x b
+    algebra is true FP32.
 
     Returns B on the host tier, block bidiagonal with sigma(B) = sigma(a)
     (the sweeps are orthogonal), band ku = 2W - 1: diagonal panel blocks
@@ -683,19 +692,31 @@ def out_of_core_bdfac(
     reflector (zero rows in W) and every apply leave them zero; padded
     columns of a row panel likewise give zero reflector columns. Every
     upload zeroes its buffer's padding. stop_panels factors only the first
-    so-many panel steps. `mesh` (a mesh of devices sharding the panels) is
-    not ported yet: anything but None raises (ROADMAP Queue 1 #6c)."""
-    from numpywren_tpu_torch.compiler.lower import (
-        _matmul,
-        _panel_lq_update_cholqr,
-        _panel_qr_update_cholqr,
-        _small_inv_t,
-        _sub_matmul,
-    )
+    so-many panel steps.
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "out_of_core_bdfac over a device mesh is not ported yet (ROADMAP Queue 1 #6c)")
+    mesh (a DeviceMesh; every rank of it calls this with its own host tier
+    holding the same matrix): the QR side's panel and chunks are
+    ROW-sharded over the mesh flattened row-major, the LQ side's
+    COLUMN-sharded, where their bucketed height (width) divides the rank
+    count (rank f holds the f-th share and uploads the tiles covering it),
+    and whole on every rank otherwise. The chains all_reduce their Grams
+    (`_cholqr_adaptive(psum_mesh=)`), Wᵀ·chunk and chunk·W_rᵀ are one
+    all_reduce each, and the updates are local; the W x W reflector algebra
+    is replicated (the panel's top block summed whole onto every rank).
+    Each rank has its own host memory, so each updated chunk is gathered
+    whole onto every rank (one all_reduce of the zero-masked shares) and
+    written to every rank's working copy, and B's blocks come from the
+    mesh's first rank (one broadcast each): B is the same on every rank.
+    Every call starts with a barrier over the mesh. Collective over the
+    mesh."""
+    from numpywren_tpu_torch.compiler.lower import (
+        _cholqr_adaptive,
+        _matmul,
+        _sub_matmul,
+        _yamamoto_reflector,
+    )
+    from numpywren_tpu_torch.parallel.mesh import broadcast_flat, sum_over_mesh
+
     if a.shape[0] != a.shape[1] or a.tile[0] != a.tile[1]:
         raise ShapeError("out_of_core_bdfac needs a square matrix / square tiles")
     g = a.grid[0]
@@ -709,6 +730,7 @@ def out_of_core_bdfac(
     n_run = n_panels if stop_panels is None else min(n_panels, max(0, int(stop_panels)))
     dev = a.device
     streams = _Streams(dev)
+    n_dev, me = _join_mesh(mesh, a.dtype, dev)
 
     def zeros(m, i, j):
         return torch.zeros(m.tile, dtype=m.dtype)
@@ -726,11 +748,28 @@ def out_of_core_bdfac(
     # B's diagonal and superdiagonal panel blocks, step by step
     band = torch.empty((n_run, 2, pt, pt, t, t), dtype=a.dtype, pin_memory=streams.cuda)
 
-    def upload(r0_t, c0_t, rows_t, cols_t, rows_bt, cols_bt, buf=None, after=()):
+    def share(size: int):
+        """This rank's [lo, hi) of a sharded dimension of `size`: a 1/n_dev
+        share where it divides, else all of it."""
+        if n_dev > 1 and size % n_dev == 0:
+            h = size // n_dev
+            return me * h, (me + 1) * h
+        return 0, size
+
+    def upload(r0_t, c0_t, rows_t, cols_t, rows_bt, cols_bt, axis=0, buf=None, after=()):
         """Tiles [r0_t, r0_t + rows_t) x [c0_t, c0_t + cols_t) of the
         working copy in a device buffer of rows_bt x cols_bt tiles, its
-        padding zeroed, on the upload stream after the events `after`.
-        Returns (buffer, the event its copies end at)."""
+        padding zeroed, on the upload stream after the events `after`;
+        where `axis` (0: rows, 1: columns) is shared over a mesh, only the
+        tiles covering this rank's share of it. Returns (this rank's part:
+        the share, or the buffer; the buffer; the event its copies end at)."""
+        size = (rows_bt if axis == 0 else cols_bt) * t
+        lo, hi = share(size)
+        t0, t1 = lo // t, cdiv(hi, t)
+        if axis == 0:
+            r0_t, rows_t, rows_bt = r0_t + t0, max(0, min(t1, rows_t) - t0), t1 - t0
+        else:
+            c0_t, cols_t, cols_bt = c0_t + t0, max(0, min(t1, cols_t) - t0), t1 - t0
         with streams.on(streams.h2d):
             for ev in after:
                 if ev is not None:
@@ -740,7 +779,60 @@ def out_of_core_bdfac(
             buf[rows_t * t:].zero_()
             buf[:rows_t * t, cols_t * t:].zero_()
             _panel_from_host(work, r0_t, c0_t, rows_t, cols_t, out=buf)
-            return buf, streams.mark(streams.h2d)
+            ready = streams.mark(streams.h2d)
+        part = slice(lo - t0 * t, hi - t0 * t)
+        return (buf[part] if axis == 0 else buf[:, part]), buf, ready
+
+    def whole(part, size: int, axis: int) -> torch.Tensor:
+        """`part`, this rank's share along `axis` of a dimension of `size`,
+        as the whole tensor on every rank: one all_reduce of the
+        zero-masked shares (an exact sum), or `part` itself where it is
+        whole."""
+        lo, hi = share(size)
+        if hi - lo == size:
+            return part
+        out = torch.zeros((size, part.shape[1]) if axis == 0 else (part.shape[0], size),
+                          dtype=part.dtype, device=dev)
+        (out[lo:hi] if axis == 0 else out[:, lo:hi]).copy_(part)
+        return sum_over_mesh(out, mesh)
+
+    def sharded(size: int) -> bool:
+        return share(size) != (0, size)
+
+    def top_block(q, size: int) -> torch.Tensor:
+        """The W x W block of the first W rows of the panel factor whose
+        share of `size` rows is `q`, on every rank (an all_reduce of the
+        pieces each holds)."""
+        lo, hi = share(size)
+        if hi - lo == size:
+            return q[:w]
+        out = torch.zeros((w, w), dtype=q.dtype, device=dev)
+        k = min(max(w - lo, 0), hi - lo)   # this rank's rows inside it
+        out[lo:lo + k] = q[:k]
+        return sum_over_mesh(out, mesh)
+
+    def first_rank(x) -> torch.Tensor:
+        """x as the mesh's first rank has it, on every rank."""
+        return broadcast_flat(x.contiguous(), 0, mesh) if n_dev > 1 else x
+
+    def factor(part, size: int, axis: int):
+        """The chain (conv_tol 1e-5, its Grams summed over the mesh where
+        `part` is a share) and the Yamamoto reflector (Sᵀ by the normal
+        equations) of the column panel (axis 0) whose share of `size` rows
+        is `part`, or of the row panel (axis 1) whose share of `size`
+        columns it is. Returns (Sigma R, or L Sigma_r, as the mesh's first
+        rank has it; this rank's share of W, or of W_r; Sᵀ, or S)."""
+        rows = axis == 1
+        q, r_ = _cholqr_adaptive(part, rows=rows, precision=precision, conv_tol=1e-5,
+                                 psum_mesh=mesh if sharded(size) else None, global_m=size)
+        q = q.T if rows else q
+        lo, hi = share(size)
+        sigma, wv, _, s = _yamamoto_reflector(q, top_block(q, size), fast_s=True,
+                                              e_rows=slice(0, min(max(w - lo, 0), hi - lo)),
+                                              e_from=lo)
+        if rows:
+            return first_rank(r_ * sigma[None, :]), wv.T, s
+        return first_rank(sigma[:, None] * r_), wv, s.T
 
     def download(src, dst) -> object:
         """dst (slab tiles) := src, on the download stream after the compute
@@ -751,27 +843,29 @@ def out_of_core_bdfac(
             _tiles_to_host(src, dst)
             return streams.mark(streams.d2h)
 
-    def stream(specs, apply, fence, top=None):
+    def stream(specs, axis, apply, fence, top=None):
         """Each chunk of `specs` (upload's first six arguments) through the
-        device: uploaded into one of two buffers while the chunk before it is
-        applied, `apply`-ed in place, stored back into the working copy (its
+        device: uploaded (this rank's share along `axis`) into one of two
+        buffers while the chunk before it is applied, `apply`-ed in place,
+        made whole on every rank and stored back into the working copy (its
         first W rows also into `top` when given, for the first chunk).
         Returns the event of the last download."""
         bufs, freed = [None, None], [None, None]
-        pending = upload(*specs[0], after=(fence,))
+        pending = upload(*specs[0], axis=axis, after=(fence,))
         last = None
-        for k, (r0_t, c0_t, rows_t, cols_t, _, _) in enumerate(specs):
-            buf, ready = pending
+        for k, (r0_t, c0_t, rows_t, cols_t, rows_bt, cols_bt) in enumerate(specs):
+            part, buf, ready = pending
             bufs[k % 2] = buf
             if k + 1 < len(specs):
                 j = (k + 1) % 2
-                pending = upload(*specs[k + 1], buf=bufs[j], after=(fence, freed[j]))
+                pending = upload(*specs[k + 1], axis=axis, buf=bufs[j], after=(fence, freed[j]))
             streams.wait(streams.compute, ready, buf)
-            apply(buf)
+            apply(part)
+            full = whole(part, (rows_bt if axis == 0 else cols_bt) * t, axis)
             if top is not None and k == 0:
-                download(buf[:w], top)
+                download(full[:w], top)
             last = freed[k % 2] = download(
-                buf, slab[r0_t:r0_t + rows_t, c0_t:c0_t + cols_t])
+                full, slab[r0_t:r0_t + rows_t, c0_t:c0_t + cols_t])
         return last
 
     fence = None  # the last download of the phase before: what an upload reads
@@ -780,23 +874,24 @@ def out_of_core_bdfac(
         c1_t = c0_t + pt
         rows_t = g - c0_t
         if rows_t == pt:  # final square panel: R only
-            panel, ready = upload(c0_t, c0_t, pt, pt, pt, pt, after=(fence,))
+            panel, _, ready = upload(c0_t, c0_t, pt, pt, pt, pt, after=(fence,))
             streams.wait(streams.compute, ready, panel)
-            r, _ = _panel_qr_update_cholqr(panel, None, precision, conv_tol=1e-5, fast_s=True)
+            r, _, _ = factor(panel, w, 0)
             download(r, band[s, 0])
             break
         # 1. the column panel's QR and its reflector
         rows_bt = _bucket_tiles(rows_t, g, shape_mode)
-        panel, ready = upload(c0_t, c0_t, rows_t, pt, rows_bt, pt, after=(fence,))
+        height = rows_bt * t
+        panel, _, ready = upload(c0_t, c0_t, rows_t, pt, rows_bt, pt, after=(fence,))
         streams.wait(streams.compute, ready, panel)
-        r, _, (_, wv, _) = _panel_qr_update_cholqr(panel, None, precision, True, conv_tol=1e-5,
-                                                   fast_s=True)
+        r, wv, st = factor(panel, height, 0)
         del panel
-        st = _small_inv_t(wv[:w])  # Sᵀ, folded once a panel
         download(r, band[s, 0])
 
         def apply_qt(chunk):  # Hᵀ chunk = chunk - W (Sᵀ (Wᵀ chunk))
             w1 = _matmul(wv, chunk, ta=True, precision=precision)
+            if sharded(height):
+                sum_over_mesh(w1, mesh)
             _sub_matmul(chunk, wv, _matmul(st, w1, precision=precision), precision=precision,
                         out=chunk)
 
@@ -804,28 +899,29 @@ def out_of_core_bdfac(
         #    rows are B's last superdiagonal block as they are
         remaining = n_panels - s - 1
         fence = stream([(c0_t, q * pt, rows_t, pt, rows_bt, pt) for q in range(s + 1, n_panels)],
-                       apply_qt, fence, top=band[s, 1] if remaining == 1 else None)
+                       0, apply_qt, fence, top=band[s, 1] if remaining == 1 else None)
         del wv, st
         if remaining < 2:
             continue
         # 3. the row panel's LQ and its reflector, streamed over the rows below
         cols_t = g - c1_t
         cols_bt = _bucket_tiles(cols_t, g, shape_mode)
-        row_pan, ready = upload(c0_t, c1_t, pt, cols_t, pt, cols_bt, after=(fence,))
+        width = cols_bt * t
+        row_pan, _, ready = upload(c0_t, c1_t, pt, cols_t, pt, cols_bt, axis=1, after=(fence,))
         streams.wait(streams.compute, ready, row_pan)
-        l_blk, _, (_, wr, _) = _panel_lq_update_cholqr(row_pan, None, precision, True,
-                                                       conv_tol=1e-5, fast_s=True)
+        l_blk, wr, s_row = factor(row_pan, width, 1)
         del row_pan
-        s_row = _small_inv_t(wr[:, :w].T).T  # S, folded once a panel
         download(l_blk, band[s, 1])
 
         def apply_h_right(chunk):  # chunk H = chunk - ((chunk Wrᵀ) S) Wr
             u1 = _matmul(chunk, wr, tb=True, precision=precision)
+            if sharded(width):
+                sum_over_mesh(u1, mesh)
             _sub_matmul(chunk, _matmul(u1, s_row, precision=precision), wr,
                         precision=precision, out=chunk)
 
         fence = stream([(i, c1_t, pt, cols_t, pt, cols_bt) for i in range(c1_t, g, pt)],
-                       apply_h_right, fence)
+                       1, apply_h_right, fence)
         del wr, s_row
     if streams.cuda:
         torch.cuda.synchronize(dev)

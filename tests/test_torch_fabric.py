@@ -1,6 +1,8 @@
-"""The port's block-cyclic Cholesky, sharded CholeskyQR, butterfly TSQR and
-out-of-core Cholesky over a mesh (numpywren_tpu_torch.parallel.fabric,
-runtime.spill) against the JAX package's, on the CPU.
+"""The port's block-cyclic Cholesky, sharded CholeskyQR, butterfly TSQR,
+distributed BDFAC, out-of-core Cholesky and BDFAC over a mesh,
+singular_values(mesh=) and the multi-device dry run
+(numpywren_tpu_torch.parallel.fabric, parallel.dryrun, runtime.spill,
+models.svd) against the JAX package's, on the CPU.
 
 The port runs in ONE gloo group of 8 ranks for the module
 (tests/torch_parallel_worker.py's "fabric" mode), each case on a mesh of
@@ -8,13 +10,16 @@ ranks 0 .. p-1 as the reference takes jax.devices()[:p]; the reference's
 one-axis ``Mesh(devices, ("d",))`` is a (1, p) mesh with axis="cols". The
 JAX package runs on the 8 virtual CPU devices of tests/conftest.py, in this
 process, while the ranks run. Both get the reference tests' inputs
-(tests/test_fabric.py, tests/test_spill.py: the same seeds and draws).
+(tests/test_fabric.py, tests/test_spill.py, tests/test_models.py: the same
+seeds and draws).
 
 Each case holds the reference test's own bars against numpy or scipy. On
 one shape per entry and schedule the port is also held to the JAX
 package's result: the Cholesky factor within rtol 1e-4, atol 1e-5
 (tests/test_torch_entry.py's); R and Q, signs fixed, within 1e-4 relative
-Frobenius; schedule_log and collective_log equal to the reference's lists.
+Frobenius; B (and sigma) within 1e-4 relative Frobenius, the JAX side at
+nb = 4 only (its BDFAC unrolls the sweep inside jit); schedule_log and
+collective_log equal to the reference's lists.
 """
 
 import numpy as np
@@ -24,6 +29,7 @@ import scipy.linalg
 import jax
 
 import numpywren_tpu.config as jconfig
+from numpywren_tpu import models as jmodels
 from numpywren_tpu.matrix_init import random_spd
 from numpywren_tpu.matrix_init import shard_matrix as jshard
 from numpywren_tpu.parallel import fabric as jfabric
@@ -70,6 +76,9 @@ def _inputs():
     inp["gather"] = random_spd(4 * 32, seed=9)
     inp["ooc_mesh"] = random_spd(1024, seed=21)
     inp["ooc_resume"] = random_spd(512, seed=22)
+    for n in (128, 160, 192):  # the BDFAC cases' draws from the rng fixture
+        inp[f"g{n}"] = _rng().standard_normal((n, n)).astype(f32)
+    inp["ooc_bdfac"] = np.random.default_rng(9).standard_normal((256, 256)).astype(f32)
     return inp
 
 
@@ -113,6 +122,17 @@ def _reference(inp):
     at = jshard(inp["ooc_mesh"], tile=(64, 64), storage="host")
     out["ooc_mesh"] = np.tril(jspill.out_of_core_cholesky(
         at, panel_tiles=4, mesh=jmake_mesh(devs)).numpy())
+    # the BDFAC entries once each at nb = 4 (tile 32 / 16)
+    for key, fn, mesh in (("bd1_volume", jfabric.bdfac_1d, mesh14),
+                          ("bd2_order/True", jfabric.bdfac_2d, mesh22)):
+        clog, slog = [], []
+        out[key] = np.asarray(fn(inp["g128"], mesh=mesh, tile=32, collective_log=clog,
+                                 schedule_log=slog))
+        out[f"{key}/clog"], out[f"{key}/slog"] = [repr(e) for e in clog], [repr(e) for e in slog]
+    out["sv_mesh_jax_shape"] = jmodels.singular_values(inp["g128"], tile=32, mesh=mesh22)
+    at = jshard(inp["ooc_bdfac"], tile=(16, 16), storage="host")
+    out["ooc_bdfac_mesh"] = jspill.out_of_core_bdfac(at, panel_tiles=4,
+                                                     mesh=jmake_mesh(devs)).numpy()
     return out
 
 
@@ -389,3 +409,205 @@ def test_ooc_cholesky_mesh_resume(runs):
     assert int(got["ooc_resume/panels_done"]) == 1 and int(got["ooc_resume/panels_run"]) == 3
     ref = scipy.linalg.cholesky(inp["ooc_resume"].astype(np.float64), lower=True)
     np.testing.assert_allclose(np.tril(got["ooc_resume"]), ref, rtol=5e-3, atol=5e-4)
+
+
+# ---------------------------------------------------------------------------
+# the distributed BDFAC
+# ---------------------------------------------------------------------------
+
+def _sigma_ok(a, b, rtol=2e-3):
+    """tests/test_fabric.py's bar: sigma(B) against numpy's sigma(A)."""
+    s = np.linalg.svd(np.asarray(b, np.float64), compute_uv=False)
+    s_ref = np.linalg.svd(a.astype(np.float64), compute_uv=False)
+    np.testing.assert_allclose(s, s_ref, rtol=rtol, atol=rtol * s_ref[0])
+
+
+def _band_ok(b, t):
+    """Block upper bidiagonal: upper triangular, nothing past the 2t band."""
+    n = b.shape[0]
+    scale = np.abs(b).max()
+    assert np.abs(np.tril(b, -1)).max() < 1e-4 * scale
+    for i in range(n):
+        assert np.abs(b[i, min(n, (i // t + 2) * t):]).max(initial=0.0) < 1e-4 * scale
+
+
+def _blocks_match_dense(got, key, t):
+    diags, sups, dense = got[f"{key}/diags"], got[f"{key}/sups"], got[key]
+    nb = dense.shape[0] // t
+    assert len(diags) == nb and len(sups) == nb - 1 and bool(got[f"{key}/last_sup_none"])
+    for k in range(nb):
+        np.testing.assert_array_equal(diags[k], dense[k * t:(k + 1) * t, k * t:(k + 1) * t])
+        if k + 1 < nb:
+            np.testing.assert_array_equal(sups[k],
+                                          dense[k * t:(k + 1) * t, (k + 1) * t:(k + 2) * t])
+    assert bool(got[f"{key}/same_on_ranks"]), "the band lists differ between ranks"
+
+
+def _logs(got, key):
+    return [eval(e) for e in got[f"{key}/slog"]], [eval(e) for e in got[f"{key}/clog"]]
+
+
+@pytest.mark.parametrize("p,tile", [(4, 32), (3, 32), (8, 16)])
+def test_bdfac_1d_sigma(runs, p, tile):
+    """sigma(B) = sigma(A) on even and non-divisor rank counts."""
+    inp, got, _ = runs
+    _sigma_ok(inp["g192"], got[f"bd1_sigma/{p}_{tile}"])
+
+
+def test_bdfac_1d_band_structure(runs):
+    """Upper triangular, nothing past the 2t band; sigma as the port's
+    single-device fused BDFAC's."""
+    _, got, _ = runs
+    b = got["bd1_band"]
+    _band_ok(b, 32)
+    s_multi = np.linalg.svd(b.astype(np.float64), compute_uv=False)
+    s_single = np.linalg.svd(got["bd1_band/fused"].astype(np.float64), compute_uv=False)
+    np.testing.assert_allclose(s_multi, s_single, rtol=1e-3, atol=1e-3)
+
+
+def test_bdfac_1d_collective_volume(runs):
+    """Per QR step one (t, t) Gram, one (t, t) Q1 and one (t, n - c1)
+    contraction; per LQ step one (t, n - c1) broadcast; nothing bigger. The
+    logs are the reference's lists, B the JAX package's."""
+    inp, got, ref = runs
+    n, t = 128, 32
+    nb = n // t
+    slog, clog = _logs(got, "bd1_volume")
+    kinds = {}
+    for kind, k, vol in clog:
+        kinds.setdefault(kind, []).append((k, vol))
+        assert vol <= t * n, (kind, k, vol)
+    assert len(kinds["qr_gram"]) == nb and len(kinds["qr_w1"]) == nb - 1
+    assert len(kinds["lq_rowpan"]) == nb - 2
+    for k, vol in kinds["qr_w1"]:
+        assert vol == t * (n - (k + 1) * t)
+    assert [repr(e) for e in clog] == ref["bd1_volume/clog"]
+    assert [repr(e) for e in slog] == ref["bd1_volume/slog"]
+    assert _rel(got["bd1_volume"], ref["bd1_volume"]) <= 1e-4
+    _sigma_ok(inp["g128"], got["bd1_volume"])
+
+
+def test_bdfac_1d_return_band(runs):
+    """return_band=True: the band blocks alone, equal to the dense B's bit
+    for bit, the same lists on every rank."""
+    _, got, _ = runs
+    _blocks_match_dense(got, "bd1_return_band", 32)
+
+
+@pytest.mark.parametrize("lookahead", [False, True])
+def test_bdfac_1d_lookahead(runs, lookahead):
+    """With lookahead the LQ row panel is broadcast before the deferred QR
+    bulk update; without it, after."""
+    inp, got, _ = runs
+    _sigma_ok(inp["g160"], got[f"bd1_lookahead/{lookahead}"])
+    slog, _ = _logs(got, f"bd1_lookahead/{lookahead}")
+    for k in range(160 // 32 - 2):
+        assert (slog.index(("lq_panel", k)) < slog.index(("qr_bulk", k))) == lookahead, slog
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (2, 4), (2, 3)])
+def test_bdfac_2d_sigma(runs, shape):
+    """2-D: sigma on square, non-square and non-divisor meshes."""
+    inp, got, _ = runs
+    _sigma_ok(inp["g192"], got[f"bd2_sigma/{shape[0]}x{shape[1]}"])
+
+
+def test_bdfac_2d_band_structure_and_blocks(runs):
+    _, got, _ = runs
+    _band_ok(got["bd2_blocks"], 32)
+    _blocks_match_dense(got, "bd2_blocks", 32)
+
+
+def test_bdfac_2d_collective_volume(runs):
+    """Every collective is (t, t) or O(t n / mesh dim); the W broadcast is
+    n_loc_r t and the trailing contraction shrinks with progress (the
+    conservative static slicing)."""
+    inp, got, _ = runs
+    n, t, r, c = 192, 32, 2, 4
+    nb = n // t
+    n_loc_r, n_loc_c = -(-nb // r) * t, -(-nb // c) * t
+    _, clog = _logs(got, "bd2_volume")
+    kinds = {}
+    for kind, k, vol in clog:
+        kinds.setdefault(kind, []).append((k, vol))
+        assert vol <= max(n_loc_r, n_loc_c) * t, (kind, k, vol)
+    assert len(kinds["qr_gram"]) == nb
+    assert len(kinds["qr_wbcast"]) == nb - 1 and len(kinds["lq_wrbcast"]) == nb - 2
+    assert all(v == n_loc_r * t for _, v in kinds["qr_wbcast"])
+    for k, v in kinds["qr_w1"]:
+        assert v == t * (n_loc_c - ((k + 1) // c) * t)
+    _sigma_ok(inp["g192"], got["bd2_volume"])
+
+
+def test_bdfac_2d_compensated_mode(runs):
+    """NpwConfig.compensated through the 2-D path: the updates on matmul3
+    (its plain version here)."""
+    inp, got, _ = runs
+    _sigma_ok(inp["g128"], got["bd2_compensated"])
+
+
+@pytest.mark.parametrize("lookahead", [False, True])
+def test_bdfac_2d_lookahead_sigma(runs, lookahead):
+    inp, got, _ = runs
+    _sigma_ok(inp["g192"], got[f"bd2_lookahead/{lookahead}"])
+
+
+def test_bdfac_2d_lookahead_schedule_order(runs):
+    """With lookahead the LQ panel (its Grams and the W_r broadcast) comes
+    before the deferred QR bulk update; without it, after. With it, the
+    logs are the reference's lists and B the JAX package's."""
+    inp, got, ref = runs
+    for look in (False, True):
+        slog, _ = _logs(got, f"bd2_order/{look}")
+        for k in range(128 // 32 - 2):
+            i_pan, i_bulk = slog.index(("lq_panel", k)), slog.index(("qr_bulk", k))
+            assert (i_pan < i_bulk) == look, (k, slog)
+        _sigma_ok(inp["g128"], got[f"bd2_order/{look}"])
+    assert list(got["bd2_order/True/slog"]) == ref["bd2_order/True/slog"]
+    assert list(got["bd2_order/True/clog"]) == ref["bd2_order/True/clog"]
+    assert _rel(got["bd2_order/True"], ref["bd2_order/True"]) <= 1e-4
+
+
+def test_singular_values_mesh_distributed(runs):
+    """mesh= routes stage 1 through bdfac_1d on a flat mesh and bdfac_2d on
+    a 2-D one: sigma within the reference's bars, the same on every rank,
+    and the JAX package's at n = 128; n not a multiple of tile and a
+    rectangular input raise ValueError."""
+    inp, got, ref = runs
+    s_ref = np.linalg.svd(inp["g192"].astype(np.float64), compute_uv=False)
+    for shape in ("1x4", "2x2"):
+        np.testing.assert_allclose(got[f"sv_mesh/{shape}"], s_ref, rtol=2e-3, atol=2e-3 * s_ref[0])
+        assert bool(got[f"sv_mesh/{shape}/same_on_ranks"])
+    assert _rel(got["sv_mesh_jax_shape"], ref["sv_mesh_jax_shape"]) <= 1e-4
+    assert str(got["sv_mesh/ragged_raised"]) == "ValueError"
+    assert str(got["sv_mesh/rect_raised"]) == "ValueError"
+
+
+def test_singular_values_one_rank_mesh(runs):
+    """A DeviceMesh of one rank runs the single-device path, as the
+    reference does for a one-device mesh: the same sigma, bit for bit."""
+    _, got, _ = runs
+    assert str(got["sv_one_rank/error"]) == "none", str(got["sv_one_rank/error"])
+    np.testing.assert_array_equal(got["sv_one_rank"], got["sv_one_rank/single"])
+
+
+def test_ooc_bdfac_mesh_composition(runs):
+    """The out-of-core BDFAC on the mesh of all 8 ranks (QR side
+    row-sharded, LQ side column-sharded): sigma within the reference's bar,
+    B the same on every rank and the JAX package's."""
+    inp, got, ref = runs
+    a, b = inp["ooc_bdfac"], got["ooc_bdfac_mesh"]
+    s = np.linalg.svd(b.astype(np.float64), compute_uv=False)
+    s_ref = np.linalg.svd(a.astype(np.float64), compute_uv=False)
+    np.testing.assert_allclose(s, s_ref, rtol=2e-3, atol=1e-4 * s_ref[0])
+    assert bool(got["ooc_bdfac_mesh/same_on_ranks"])
+    assert _rel(b, ref["ooc_bdfac_mesh"]) <= 1e-4
+
+
+def test_dryrun_multichip_2x4(runs):
+    """The port's dry run passes its ten stages on the 2 x 4 mesh (each
+    stage asserts its own bar on every rank; rank 0 ran them all)."""
+    _, got, _ = runs
+    stages = [str(k) for k in got["dryrun/stages"]]
+    assert sorted({k.split("_")[0] for k in stages}, key=int) == [str(i) for i in range(1, 11)]
+    assert len(stages) == 13 and np.isfinite(got["dryrun/values"]).all()

@@ -323,17 +323,22 @@ class _MeshStub:
     (lambda x: pm.svd(x, method="qdwh", device="cpu"), "#5c"),
     (lambda x: pm.singular_values(x, finish="qdwh", device="cpu"), "#5c"),
     (lambda x: pm.svd(x, method="bdfac", uv_finish="device", device="cpu"), "#5c"),
-    (lambda x: pm.singular_values(x, mesh=_MeshStub(), device="cpu"), "#6"),
+    (lambda x: pm.singular_values(x[:, :16], mesh=_MeshStub(), device="cpu"), "#6"),
 ])
 def test_entries_not_ported_yet_raise(rng, call, item):
     """The entries of ROADMAP Queue 1 #5c (the QDWH route) run and give the
     input's singular values (within 1e-4·σ_max of fp64, the device
-    finish's bar in tests/test_models.py); what is left unported raises and
-    names its ROADMAP item: a mesh of more than one device (#6)."""
+    finish's bar in tests/test_models.py). The mesh route (#6) refuses a
+    rectangular input on a mesh of two devices with the reference's
+    ValueError, before any collective (the distributed runs are in
+    tests/test_torch_fabric.py)."""
     x = rng.standard_normal((32, 32)).astype(np.float32)
     if item == "#6":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
+        with pytest.raises(ValueError) as ref_err:
+            jm.singular_values(x[:, :16], mesh=_MeshStub())
+        with pytest.raises(ValueError, match="supports square inputs only") as port_err:
             call(x)
+        assert str(port_err.value) == str(ref_err.value)
         return
     out = call(x)
     s = out[1] if isinstance(out, tuple) else out

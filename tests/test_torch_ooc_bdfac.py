@@ -179,8 +179,9 @@ def test_opt_ins_match_jax(jax_ooc, monkeypatch, flag, wrapper):
 
 def test_argument_errors():
     """The reference's ShapeErrors (a rectangular matrix, a grid that is not
-    a multiple of panel_tiles), an unknown shape_mode, and mesh= naming its
-    ROADMAP item."""
+    a multiple of panel_tiles), an unknown shape_mode, and a mesh= that is
+    not a DeviceMesh (TypeError, as out_of_core_cholesky's; the mesh runs
+    are in tests/test_torch_fabric.py)."""
     rect = shard_matrix(np.zeros((64, 32), np.float32), tile=(16, 16), storage="host",
                         device="cpu")
     with pytest.raises(ShapeError, match="square"):
@@ -190,7 +191,7 @@ def test_argument_errors():
         spill.out_of_core_bdfac(sq, panel_tiles=2)
     with pytest.raises(ValueError, match="unknown shape_mode"):
         spill.out_of_core_bdfac(sq, panel_tiles=1, shape_mode="pad")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #6c"):
+    with pytest.raises(TypeError, match="mesh must be a DeviceMesh"):
         spill.out_of_core_bdfac(sq, panel_tiles=1, mesh=object())
 
 

@@ -368,14 +368,10 @@ def test_parallel_exports_the_reference_names():
     ("bdfac_1d", "#6c"), ("bdfac_2d", "#6c"),
 ])
 def test_unported_fabric_names_raise(name, item, request):
-    """The fabric names of ROADMAP Queue 1 #6b, ported, raise the
+    """The fabric names of ROADMAP Queue 1 #6b and #6c, ported, raise the
     reference's ShapeError for an argument it refuses (a matrix that is not
-    square, n not a multiple of panel, rows that do not divide over the 8
-    ranks, b_fac 1), run on the 2 x 4 mesh of the module's ranks; the names
-    a later slice ports (#6c) raise NotImplementedError naming their item."""
-    if item == "#6b":
-        _, got, _ = request.getfixturevalue("runs")
-        assert str(got[f"bad_args/{name}"]) == "ShapeError"
-        return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        getattr(parallel, name)(np.ones((64, 64), np.float32))
+    square, n not a multiple of panel or tile, rows that do not divide over
+    the 8 ranks, b_fac 1), run on the 2 x 4 mesh of the module's ranks,
+    before any collective."""
+    _, got, _ = request.getfixturevalue("runs")
+    assert str(got[f"bad_args/{name}"]) == "ShapeError"

@@ -55,18 +55,30 @@ def _rank(mode: str, workdir: str, env: dict, rank: int) -> None:
 
 def start(mode: str, ranks: int, workdir: str, env=None):
     """Start `ranks` processes of `mode` as one gloo group on a free
-    localhost port; `finish` waits for them."""
+    localhost port; `finish` waits for them. The forkserver starts with
+    OMP_NUM_THREADS=1, which its OpenMP runtime reads once, when torch
+    loads: torch.set_num_threads(1) in a rank does not reach every
+    OpenMP region (the ranks' small LAPACK calls then spin 8 threads a
+    rank, the BDFAC cases 30x slower)."""
     ctx = multiprocessing.get_context("forkserver")
     ctx.set_forkserver_preload(PRELOAD)
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    procs = []
-    for rank in range(ranks):
-        e = dict(env or {}, NPW_COORDINATOR=f"127.0.0.1:{port}", NPW_NUM_PROCESSES=str(ranks),
-                 NPW_PROCESS_ID=str(rank))
-        procs.append(ctx.Process(target=_rank, args=(mode, workdir, e, rank)))
-        procs[-1].start()
+    saved = os.environ.get("OMP_NUM_THREADS")
+    os.environ["OMP_NUM_THREADS"] = "1"
+    try:
+        procs = []
+        for rank in range(ranks):
+            e = dict(env or {}, NPW_COORDINATOR=f"127.0.0.1:{port}",
+                     NPW_NUM_PROCESSES=str(ranks), NPW_PROCESS_ID=str(rank))
+            procs.append(ctx.Process(target=_rank, args=(mode, workdir, e, rank)))
+            procs[-1].start()
+    finally:
+        if saved is None:
+            del os.environ["OMP_NUM_THREADS"]
+        else:
+            os.environ["OMP_NUM_THREADS"] = saved
     return workdir, procs
 
 
@@ -126,9 +138,9 @@ def run_parallel(workdir: str) -> None:
     from numpywren_tpu_torch.exceptions import ShapeError
     from numpywren_tpu_torch.parallel import (distributed, make_mesh, sharded_cholesky,
                                               sharded_gemm, sharded_tsqr, tile_sharding)
-    from numpywren_tpu_torch.parallel.fabric import (cholesky_1d, cholesky_2d, cholqr2_sharded,
-                                                     cholqr3s_sharded, summa_gemm, summa_syrk,
-                                                     tsqr_butterfly)
+    from numpywren_tpu_torch.parallel.fabric import (bdfac_1d, bdfac_2d, cholesky_1d, cholesky_2d,
+                                                     cholqr2_sharded, cholqr3s_sharded,
+                                                     summa_gemm, summa_syrk, tsqr_butterfly)
 
     assert distributed.initialize(), "expected a multi-process run"
     rank = distributed.process_index()
@@ -169,9 +181,11 @@ def run_parallel(workdir: str) -> None:
             out[f"{mode}/summa_nonsquare_raised"] = np.array(False)
         except ShapeError:
             out[f"{mode}/summa_nonsquare_raised"] = np.array(True)
-    # each fabric name of ROADMAP Queue 1 #6b, with an argument the
+    # each fabric name of ROADMAP Queue 1 #6b-#6c, with an argument the
     # reference refuses: the exception's name
     for name, call in (
+        ("bdfac_1d", lambda: bdfac_1d(np.ones((64, 32), np.float32), mesh=mesh)),
+        ("bdfac_2d", lambda: bdfac_2d(inp["spd"], mesh=mesh, tile=96)),
         ("cholesky_1d", lambda: cholesky_1d(np.ones((64, 32), np.float32), mesh=mesh)),
         ("cholesky_2d", lambda: cholesky_2d(inp["spd"], mesh=mesh, panel=96)),
         ("cholqr2_sharded", lambda: cholqr2_sharded(np.ones((100, 8), np.float32), mesh=mesh)),
@@ -317,15 +331,18 @@ def run_distributed(workdir: str) -> None:
 
 # the fabric cases' meshes, made on every rank in this order: (1, p) for the
 # one-axis cases, then the 2-D shapes, each on ranks 0 .. r*c - 1
-FABRIC_MESHES = [(1, 2), (1, 4), (1, 5), (1, 6), (1, 7), (1, 8), (2, 2), (2, 4), (4, 2)]
+FABRIC_MESHES = [(1, 1), (1, 2), (1, 3), (1, 4), (1, 5), (1, 6), (1, 7), (1, 8), (2, 2), (2, 3),
+                 (2, 4), (4, 2)]
 
 
 def run_fabric(workdir: str) -> None:
-    """tests/test_fabric.py's block-cyclic Cholesky, sharded CholeskyQR and
-    butterfly TSQR cases, and tests/test_spill.py's out-of-core Cholesky on
-    a mesh, on the meshes of FABRIC_MESHES (each made collectively, every
-    case run by the ranks of its mesh) with inputs from <dir>/inputs.npz.
-    Rank 0 writes the results (whole factors, R, Q, logs) to out.npz."""
+    """tests/test_fabric.py's block-cyclic Cholesky, sharded CholeskyQR,
+    butterfly TSQR and distributed BDFAC cases, tests/test_spill.py's
+    out-of-core Cholesky and BDFAC on a mesh, singular_values(mesh=) and
+    the dry run, on the meshes of FABRIC_MESHES (each made collectively,
+    every case run by the ranks of its mesh) with inputs from
+    <dir>/inputs.npz. Rank 0 writes the results (whole factors, R, Q, B,
+    sigma, logs) to out.npz."""
     import numpy as np
     import torch
 
@@ -464,6 +481,8 @@ def run_fabric(workdir: str) -> None:
     out["ooc_resume"] = l2.numpy()
     out["ooc_resume/panels_run"] = np.array(l2.spill_stats["panels"])
 
+    _bdfac_cases(np, inp, out, meshes, rank)
+
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m.split(".")[0] == "numpywren_tpu"]
     assert not bad, f"rank {rank} imported {bad[:5]}"
@@ -471,6 +490,122 @@ def run_fabric(workdir: str) -> None:
     if rank == 0:
         np.savez(os.path.join(workdir, "out.npz"), **out)
     distributed.sync()
+
+
+def _same_on_ranks(np, x, mesh) -> bool:
+    """Whether every rank of `mesh` holds the same bits of the array `x`
+    (each rank's copy summed into its own slot). Collective over it."""
+    import torch
+
+    from numpywren_tpu_torch.parallel.mesh import flat_index, sum_over_mesh
+
+    slots = torch.zeros((mesh.size(),) + np.shape(x), dtype=torch.float64)
+    slots[flat_index(mesh)] = torch.as_tensor(np.ascontiguousarray(x, np.float64))
+    sum_over_mesh(slots, mesh)
+    return bool((slots == slots[0]).all())
+
+
+def _bdfac_cases(np, inp, out, meshes, rank) -> None:
+    """tests/test_fabric.py's distributed BDFAC cases, tests/test_models.py's
+    singular_values(mesh=), tests/test_spill.py's out-of-core BDFAC on the
+    mesh of every rank, singular_values on a mesh of rank 0 alone, and the
+    dry run on the 2 x 4 mesh."""
+    import torch
+
+    from numpywren_tpu_torch import config
+    from numpywren_tpu_torch.compiler.lower import fused_bdfac
+    from numpywren_tpu_torch.matrix_init import shard_matrix
+    from numpywren_tpu_torch.models import singular_values
+    from numpywren_tpu_torch.parallel.dryrun import dryrun_multichip
+    from numpywren_tpu_torch.parallel.fabric import bdfac_1d, bdfac_2d
+    from numpywren_tpu_torch.runtime.spill import out_of_core_bdfac
+
+    def on(shape):
+        return rank < shape[0] * shape[1]
+
+    def dense(fn, key, g, shape, tile=32, **kw):
+        if on(shape):
+            out[key] = fn(inp[g], mesh=meshes[shape], tile=tile, **kw).numpy()
+
+    def logged(fn, key, g, shape, **kw):
+        if on(shape):
+            clog, slog = [], []
+            dense(fn, key, g, shape, collective_log=clog, schedule_log=slog, **kw)
+            out[f"{key}/clog"] = np.array([repr(e) for e in clog])
+            out[f"{key}/slog"] = np.array([repr(e) for e in slog])
+
+    def band(fn, key, g, shape):
+        if on(shape):
+            diags, sups = fn(inp[g], mesh=meshes[shape], tile=32, return_band=True)
+            out[f"{key}/diags"], out[f"{key}/sups"] = np.stack(diags), np.stack(sups[:-1])
+            out[f"{key}/last_sup_none"] = np.array(sups[-1] is None)
+            out[f"{key}/same_on_ranks"] = np.array(
+                _same_on_ranks(np, np.concatenate([np.stack(diags).ravel(),
+                                                   np.stack(sups[:-1]).ravel()]), meshes[shape]))
+
+    for p, tile in ((4, 32), (3, 32), (8, 16)):
+        dense(bdfac_1d, f"bd1_sigma/{p}_{tile}", "g192", (1, p), tile=tile)
+    dense(bdfac_1d, "bd1_band", "g192", (1, 4))
+    if rank == 0:
+        out["bd1_band/fused"] = fused_bdfac(torch.from_numpy(inp["g192"]), 32).numpy()
+    logged(bdfac_1d, "bd1_volume", "g128", (1, 4))
+    dense(bdfac_1d, "bd1_return_band", "g128", (1, 4))
+    band(bdfac_1d, "bd1_return_band", "g128", (1, 4))
+    for la in (False, True):
+        logged(bdfac_1d, f"bd1_lookahead/{la}", "g160", (1, 4), lookahead=la)
+    for shape in ((2, 2), (2, 4), (2, 3)):
+        dense(bdfac_2d, f"bd2_sigma/{shape[0]}x{shape[1]}", "g192", shape)
+    dense(bdfac_2d, "bd2_blocks", "g192", (2, 2))
+    band(bdfac_2d, "bd2_blocks", "g192", (2, 2))
+    logged(bdfac_2d, "bd2_volume", "g192", (2, 4))
+    for la in (False, True):
+        dense(bdfac_2d, f"bd2_lookahead/{la}", "g192", (2, 2), lookahead=la)
+        logged(bdfac_2d, f"bd2_order/{la}", "g128", (2, 2), lookahead=la)
+    if on((2, 2)):
+        os.environ["NPW_COMPENSATED"] = "1"
+        config._default = None
+        try:
+            assert config.default_config().compensated
+            dense(bdfac_2d, "bd2_compensated", "g128", (2, 2))
+        finally:
+            os.environ["NPW_COMPENSATED"] = "0"
+            config._default = None
+
+    # singular_values(mesh=): 2-D and flat meshes, every rank the same sigma
+    for shape in ((1, 4), (2, 2)):
+        if on(shape):
+            key = f"sv_mesh/{shape[0]}x{shape[1]}"
+            out[key] = singular_values(inp["g192"], tile=32, mesh=meshes[shape])
+            out[f"{key}/same_on_ranks"] = np.array(_same_on_ranks(np, out[key], meshes[shape]))
+    if on((2, 2)):
+        out["sv_mesh_jax_shape"] = singular_values(inp["g128"], tile=32, mesh=meshes[(2, 2)])
+        for name, x in (("ragged", inp["g192"][:190, :190]), ("rect", inp["g192"][:, :96])):
+            try:
+                singular_values(x, tile=32, mesh=meshes[(2, 2)])
+                out[f"sv_mesh/{name}_raised"] = np.array("none")
+            except Exception as e:  # the test names the one expected
+                out[f"sv_mesh/{name}_raised"] = np.array(type(e).__name__)
+    # a mesh of rank 0 alone: the single-device path
+    if rank == 0:
+        try:
+            out["sv_one_rank"] = singular_values(inp["g128"], tile=32, mesh=meshes[(1, 1)],
+                                                 device="cpu")
+            out["sv_one_rank/error"] = np.array("none")
+        except Exception as e:
+            out["sv_one_rank/error"] = np.array(f"{type(e).__name__}: {e}")
+        out["sv_one_rank/single"] = singular_values(inp["g128"], tile=32, device="cpu")
+
+    # the out-of-core BDFAC on the mesh of every rank
+    mesh8 = meshes[(2, 4)]
+    at = shard_matrix(inp["ooc_bdfac"], tile=(16, 16), storage="host", device="cpu")
+    b = out_of_core_bdfac(at, panel_tiles=4, mesh=mesh8).numpy()
+    out["ooc_bdfac_mesh"] = b
+    out["ooc_bdfac_mesh/same_on_ranks"] = np.array(_same_on_ranks(np, b, mesh8))
+
+    # the dry run's ten stages on the 2 x 4 mesh
+    res = dryrun_multichip(mesh8)
+    out["dryrun/stages"] = np.array(sorted(res))
+    out["dryrun/values"] = np.array([res[k] for k in sorted(res)])
 
 
 def run(mode: str, workdir: str) -> None:
