@@ -11,8 +11,9 @@ BASELINE config 3's 1,048,576 x 512 and beside it (P8-P11), GEMM at 8192
 (P12), the QR kernel and ops.qr_leaf (P13-P14), the generic DSL
 executors on both storage tiers (P15-P16), the out-of-core Cholesky
 (P17), the models (P18), the fused BDFAC with the two-stage SVD on it
-(P19), the QDWH route with the out-of-core BDFAC (P20), and the
-multi-device layer (P21):
+(P19), the QDWH route with the out-of-core BDFAC (P20), the
+multi-device layer (P21), and the aux modules, metrics and the command
+line (P22):
 
   P0  the card, its power limit, the kernel build
   P1  each kernel vs its plain version: relative Frobenius error <= 1e-5
@@ -258,6 +259,19 @@ multi-device layer (P21):
       by the "highest" call.
       Part (b)'s times are four processes time-sharing one card: no
       scaling claim is made from them
+  P22 the aux modules (numpywren_tpu_torch.metrics, .cli, .__main__):
+      `python -m numpywren_tpu_torch info` (the card's name and count,
+      its total memory, default_mesh = _factor_2d(count)); cli.main
+      (["doctor"]) in process (four "ok" lines; its kernel check one
+      matmul call, three device launches) and `python -m ... doctor`;
+      metrics.trace around one compensated cholesky_trapezoid at --n in a
+      new process (one trace file naming the split mainloop and
+      cholesky_ex's kernels; matmul3's calls as panel_route_counts);
+      FlopMeter against cuda_ms of 20 matmul3 calls at 8192³, in turns
+      (within 10%), then around the same Cholesky beside P2's TFLOP/s;
+      level_report and log_program of a fault-free "local" Cholesky at
+      --n-local, tile 256 (a record and an npw-step line a level, the ops
+      summing to the nodes, the flops to node_flops, wall_s on each)
 
 Residuals ||A - L Lᵀ||_F / ||A||_F are computed on the card in fp64 and
 must be <= 1e-4. TSQR phases hold ||QᵀQ - I||_F/sqrt(b) <= 1e-4,
@@ -4115,6 +4129,260 @@ def p21_multi(torch, sizes: dict, small: dict, seed: int, device: str = "cuda") 
     return counts
 
 
+# ---------------------------------------------------------------------------
+# P22: the aux modules (numpywren_tpu_torch.metrics, .cli, .__main__)
+# ---------------------------------------------------------------------------
+
+METER_BAR = 0.10       # FlopMeter's wall_s against cuda_ms of the same body, relative
+METER_CALLS = 20       # the metered body: matmul3 calls at P22_METER_N³
+P22_METER_N = 8192
+DOCTOR_CHECKS = 4
+
+
+def cli_run(args: list, timeout: int = 300):
+    """`python -m numpywren_tpu_torch <args>` from the checkout's root, as
+    a user runs it."""
+    return subprocess.run([sys.executable, "-m", "numpywren_tpu_torch", *args],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=timeout)
+
+
+def ok_lines(out: str) -> int:
+    return sum(ln.startswith("ok   ") for ln in out.splitlines())
+
+
+def p2_operand(torch, npw, n: int, seed: int):
+    """P2's A = X Xᵀ/n + 2I, symmetric, flat on the card."""
+    return symmetric_from_lower(npw.TrapezoidMatrix(spd_columns(torch, n, PANEL, seed), n,
+                                                    PANEL).to_array())
+
+
+def require_panel_route(gemm3, phase: str, n: int) -> tuple:
+    """matmul3's (calls, device launches) since the counts were zeroed,
+    required equal to those one compensated Cholesky of n implies."""
+    got, want = (gemm3.LAUNCHES, gemm3.DEVICE_LAUNCHES), panel_route_counts(n, PANEL,
+                                                                             min(128, PANEL))
+    require(got == want, f"{phase}: matmul3 (calls, device launches) {got}, the panel route "
+                         f"implies {want}")
+    return got
+
+
+def p22_trace(torch, n: int, seed: int) -> dict:
+    """One warm compensated cholesky_trapezoid of P2's operand under
+    metrics.trace, in the process that calls it (P22 runs it
+    in_new_process: a process's later profiler sessions can lose device
+    records). Requires one trace file naming the split GEMM's mainloop and
+    cholesky_ex's kernels, matmul3's calls and device launches as
+    panel_route_counts gives them, and the factor's residual."""
+    import glob
+    import tempfile
+
+    import numpywren_tpu_torch as npw
+    from numpywren_tpu_torch import metrics
+    from numpywren_tpu_torch.ops import gemm3
+
+    npw.default_config().compensated = True
+    w = torch.randn(2048, 2048, generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda")
+    w = w @ w.T / 2048 + 2 * torch.eye(2048, device="cuda")
+    npw.cholesky_trapezoid(npw.TrapezoidMatrix.from_array(w, panel=PANEL))  # warm-up
+    a = p2_operand(torch, npw, n, seed)
+    t = npw.TrapezoidMatrix.from_array(a, panel=PANEL)
+    torch.cuda.synchronize()
+    gemm3.LAUNCHES = gemm3.DEVICE_LAUNCHES = 0
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        with metrics.trace(d):
+            l = npw.cholesky_trapezoid(t)
+        seconds = time.perf_counter() - t0
+        files = glob.glob(os.path.join(d, "*.pt.trace.json"))
+        require(len(files) == 1, f"P22 trace: {len(files)} trace files written")
+        file_bytes = os.path.getsize(files[0])
+        with open(files[0]) as f:
+            kernels = [e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    counts = require_panel_route(gemm3, "P22 trace", n)
+    split = [k for k in kernels if "gemm_split_" in k]
+    mainloop = [k for k in split if "gemm_split_pack" not in k]
+    chol = [k for k in kernels if "getrf" in k or "potrf" in k]  # as cholesky_profile groups
+    require(bool(mainloop), "P22 trace: no gemm_split_ mainloop kernel in the trace")
+    require(bool(chol), "P22 trace: no cholesky_ex kernel in the trace")
+    resid = residual(torch, a, l.to_array())
+    require(resid <= RESID_BAR, f"P22 trace: residual {resid} > {RESID_BAR}")
+    return {"n": n, "seconds": seconds, "trace_bytes": file_bytes, "kernels": len(kernels),
+            "gemm_split_kernels": len(split), "mainloop_kernels": len(mainloop),
+            "cholesky_ex_kernels": len(chol), "mainloop_name": mainloop[0][:120],
+            "cholesky_ex_names": sorted({k[:80] for k in chol})[:4],
+            "matmul3_calls": counts[0], "matmul3_device_launches": counts[1],
+            "residual": resid}
+
+
+def p22_aux(torch, npw, gen, n: int, n_local: int, seed: int, p2_tflops: float) -> dict:
+    """P22: the aux modules as a user reaches them. `info` and `doctor`
+    through `python -m numpywren_tpu_torch`, `doctor` in process with its
+    kernel launch counted; `metrics.trace` around P2's Cholesky (a new
+    process); `FlopMeter` against cuda_ms of the same body, in turns, then
+    around P2's Cholesky; `level_report` and `log_program` of a "local"
+    Cholesky at P16's size. Returns the kernels' launches of the path."""
+    import contextlib
+    import io
+    import logging
+
+    from numpywren_tpu_torch import cli, metrics
+    from numpywren_tpu_torch.matrix_init import shard_matrix
+    from numpywren_tpu_torch.ops import gemm3
+    from numpywren_tpu_torch.parallel.mesh import _factor_2d
+
+    gemm = gemm_module()
+    cfg = npw.default_config()
+    cfg.compensated = False  # the user's default
+    t_phase = time.perf_counter()
+    launches = {"matmul": 0, "matmul3": 0}
+
+    # info, as a user runs it
+    t0 = time.perf_counter()
+    proc = cli_run(["info"])
+    require(proc.returncode == 0, f"P22 info: rc {proc.returncode}: {proc.stderr[-2000:]}")
+    try:
+        info = json.loads(proc.stdout)
+    except json.JSONDecodeError as e:
+        raise SmokeFailure(f"P22 info: not JSON ({e}): {proc.stdout[-2000:]}") from e
+    count = torch.cuda.device_count()
+    require(info["backend"] == "gpu" and len(info["devices"]) == count,
+            f"P22 info: backend {info['backend']}, {len(info['devices'])} devices of {count}")
+    require(all(d["kind"] == torch.cuda.get_device_name(d["id"]) for d in info["devices"]),
+            f"P22 info: devices {info['devices']}")
+    total = torch.cuda.get_device_properties(0).total_memory
+    require(info["hbm_bytes_limit"] == total,
+            f"P22 info: hbm_bytes_limit {info['hbm_bytes_limit']}, the card has {total}")
+    require(tuple(info["default_mesh"]) == _factor_2d(count),
+            f"P22 info: default_mesh {info['default_mesh']}")
+    emit({"phase": "P22", "check": "info", "seconds": time.perf_counter() - t0, **info})
+
+    # doctor, in process: its kernel check is one matmul call, three device launches
+    t0 = time.perf_counter()
+    calls, device = gemm.LAUNCHES, gemm.DEVICE_LAUNCHES
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["doctor"])
+    calls, device = gemm.LAUNCHES - calls, gemm.DEVICE_LAUNCHES - device
+    lines = out.getvalue().splitlines()
+    require(rc == 0 and ok_lines(out.getvalue()) == DOCTOR_CHECKS,
+            f"P22 doctor: rc {rc}: {lines}")
+    require((calls, device) == (1, 3),
+            f"P22 doctor: matmul (calls, device launches) {(calls, device)}, expected (1, 3)")
+    launches["matmul"] += calls
+    in_process_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proc = cli_run(["doctor"])
+    require(proc.returncode == 0 and ok_lines(proc.stdout) == DOCTOR_CHECKS,
+            f"P22 python -m doctor: rc {proc.returncode}: {proc.stdout[-2000:]} "
+            f"{proc.stderr[-2000:]}")
+    emit({"phase": "P22", "check": "doctor", "lines": lines, "matmul_calls": calls,
+          "matmul_device_launches": device, "seconds": in_process_s,
+          "python_m_seconds": time.perf_counter() - t0})
+
+    # metrics.trace around P2's Cholesky, in a new process
+    t0 = time.perf_counter()
+    tr = in_new_process("P22", "p22_trace", n, seed)
+    launches["matmul3"] += tr["matmul3_calls"]
+    emit({"phase": "P22", "check": "trace", **tr, "process_seconds": time.perf_counter() - t0})
+
+    # FlopMeter against cuda_ms: a body whose device work far outlasts its enqueue
+    m_ = P22_METER_N
+    a, b, c, o = (torch.randn(m_, m_, generator=gen, device="cuda") for _ in range(4))
+
+    def body():
+        for _ in range(METER_CALLS):
+            gemm3.matmul3(a, b, c, tb=True, out=o)
+
+    def metered():
+        with metrics.FlopMeter(flops=METER_CALLS * 2 * m_ ** 3, label="matmul3") as m:
+            body()
+        return m.wall_s * 1e3
+
+    body()
+    torch.cuda.synchronize()
+    meter_ms = [metered()]
+    events_ms = [cuda_ms(torch, body, 1), cuda_ms(torch, body, 1)]
+    meter_ms.append(metered())
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    body()
+    enqueue_ms = (time.perf_counter() - h0) * 1e3
+    torch.cuda.synchronize()
+    mean_meter, mean_events = sum(meter_ms) / 2, sum(events_ms) / 2
+    ratio = mean_meter / mean_events
+    emit({"phase": "P22", "check": "flop_meter", "body": f"{METER_CALLS} matmul3 at {m_}^3",
+          "meter_ms": meter_ms, "cuda_ms": events_ms, "enqueue_ms": enqueue_ms,
+          "ratio": ratio})
+    require(abs(ratio - 1) <= METER_BAR,
+            f"P22 FlopMeter: {mean_meter} ms against cuda_ms {mean_events} ms")
+    del a, b, c, o
+
+    # FlopMeter around P2's Cholesky, compensated
+    cfg.compensated = True
+    a = p2_operand(torch, npw, n, seed)
+    t = npw.TrapezoidMatrix.from_array(a, panel=PANEL)
+    torch.cuda.synchronize()
+    gemm3.LAUNCHES = gemm3.DEVICE_LAUNCHES = 0
+    with metrics.FlopMeter(flops=n ** 3 / 3, label="cholesky_trapezoid") as m:
+        l = npw.cholesky_trapezoid(t)
+    counts = require_panel_route(gemm3, "P22 meter", n)
+    launches["matmul3"] += counts[0]
+    resid = residual(torch, a, l.to_array())
+    emit({"phase": "P22", "check": "flop_meter_cholesky", "n": n, "config": "compensated",
+          "wall_s": m.wall_s, "tflops": m.tflops, "p2_tflops": p2_tflops, "residual": resid,
+          "matmul3_calls": counts[0], "matmul3_device_launches": counts[1]})
+    require(resid <= RESID_BAR, f"P22 meter: residual {resid} > {RESID_BAR}")
+    cfg.compensated = False
+    del a, t, l
+    torch.cuda.empty_cache()
+
+    # level_report and log_program of a "local" Cholesky at P16's size, fault-free
+    a = spd_flat(torch, gen, n_local)
+    prog, lo, _ = npw.cholesky(shard_matrix(a, tile=(256, 256), storage="host"), storage="host")
+    status = npw.run_program(prog, executor="local")
+    require(status.name == "SUCCESS", f"P22 level_report: status {status.name}")
+    resid = residual(torch, a, lo.to_hbm().array[:n_local, :n_local])
+    require(resid <= RESID_BAR, f"P22 level_report: residual {resid}")
+    recs = metrics.level_report(prog)
+    node_flops = sum(prog.node_flops(i) for i in range(prog.num_nodes))
+    require(len(recs) == len(prog.levels), f"P22 level_report: {len(recs)} records, "
+                                           f"{len(prog.levels)} levels")
+    require(sum(sum(r["ops"].values()) for r in recs) == prog.num_nodes,
+            "P22 level_report: the ops do not sum to num_nodes")
+    require(sum(r["flops"] for r in recs) == node_flops,
+            "P22 level_report: the flops do not sum to node_flops")
+    require(all("wall_s" in r for r in recs), "P22 level_report: a level without wall_s")
+
+    class Collect(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.INFO)
+            self.messages = []
+
+        def emit(self, record):
+            self.messages.append(record.getMessage())
+
+    lg, handler = logging.getLogger("numpywren_tpu_torch"), Collect()
+    level = lg.level
+    lg.addHandler(handler)
+    lg.setLevel(logging.INFO)
+    try:
+        metrics.log_program(prog)
+    finally:
+        lg.removeHandler(handler)
+        lg.setLevel(level)
+    steps = [msg for msg in handler.messages if msg.startswith("npw-step ")]
+    require(len(steps) == len(prog.levels),
+            f"P22 log_program: {len(steps)} npw-step lines for {len(prog.levels)} levels")
+    emit({"phase": "P22", "check": "level_report", "n": n_local, "tile": 256,
+          "executor": "local", "levels": len(recs), "nodes": prog.num_nodes,
+          "flops": node_flops, "residual": resid, "npw_step_lines": len(steps),
+          "first": recs[0], "last": recs[-1]})
+    emit({"phase": "P22", "seconds": time.perf_counter() - t_phase, "launches": launches})
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=32768, help="trapezoid phases' size")
@@ -4213,11 +4481,12 @@ def main(argv=None) -> int:
     p21b = p21_multi(torch, {"n_chol": P21B_N_CHOL, "n_gemm": args.n_gemm, "m": args.m, "b": 512,
                              "n_bdfac": args.n_bdfac, "n_sv": P21_SV_N},
                      P21_SMALL, args.seed)
+    p22 = p22_aux(torch, npw, gen, args.n, args.n_local, args.seed, p2_row["tflops"])
     for name in ("matmul", "matmul3"):
         launches[name] += spill_launches[name]
     launches["matmul"] += ops_counts["matmul"]
     launches.update(potrf=ops_counts["potrf"], trtri=ops_counts["trtri"], **tsqr_counts)
-    for counts in (model_launches, bdfac_launches, qdwh_launches, p21a, p21b):
+    for counts in (model_launches, bdfac_launches, qdwh_launches, p21a, p21b, p22):
         for name, n in counts.items():
             launches[name] += n
 

@@ -12,18 +12,20 @@ Entry points run on the current CUDA device; a host without one raises
 unless the caller passes ``device="cpu"`` (or CPU tensors), which runs the
 kernels' plain PyTorch versions.
 
-Ported so far: ``cholesky`` / ``cholesky_trapezoid`` / ``cholesky_solve``,
-``gemm``, ``tsqr`` and ``bdfac`` through ``run_program`` with the fused
-lowering and the generic executors ("jax", "local", "spill"), on the
-device tier and the host tier; the out-of-core Cholesky and BDFAC
-(``runtime.spill``); the models (``models``: least squares, PCA, the SVD
-family on TSQR, Jacobi, BDFAC and QDWH); the DSL ops
-(``ops.TORCH_KERNELS``), ``binops`` and ``checkpoint``; down to the GEMM
-kernels (``ops.gemm``, ``ops.gemm3``) and the factorization kernels
-(``ops.pallas_factor``); the multi-device layer's first part
-(``parallel``: the mesh, the process group, the sharded store,
-``sharded_cholesky`` / ``sharded_gemm`` / ``sharded_tsqr`` and SUMMA on
-torch.distributed). See ROADMAP.md for the rest.
+The port covers everything the JAX package does: ``cholesky`` /
+``cholesky_trapezoid`` / ``cholesky_solve``, ``gemm``, ``tsqr`` and
+``bdfac`` through ``run_program`` with the fused lowering and the generic
+executors ("jax", "local", "spill"), on the device tier and the host
+tier; the out-of-core Cholesky and BDFAC (``runtime.spill``); the models
+(``models``: least squares, PCA, the SVD family on TSQR, Jacobi, BDFAC and
+QDWH); the DSL ops (``ops.TORCH_KERNELS``), ``binops`` and
+``checkpoint``; down to the GEMM kernels (``ops.gemm``, ``ops.gemm3``) and
+the factorization kernels (``ops.pallas_factor``); the multi-device layer
+(``parallel``, whole: the mesh, the process group, the sharded store, the
+sharded and block-cyclic Cholesky, GEMM, TSQR, CholeskyQR and BDFAC,
+SUMMA, the dry run, on torch.distributed); and the aux modules
+(``metrics``: per-level step records, a torch.profiler trace, a flop meter
+on CUDA events; ``cli`` and ``python -m numpywren_tpu_torch info|doctor``).
 
 ``__all__`` holds the reference's names and, beside them, the entry points
 that the JAX package loads lazily without listing them: ``cholesky``,

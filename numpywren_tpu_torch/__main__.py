@@ -1,0 +1,4 @@
+from numpywren_tpu_torch.cli import main
+import sys
+
+sys.exit(main())

@@ -108,7 +108,7 @@ def test_convert_round_trip():
         convert.from_reference(object(), device="cpu")
 
 
-def test_unported_paths_raise(monkeypatch):
+def test_auto_executor_and_spill_match_jax(monkeypatch):
     """"auto" runs every program the JAX package lowers fused: bdfac's B
     matches the JAX package's (rel Frobenius <= 1e-4, the same sweeps in
     fp32). A host-tier cholesky too large for the device budget runs out of

@@ -325,7 +325,7 @@ class _MeshStub:
     (lambda x: pm.svd(x, method="bdfac", uv_finish="device", device="cpu"), "#5c"),
     (lambda x: pm.singular_values(x[:, :16], mesh=_MeshStub(), device="cpu"), "#6"),
 ])
-def test_entries_not_ported_yet_raise(rng, call, item):
+def test_qdwh_routes_and_mesh_refusal(rng, call, item):
     """The entries of ROADMAP Queue 1 #5c (the QDWH route) run and give the
     input's singular values (within 1e-4·σ_max of fp64, the device
     finish's bar in tests/test_models.py). The mesh route (#6) refuses a

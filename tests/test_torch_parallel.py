@@ -367,7 +367,7 @@ def test_parallel_exports_the_reference_names():
     ("cholqr3s_sharded", "#6b"), ("tsqr_butterfly", "#6b"),
     ("bdfac_1d", "#6c"), ("bdfac_2d", "#6c"),
 ])
-def test_unported_fabric_names_raise(name, item, request):
+def test_fabric_names_refuse_bad_args(name, item, request):
     """The fabric names of ROADMAP Queue 1 #6b and #6c, ported, raise the
     reference's ShapeError for an argument it refuses (a matrix that is not
     square, n not a multiple of panel or tile, rows that do not divide over
