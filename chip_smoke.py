@@ -12,8 +12,8 @@ BASELINE config 3's 1,048,576 x 512 and beside it (P8-P11), GEMM at 8192
 executors on both storage tiers (P15-P16), the out-of-core Cholesky
 (P17), the models (P18), the fused BDFAC with the two-stage SVD on it
 (P19), the QDWH route with the out-of-core BDFAC (P20), the
-multi-device layer (P21), and the aux modules, metrics and the command
-line (P22):
+multi-device layer (P21), the aux modules, metrics and the command
+line (P22), and the benchmark harness, bench_torch.py (P23):
 
   P0  the card, its power limit, the kernel build
   P1  each kernel vs its plain version: relative Frobenius error <= 1e-5
@@ -272,6 +272,24 @@ line (P22):
       level_report and log_program of a fault-free "local" Cholesky at
       --n-local, tile 256 (a record and an npw-step line a level, the ops
       summing to the nodes, the flops to node_flops, wall_s on each)
+  P23 the benchmark harness, bench_torch.py, as a user runs it: `python -m
+      numpywren_tpu_torch bench ...` in a new process a run, its last good
+      line in a temporary directory (the checkout is not written), every
+      JSON line parsed: (a) the flagship under NPW_COMPENSATED=1, the quick
+      N=32768 stage then N=65536 (the blockwise operand) in one run, the
+      32768 TFLOP/s within 5% of P2's; (b) N=32768 at the default "high"
+      and at "highest", within 5% of P4's and P3's (or, where the phase's
+      single reading came out low, of the best of three runs of that
+      phase's factorization in a new process); every Cholesky line's
+      full residual <= 1e-4 and 0 < frac_of_matmul_peak <= 1.05; (c) GEMM 8192
+      at the default and compensated, beside P12's; (d) TSQR cholqr3s
+      1,048,576 x 512, its Gram parity <= 1e-4 (the chain's convergence
+      target); (e) BDFAC 8192/512 beside P19's tile-512 seconds; (f)
+      --numerics, the full kappa ladder, every rung passing. Each line's
+      route and its kernels' launches (matmul3, matmul) as the route
+      implies; then matmul3's panel route at the 65536 stage's first
+      trailing updates (64,512 x 1024) against the per-call route, bit for
+      bit, and matmul3_ref
 
 Residuals ||A - L Lᵀ||_F / ||A||_F are computed on the card in fp64 and
 must be <= 1e-4. TSQR phases hold ||QᵀQ - I||_F/sqrt(b) <= 1e-4,
@@ -550,13 +568,13 @@ def split_profile(torch, gen, kern: str, m: int, k: int = 1024, n: int = 1024,
     return row
 
 
-def matmul3_panel_rows(torch, gen, r: int, w: int = 1024):
+def matmul3_panel_rows(torch, gen, r: int, w: int = 1024, phase: str = "P1"):
     """The Cholesky's panel route at the trailing update: one pack of an
     r x w panel b (gemm3.Panel), then c - b[off:] b[off:off + w]ᵀ for
     off = 0 (the trailing update's shape) and off = w, each against the
     per-call matmul3 on the same inputs, bit for bit (the same planes and
     mainloop). Times the pack, the update alone and the per-call route,
-    in turns (CUDA events)."""
+    in turns (CUDA events). Rows are emitted under `phase`."""
     from numpywren_tpu_torch.ops import gemm3
 
     def counts():
@@ -565,7 +583,7 @@ def matmul3_panel_rows(torch, gen, r: int, w: int = 1024):
     b = torch.randn(r, w, generator=gen, device="cuda")
     calls, device = counts()
     panel = gemm3.Panel(b)
-    require(counts() == (calls, device + 1), f"P1 matmul3 panel: the pack counted {counts()}")
+    require(counts() == (calls, device + 1), f"{phase} matmul3 panel: the pack counted {counts()}")
     pack_ms = in_turns(torch, lambda: gemm3.Panel(b))[0]
     rows = []
     for off in (0, w):
@@ -573,11 +591,11 @@ def matmul3_panel_rows(torch, gen, r: int, w: int = 1024):
         calls, device = counts()
         got = panel.sub_update(c, off, w)
         require(counts() == (calls + 1, device + 1),
-                f"P1 matmul3 panel: an update counted {counts()} after {(calls, device)}")
+                f"{phase} matmul3 panel: an update counted {counts()} after {(calls, device)}")
         per_call = gemm3.matmul3(b[off:], b[off:off + w], c, tb=True)
         torch.cuda.synchronize()
         require(torch.equal(got, per_call),
-                f"P1 matmul3 panel off={off}: differs from the per-call route")
+                f"{phase} matmul3 panel off={off}: differs from the per-call route")
         row = _check(f"matmul3:panel_off{off}", got, gemm3.matmul3_ref(b[off:], b[off:off + w],
                                                                        c, tb=True))
         ms, per_call_ms = in_turns(torch, lambda: panel.sub_update(c, off, w, out=c),
@@ -586,7 +604,7 @@ def matmul3_panel_rows(torch, gen, r: int, w: int = 1024):
         row.update(shape=[m, w, w], bitwise_equal_per_call=True, update_ms=ms,
                    per_call_ms=per_call_ms, pack_ms=pack_ms,
                    update_bf16_tflops=3 * 2 * m * w * w / ms / 1e9)
-        emit({"phase": "P1", **row})
+        emit({"phase": phase, **row})
         rows.append(row)
     return rows
 
@@ -1424,6 +1442,9 @@ def tsqr_phases(torch, npw, gen, m: int, m_small: int):
 # ---------------------------------------------------------------------------
 
 def p12_gemm(torch, npw, gen, n: int):
+    """GEMM through gemm + run_program at both configurations, warm, then
+    measured. Returns matmul3's launches and the measured TFLOP/s by
+    configuration."""
     from numpywren_tpu_torch.ops import gemm3
 
     gemm = gemm_module()
@@ -1432,7 +1453,7 @@ def p12_gemm(torch, npw, gen, n: int):
     a = torch.randn(n, n, generator=gen, device="cuda")
     b = torch.randn(n, n, generator=gen, device="cuda")
     exact = a.double() @ b.double()
-    matmul3_launches = 0
+    matmul3_launches, tflops = 0, {}
     for i, comp in enumerate((False, True, False, True)):  # warm, then measured
         cfg.compensated = comp
         gemm.LAUNCHES = gemm3.LAUNCHES = 0
@@ -1442,13 +1463,15 @@ def p12_gemm(torch, npw, gen, n: int):
         err = rel_err(torch, c.array[:n, :n], exact)
         require(err <= KERNEL_BAR, f"P12 compensated={comp}: rel error {err} > {KERNEL_BAR}")
         require((counts["matmul3"] > 0) == comp, f"P12 compensated={comp}: launches {counts}")
-        emit({"phase": "P12", "n": n, "tile": 512, "config": "compensated" if comp else "default",
-              "seconds": dev_s, "host_seconds": host_s, "tflops": 2 * n ** 3 / dev_s / 1e12,
-              "rel_err_vs_fp64": err, "launches": counts, "warmup": i < 2})
+        config = "compensated" if comp else "default"
+        tflops[config] = 2 * n ** 3 / dev_s / 1e12
+        emit({"phase": "P12", "n": n, "tile": 512, "config": config, "seconds": dev_s,
+              "host_seconds": host_s, "tflops": tflops[config], "rel_err_vs_fp64": err,
+              "launches": counts, "warmup": i < 2})
         matmul3_launches = counts["matmul3"]
         del prog, c
     cfg.compensated = False
-    return matmul3_launches
+    return matmul3_launches, tflops
 
 
 # ---------------------------------------------------------------------------
@@ -2736,7 +2759,8 @@ def p19_bdfac(torch, npw, n: int, n_kappa: int, n_sv: int, n_svd: int, seed: int
     docstring). Returns the launches of matmul, matmul3, potrf_inv and the
     chain on the path, the kernel checks, and the operands P20 takes: the
     n x n Gaussian X with its fp64 sigma and norm, the svd operand with its
-    sigma, and the host-finish svd's seconds."""
+    sigma, and the host-finish svd's seconds; with them the tile-512
+    sweeps' seconds by route, which P23 sets beside the bench's."""
     import numpy as np
 
     from numpywren_tpu_torch import models
@@ -2781,8 +2805,11 @@ def p19_bdfac(torch, npw, n: int, n_kappa: int, n_sv: int, n_svd: int, seed: int
     )
     need = {"compensated": "matmul3", "highest": "matmul", "chain": "cholqr2_chain",
             "potrf_inv": "potrf_inv"}
+    tile512_seconds = {}
     for label, tile, drive, flags, comp, env in runs:
         bd, row = model_call(torch, drive, flags, comp, env)
+        if tile == 512:
+            tile512_seconds[label] = row["seconds"]
         q = bdfac_quality(torch, x, bd, tile, sv_ref, x_f)
         emit_row({"run": "bdfac", "route": label, "n": n, "tile": tile, **q, **row,
                   "sv_ref_seconds": ref_s})
@@ -2944,7 +2971,7 @@ def p19_bdfac(torch, npw, n: int, n_kappa: int, n_sv: int, n_svd: int, seed: int
     for k, cnt in launches.items():
         require(cnt > 0, f"P19: {k} was not launched on the BDFAC path")
     operands = {"x": x, "sv_ref": sv_ref, "x_f": x_f, "xv": xv, "sv_svd": sv_svd,
-                "svd_seconds": svd_seconds["refine_0"]}
+                "svd_seconds": svd_seconds["refine_0"], "tile512_seconds": tile512_seconds}
     return launches, checks, operands
 
 
@@ -3677,7 +3704,10 @@ def p21_matmul3_bulk(torch, gen, n: int, panel: int, card: str) -> dict:
     return row
 
 P21_BDFAC_TILE = 512                 # the distributed BDFAC's tile on P19's X
-P21_SV_N, P21_SV_TILE = 2048, 256    # singular_values(mesh=)'s size and tile in (b)
+# singular_values(mesh=)'s size and tile in (b): 1024, not 2048, keeps the
+# script inside its time limit with P23 (its host Golub-Kahan eigensolve
+# took 23-40 s a call at 2048 on every rank at once, 12 s on one)
+P21_SV_N, P21_SV_TILE = 1024, 256
 FABRIC_BDFAC = ("bdfac_1d", "bdfac_2d", "out_of_core_bdfac")  # each launches matmul3
 # B of four ranks against one rank's, by b_agreement (|B|, and the last
 # block column's sigma). B itself is fixed only up to Yamamoto signs and
@@ -4383,6 +4413,149 @@ def p22_aux(torch, npw, gen, n: int, n_local: int, seed: int, p2_tflops: float) 
     return launches
 
 
+
+# ---------------------------------------------------------------------------
+# P23: the benchmark harness, bench_torch.py
+# ---------------------------------------------------------------------------
+
+P23_TIMEOUT = 900        # seconds for one bench process (the flagship's two stages the longest)
+P23_ROUTE_BAR = 0.05     # a bench Cholesky's TFLOP/s against the same route's phase, relative
+P23_PEAK_BAR = 1.05      # a bench Cholesky's frac_of_matmul_peak's upper bar
+TSQR_GRAM_BAR = 1e-4     # cholqr3s's Gram parity: its chain stops at conv_tol 1e-4
+P23_RUNS = (  # (label, arguments after `bench`, extra environment, route, the phase beside it)
+    ("flagship", ["--alg", "cholesky"], {"NPW_COMPENSATED": "1"}, "matmul3", "P2"),
+    ("cholesky_high", ["--alg", "cholesky", "--n", "32768"], {}, "torch_fp32", "P4"),
+    ("cholesky_highest", ["--alg", "cholesky", "--n", "32768", "--precision", "highest"], {},
+     "matmul", "P3"),
+    ("gemm", ["--alg", "gemm"], {}, "torch_fp32", "P12"),
+    ("gemm_compensated", ["--alg", "gemm"], {"NPW_COMPENSATED": "1"}, "matmul3",
+     "P12_compensated"),
+    ("tsqr_cholqr3s", ["--alg", "tsqr", "--tsqr-method", "cholqr3s"], {}, "torch_fp32", None),
+    ("bdfac", ["--alg", "bdfac"], {}, "torch_fp32", "P19"),
+    ("numerics", ["--numerics"], {}, None, None),
+)
+P23_FLAGSHIP = [f"cholesky_n{n}_float32_compensated_tflops" for n in (32768, 65536)]
+P23_N = 32768            # the bench's Cholesky size beside P2-P4 (the flagship's quick stage)
+
+
+def p23_route_tflops(torch, n: int, seed: int) -> dict:
+    """P2's factorization (cholesky_trapezoid of P2's operand, panels of
+    1024) by each route, compensated (P2's), "highest" (P3's) and the
+    default (P4's): the best TFLOP/s of three warm runs each, CUDA events.
+    P23 runs it in a new process, as each bench run is one, and compares a
+    best with a best: a single reading in this long process can come out a
+    few percent low (P2 read 84.50 beside 87.00-88.78 in other runs)."""
+    import numpywren_tpu_torch as npw
+
+    cfg = npw.default_config()
+    a = p2_operand(torch, npw, n, seed)
+    out = {}
+    for phase, comp, precision in (("P2", True, None), ("P3", False, "highest"),
+                                   ("P4", False, None)):
+        cfg.compensated = comp
+        seconds = []
+        for _ in range(4):  # a warm-up, then three
+            t = npw.TrapezoidMatrix.from_array(a, panel=PANEL)
+            seconds.append(run_entry(torch, lambda: npw.cholesky_trapezoid(
+                t, precision=precision))[2])
+            del t
+        out[phase] = n ** 3 / 3 / min(seconds[1:]) / 1e12
+    cfg.compensated = False
+    return out
+
+
+def bench_run(args: list, env: dict, lastgood: str):
+    """`python -m numpywren_tpu_torch bench <args>` from the checkout's root
+    in a new process, its last good line at `lastgood` and `env` over this
+    process's environment (NPW_COMPENSATED only where `env` sets it).
+    Returns (rc, its JSON lines, seconds, the end of its stderr)."""
+    full = {k: v for k, v in os.environ.items() if k != "NPW_COMPENSATED"}
+    full.update(env, NPW_BENCH_LASTGOOD=lastgood)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "numpywren_tpu_torch", "bench", *args],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), env=full,
+                          capture_output=True, text=True, timeout=P23_TIMEOUT)
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    return proc.returncode, lines, time.perf_counter() - t0, proc.stderr[-3000:]
+
+
+def p23_bench(torch, gen, refs: dict, seed: int) -> dict:
+    """P23: bench_torch.py through the command line, each run in a new
+    process, held to the bars of the module docstring and set beside the
+    earlier phase that `refs` holds for it (P2, P3, P4: TFLOP/s; P12,
+    P12_compensated: TFLOP/s; P19: the tile-512 sweeps' seconds by route).
+    A bench Cholesky at P23_N is within 5% of its phase's reading, or of
+    the same route's best of three in a new process (p23_route_tflops).
+    Then matmul3's panel route at the 65536 stage's first trailing updates.
+    Returns the kernels' launches of the bench runs."""
+    import tempfile
+
+    from numpywren_tpu_torch.ops import gemm3
+
+    card = gpu_line()
+    t_phase = time.perf_counter()
+    launches = {"matmul": 0, "matmul3": 0}
+    fresh = in_new_process("P23", "p23_route_tflops", P23_N, seed)
+    emit({"phase": "P23", "run": "route_tflops", "n": P23_N, "fresh_best_of_3": fresh,
+          "phases": {k: refs[k] for k in fresh}, "nvidia_smi": card})
+    with tempfile.TemporaryDirectory() as d:
+        for label, args, env, route, phase in P23_RUNS:
+            rc, lines, seconds, err = bench_run(args, env, os.path.join(d, "lastgood.json"))
+            emit({"phase": "P23", "run": label, "args": args, "env": env, "rc": rc,
+                  "seconds": seconds, "lines": lines, "nvidia_smi": card})
+            require(rc == 0 and lines, f"P23 {label}: rc {rc}, {len(lines)} lines: {err}")
+            if route is None:  # the numerics gate: one line, every rung passing
+                failed = [k for k, v in lines[-1]["rungs"].items() if not v["pass"]]
+                require(lines[-1]["vs_baseline"] == 1.0 and not failed,
+                        f"P23 numerics: rungs failed {failed}")
+                continue
+            # a provisional line (another run's, from the last-good file) may come first
+            real = [ln for ln in lines if not ln.get("stale")]
+            require(bool(real) and real == lines[len(lines) - len(real):],
+                    f"P23 {label}: the measured lines are not last: {lines}")
+            for ln in real:
+                used = ln["launches"]
+                for kern in launches:
+                    launches[kern] += used[kern]
+                require(ln["route"] == route and ln["value"] > 0
+                        and {k: v > 0 for k, v in used.items()} == {k: k == route for k in used}
+                        and ln["device"] == torch.cuda.get_device_name(0),
+                        f"P23 {label}: {ln['metric']} on route {ln['route']}, launches {used}")
+            if label == "flagship":
+                require([ln["metric"] for ln in real] == P23_FLAGSHIP,
+                        f"P23 flagship: {[ln['metric'] for ln in real]}, not {P23_FLAGSHIP}")
+            if label == "tsqr_cholqr3s":
+                require(real[-1]["gram_rel_err"] <= TSQR_GRAM_BAR,
+                        f"P23 tsqr: gram_rel_err {real[-1]['gram_rel_err']} > {TSQR_GRAM_BAR}")
+            row = {"phase": "P23", "run": label, "tflops": [ln["value"] for ln in real]}
+            if phase is not None:
+                row[phase] = refs[phase]
+            if phase in fresh:  # a Cholesky: its P23_N line against the phase and the best of 3
+                require(real[0]["metric"].startswith(f"cholesky_n{P23_N}_"),
+                        f"P23 {label}: {real[0]['metric']}")
+                row.update({"over_" + phase: real[0]["value"] / refs[phase],
+                            "over_fresh": real[0]["value"] / fresh[phase]})
+            emit(row)
+            if phase in fresh:
+                for ln in real:
+                    require(ln["residual_fro"] <= RESID_BAR and ln["residual_full"] is True,
+                            f"P23 {label} {ln['metric']}: residual {ln['residual_fro']}")
+                    require(0 < ln["frac_of_matmul_peak"] <= P23_PEAK_BAR,
+                            f"P23 {label} {ln['metric']}: frac_of_matmul_peak "
+                            f"{ln['frac_of_matmul_peak']}")
+                require(min(abs(row["over_" + phase] - 1), abs(row["over_fresh"] - 1))
+                        <= P23_ROUTE_BAR,
+                        f"P23 {label}: {real[0]['value']} TFLOP/s against {phase}'s "
+                        f"{refs[phase]} and the best of three {fresh[phase]}")
+    # the kernel at the 65536 stage's shapes: its first two trailing updates
+    before = gemm3.LAUNCHES
+    matmul3_panel_rows(torch, gen, 65536 - PANEL, phase="P23")
+    require(gemm3.LAUNCHES > before, "P23: matmul3's panel route did not launch")
+    emit({"phase": "P23", "seconds": time.perf_counter() - t_phase, "launches": launches,
+          "nvidia_smi": card})
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=32768, help="trapezoid phases' size")
@@ -4455,12 +4628,13 @@ def main(argv=None) -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     p1 = p1_kernels(torch, gen)
-    launches, (p2_row, _, _) = main_path(torch, npw, args.n, args.n_flat, args.seed)
+    launches, (p2_row, p3_row, p4_row) = main_path(torch, npw, args.n, args.n_flat, args.seed)
     p6 = p6_factor(torch, gen)
     ops_counts = p6_ops_path(torch, gen)
     p7 = p7_chain(torch, gen, args.m)
     tsqr_counts = tsqr_phases(torch, npw, gen, args.m, args.m_small)
-    launches["matmul3"] += p12_gemm(torch, npw, gen, args.n_gemm)
+    p12_launches, p12_tflops = p12_gemm(torch, npw, gen, args.n_gemm)
+    launches["matmul3"] += p12_launches
     p13 = p13_qr(torch, gen)
     launches["qr"] = p14_qr_leaf(torch, gen, args.m_qr)
     p15_generic(torch, npw, gen, args.n_dsl, args.n_gemm_dsl, args.m_tsqr_dsl, args.n_bdfac,
@@ -4476,17 +4650,23 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     p21a = p21_single(torch, npw, {"n_chol": args.n, "n_gemm": args.n_gemm, "m": args.m, "b": 512},
                       P21_SMALL, args.seed, p2_row["seconds"], bdfac, args.n_ooc)
+    p19_seconds = bdfac["tile512_seconds"]
     del bdfac
     torch.cuda.empty_cache()
     p21b = p21_multi(torch, {"n_chol": P21B_N_CHOL, "n_gemm": args.n_gemm, "m": args.m, "b": 512,
                              "n_bdfac": args.n_bdfac, "n_sv": P21_SV_N},
                      P21_SMALL, args.seed)
     p22 = p22_aux(torch, npw, gen, args.n, args.n_local, args.seed, p2_row["tflops"])
+    torch.cuda.empty_cache()  # the bench's processes need the card's memory
+    p23 = p23_bench(torch, gen, {"P2": p2_row["tflops"], "P3": p3_row["tflops"],
+                                 "P4": p4_row["tflops"], "P12": p12_tflops["default"],
+                                 "P12_compensated": p12_tflops["compensated"],
+                                 "P19": p19_seconds}, args.seed)
     for name in ("matmul", "matmul3"):
         launches[name] += spill_launches[name]
     launches["matmul"] += ops_counts["matmul"]
     launches.update(potrf=ops_counts["potrf"], trtri=ops_counts["trtri"], **tsqr_counts)
-    for counts in (model_launches, bdfac_launches, qdwh_launches, p21a, p21b, p22):
+    for counts in (model_launches, bdfac_launches, qdwh_launches, p21a, p21b, p22, p23):
         for name, n in counts.items():
             launches[name] += n
 

@@ -47,10 +47,11 @@ def _imports(path: Path):
 
 
 WORKERS = [ROOT / "tests" / "torch_parallel_worker.py"]
+BENCH = ROOT / "bench_torch.py"
 
 
 def test_no_jax_import_in_port_sources():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + WORKERS
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", BENCH] + WORKERS
     assert len(files) >= 15
     for path in files:
         for mod in _imports(path):
@@ -60,8 +61,8 @@ def test_no_jax_import_in_port_sources():
 def test_no_jax_package_import_in_port_sources():
     """The port keeps its own copies of the backend-neutral modules: no
     import whose top-level name is numpywren_tpu, in the package or in
-    chip_smoke.py, nor in the port's rank worker."""
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + WORKERS
+    chip_smoke.py, nor in the port's rank worker or bench_torch.py."""
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", BENCH] + WORKERS
     for path in files:
         for mod in _imports(path):
             assert mod.split(".")[0] != "numpywren_tpu", f"{path}: imports {mod}"
@@ -136,6 +137,20 @@ def test_no_try_around_kernel_launches():
                 "ops/dispatch.py", "compiler/lower.py"):
         tree = ast.parse((PKG / rel).read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), rel
+    # bench_torch.py: its try statements are the last-good file's I/O and
+    # the run's boundary (a failure becomes its JSON line; a failed stage
+    # falls back to a smaller one on the same device and route); no
+    # function that measures holds one
+    tree = ast.parse(BENCH.read_text())
+    tries = sum(isinstance(n, ast.Try) for n in ast.walk(tree))
+    owners = {}
+    for fn in ast.walk(tree):
+        if isinstance(fn, ast.FunctionDef):
+            for n in ast.walk(fn):
+                if isinstance(n, ast.Try):
+                    owners.setdefault(fn.name, set()).add(id(n))
+    assert set(owners) == {"save_lastgood", "load_lastgood", "main", "_perf_main"}, owners
+    assert len(set().union(*owners.values())) == tries
 
 
 def _assert_refused(proc):
@@ -198,9 +213,9 @@ for _name in ("p1_kernels", "p6_factor", "p6_ops_path", "p7_chain", "tsqr_phases
               "p14_qr_leaf", "p15_generic", "p16_host_tier", "p21_single"):
     globals()[_name] = _nothing
 main_path = lambda *a, **kw: ({"matmul3": 0}, ({"seconds": 0.0}, None, None))
-p12_gemm = lambda *a, **kw: 0
+p12_gemm = lambda *a, **kw: (0, {})
 p17_spill = p18_models = p20_qdwh_ooc = lambda *a, **kw: ({}, None)
-p19_bdfac = lambda *a, **kw: ({}, None, None)
+p19_bdfac = lambda *a, **kw: ({}, None, {"tile512_seconds": {}})
 gpu_line = lambda: "no card"
 _p21_multi, _main, _generator = p21_multi, main, _torch.Generator
 p21_multi = lambda torch, sizes, small, seed: _p21_multi(
