@@ -11,10 +11,16 @@ the lazy parent_fn aliasing of the scratch onto the input (matrix.py
 parent_fn). `device=None` keeps a tensor where it is and puts an ndarray on
 the current CUDA device (a host without one raises: pass device="cpu"); on
 the host tier it names the device the tiles are computed on.
+
+Each entry is a `bind` span (metrics.span) around the compile's
+`bind.schedule` and `bind.program` and, in cholesky and tsqr, `bind.store`
+(wrapping or copying the input) and `bind.alloc` (the outputs); the
+program keeps the span's trace id for run_program's `run` span.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -25,6 +31,7 @@ from numpywren_tpu_torch.exceptions import ShapeError
 from numpywren_tpu_torch.frontend import lpcompile
 from numpywren_tpu_torch.frontend.ir import BoundArg
 from numpywren_tpu_torch.matrix_init import shard_matrix
+from numpywren_tpu_torch.metrics import new_trace, span
 from numpywren_tpu_torch.ops.common import as_tensor, to_numpy
 from numpywren_tpu_torch.runtime.executor import run_program  # noqa: F401  (re-export)
 from numpywren_tpu_torch.tiled import TiledMatrix, _TiledBase
@@ -66,6 +73,20 @@ def _new(key, shape, tile, like, storage: str, lazy: bool = False) -> TiledMatri
                        parent_fn=_zeros_parent, device=like.device)
 
 
+def _bind_span(entry):
+    """The entry as one `bind` span under a new trace id, which the
+    returned program keeps (`trace_id`) for its `run` span."""
+    @functools.wraps(entry)
+    def bind(*args, **kw):
+        trace = new_trace()
+        with span("bind", trace=trace):
+            out = entry(*args, **kw)
+        out[0].trace_id = trace
+        return out
+
+    return bind
+
+
 def _default_tile(x: MatLike, tile) -> Tuple[int, int]:
     if tile is not None:
         return tuple(tile)
@@ -79,6 +100,7 @@ def _default_tile(x: MatLike, tile) -> Tuple[int, int]:
 # Cholesky
 # ---------------------------------------------------------------------------
 
+@_bind_span
 def cholesky(X: MatLike, tile=None, storage: str = "hbm", truncate: int = 0,
              panel: int = 1024, device=None):
     """Blocked Cholesky: returns (program, L_matrix, meta).
@@ -100,22 +122,25 @@ def cholesky(X: MatLike, tile=None, storage: str = "hbm", truncate: int = 0,
     tile = _default_tile(X, tile)
     if tile[0] != tile[1]:
         raise ShapeError("cholesky requires square tiles")
-    x_t = _as_tiled(X, tile, storage, device)
-    if x_t.shape[0] != x_t.shape[1]:
-        raise ShapeError(f"cholesky requires a square matrix, got {x_t.shape}")
+    with span("bind.store"):
+        x_t = _as_tiled(X, tile, storage, device)
+        if x_t.shape[0] != x_t.shape[1]:
+            raise ShapeError(f"cholesky requires a square matrix, got {x_t.shape}")
+        if storage == "hbm":
+            s = TiledMatrix(key=x_t.key + ":chol_S", shape=x_t.shape, tile=tile,
+                            dtype=x_t.dtype, fill=None, device=x_t.device)
+            # S is overwritten by the factorization: it never shares X's buffer
+            arr = x_t.to_hbm().array if x_t.storage != "hbm" else x_t.array.clone()
+            s.replace_array(_identity_pad_diag(arr, x_t))
+        else:
+            s = TiledMatrix(key=x_t.key + ":chol_S", shape=x_t.shape, tile=tile,
+                            dtype=x_t.dtype, storage="host", parent_fn=_spd_parent(x_t),
+                            device=x_t.device)
     g = x_t.grid[0]
 
-    # the upper-triangle blocks of L are never written: they read as zeros
-    o = _new(x_t.key + ":chol_L", x_t.shape, tile, x_t, storage)
-    if storage == "hbm":
-        s = TiledMatrix(key=x_t.key + ":chol_S", shape=x_t.shape, tile=tile,
-                        dtype=x_t.dtype, fill=None, device=x_t.device)
-        # S is overwritten by the factorization: it never shares X's buffer
-        arr = x_t.to_hbm().array if x_t.storage != "hbm" else x_t.array.clone()
-        s.replace_array(_identity_pad_diag(arr, x_t))
-    else:
-        s = TiledMatrix(key=x_t.key + ":chol_S", shape=x_t.shape, tile=tile, dtype=x_t.dtype,
-                        storage="host", parent_fn=_spd_parent(x_t), device=x_t.device)
+    with span("bind.alloc"):
+        # the upper-triangle blocks of L are never written: they read as zeros
+        o = _new(x_t.key + ":chol_L", x_t.shape, tile, x_t, storage)
 
     program = _template("cholesky").bind(
         O=o, S=BoundArg(name="S", matrix=s, versioned=True), N=g, truncate=truncate
@@ -127,41 +152,43 @@ def cholesky(X: MatLike, tile=None, storage: str = "hbm", truncate: int = 0,
 def _cholesky_trapezoid_bind(X, tile, truncate: int, panel: int, device):
     """Bind a cholesky program over the trapezoid storage tier
     (upstream:numpywren/matrix.py::BigSymmetricMatrix's half-memory store)."""
-    if isinstance(X, TiledTrapezoidMatrix):
-        s_m = X
-        panel = X.trap.panel
-    else:
-        if isinstance(X, TrapezoidMatrix):
-            trap = X
-            panel = trap.panel
-        elif _is_array(X):
-            trap = TrapezoidMatrix.from_array(X, panel=panel, device=device)
-        elif hasattr(X, "get_block"):  # a TiledMatrix
-            trap = TrapezoidMatrix.from_tiled(X, panel=panel)
+    with span("bind.store"):
+        if isinstance(X, TiledTrapezoidMatrix):
+            s_m = X
+            panel = X.trap.panel
         else:
-            raise ShapeError(f"cannot bind {type(X).__name__} as trapezoid")
-        tile_n = tile[0] if tile is not None else min(512, panel)
-        if panel % tile_n != 0:
-            raise ShapeError(f"tile {tile_n} must divide panel {panel}")
-        s_m = TiledTrapezoidMatrix(trap, tile=tile_n, symmetric=True, key="chol_S")
-    g = s_m.grid[0]
-    if truncate:
-        # prefix runs stop at a physical panel boundary (the factorization
-        # is in place per column block): the factored prefix
-        # (g - truncate) * tile must cover whole panels
-        n_done = (g - truncate) * s_m.tile[0]
-        if not 0 < n_done <= s_m.shape[0] or n_done % s_m.trap.panel != 0:
-            raise ShapeError(
-                f"trapezoid truncate must leave a panel-aligned prefix: "
-                f"(grid {g} - truncate {truncate}) * tile {s_m.tile[0]} = "
-                f"{n_done} is not a multiple of panel {s_m.trap.panel}; "
-                f"choose tile/panel/truncate accordingly")
-    # version 0 of S is the input itself: the lower-triangle blocks exist
-    for i in range(g):
-        s_m._written[i, : i + 1] = True
-    o = TiledTrapezoidMatrix(n=s_m.shape[0], tile=s_m.tile[0], panel=panel,
-                             dtype=s_m.dtype, symmetric=False, device=s_m.device,
-                             key=s_m.key + ":chol_L")
+            if isinstance(X, TrapezoidMatrix):
+                trap = X
+                panel = trap.panel
+            elif _is_array(X):
+                trap = TrapezoidMatrix.from_array(X, panel=panel, device=device)
+            elif hasattr(X, "get_block"):  # a TiledMatrix
+                trap = TrapezoidMatrix.from_tiled(X, panel=panel)
+            else:
+                raise ShapeError(f"cannot bind {type(X).__name__} as trapezoid")
+            tile_n = tile[0] if tile is not None else min(512, panel)
+            if panel % tile_n != 0:
+                raise ShapeError(f"tile {tile_n} must divide panel {panel}")
+            s_m = TiledTrapezoidMatrix(trap, tile=tile_n, symmetric=True, key="chol_S")
+        g = s_m.grid[0]
+        if truncate:
+            # prefix runs stop at a physical panel boundary (the factorization
+            # is in place per column block): the factored prefix
+            # (g - truncate) * tile must cover whole panels
+            n_done = (g - truncate) * s_m.tile[0]
+            if not 0 < n_done <= s_m.shape[0] or n_done % s_m.trap.panel != 0:
+                raise ShapeError(
+                    f"trapezoid truncate must leave a panel-aligned prefix: "
+                    f"(grid {g} - truncate {truncate}) * tile {s_m.tile[0]} = "
+                    f"{n_done} is not a multiple of panel {s_m.trap.panel}; "
+                    f"choose tile/panel/truncate accordingly")
+        # version 0 of S is the input itself: the lower-triangle blocks exist
+        for i in range(g):
+            s_m._written[i, : i + 1] = True
+    with span("bind.alloc"):
+        o = TiledTrapezoidMatrix(n=s_m.shape[0], tile=s_m.tile[0], panel=panel,
+                                 dtype=s_m.dtype, symmetric=False, device=s_m.device,
+                                 key=s_m.key + ":chol_L")
     program = _template("cholesky").bind(
         O=o, S=BoundArg(name="S", matrix=s_m, versioned=True), N=g, truncate=truncate,
     )
@@ -222,6 +249,7 @@ def cholesky_solve(l: _TiledBase, b):
 # GEMM
 # ---------------------------------------------------------------------------
 
+@_bind_span
 def gemm(A: MatLike, B: MatLike, tile=None, storage: str = "hbm",
          k_chunk: Optional[int] = None, device=None):
     """Blocked GEMM: returns (program, C_matrix, meta) with C = A @ B.
@@ -283,6 +311,7 @@ def _template_tsqr_kary(b_fac: int):
     return _templates[name]
 
 
+@_bind_span
 def tsqr(X: MatLike, tile_rows: int = 4096, storage: str = "hbm",
          compute_q: bool = False, method: str = "tree", b_fac: int = 2, device=None):
     """Tall-skinny QR via tree reduction (reference alg_wrappers.tsqr).
@@ -297,7 +326,8 @@ def tsqr(X: MatLike, tile_rows: int = 4096, storage: str = "hbm",
     if _is_array(X):
         m, b = X.shape
         tile_rows = min(tile_rows, m)
-        a_t = shard_matrix(X, tile=(tile_rows, b), storage=storage, device=device)
+        with span("bind.store"):
+            a_t = shard_matrix(X, tile=(tile_rows, b), storage=storage, device=device)
     else:
         a_t = X
         m, b = a_t.shape
@@ -318,21 +348,23 @@ def tsqr(X: MatLike, tile_rows: int = 4096, storage: str = "hbm",
         # allocated at first use: the fused lowering writes only R (and Q)
         return _new(key, shape, tile, a_t, storage)
 
-    q0 = new("tsqr_Q0", (n_leaves * tile_rows, b), (tile_rows, b))
-    r = new("tsqr_R", (n_leaves * b, (depth + 1) * b), (b, b))
-    outputs = {"R": r, "R_block": (0, depth), "Q0": q0}
     half = (max(1, cdiv(n_leaves, 2)) * b, max(1, depth) * b)
+    with span("bind.alloc"):
+        q0 = new("tsqr_Q0", (n_leaves * tile_rows, b), (tile_rows, b))
+        r = new("tsqr_R", (n_leaves * b, (depth + 1) * b), (b, b))
+        if b_fac == 2:
+            qt, qb = new("tsqr_QT", half, (b, b)), new("tsqr_QB", half, (b, b))
+        if b_fac == 2 and compute_q:
+            z = new("tsqr_Z", (n_leaves * b, (depth + 1) * b), (b, b))
+            q = new("tsqr_Q", (n_leaves * tile_rows, b), (tile_rows, b))
+    outputs = {"R": r, "R_block": (0, depth), "Q0": q0}
     if b_fac != 2:
         program = _template_tsqr_kary(b_fac).bind(A=a_t, Q0=q0, R=r, N=n_leaves, L=depth)
     elif compute_q:
-        qt, qb = new("tsqr_QT", half, (b, b)), new("tsqr_QB", half, (b, b))
-        z = new("tsqr_Z", (n_leaves * b, (depth + 1) * b), (b, b))
-        q = new("tsqr_Q", (n_leaves * tile_rows, b), (tile_rows, b))
         program = _template("tsqr_q").bind(
             A=a_t, Q0=q0, R=r, QT=qt, QB=qb, Z=z, Q=q, N=n_leaves, L=depth)
         outputs["Q"] = q
     else:
-        qt, qb = new("tsqr_QT", half, (b, b)), new("tsqr_QB", half, (b, b))
         program = _template("tsqr").bind(A=a_t, Q0=q0, R=r, QT=qt, QB=qb, N=n_leaves, L=depth)
     program.fused_options = {"tsqr_method": method, "b_fac": b_fac}
     meta = {"n_leaves": n_leaves, "depth": depth, "tile_rows": tile_rows, "b": b,
@@ -344,6 +376,7 @@ def tsqr(X: MatLike, tile_rows: int = 4096, storage: str = "hbm",
 # BDFAC (block bidiagonalization)
 # ---------------------------------------------------------------------------
 
+@_bind_span
 def bdfac(X: MatLike, tile=None, storage: str = "hbm", device=None):
     """Block bidiagonalization: returns (program, B_matrix, meta).
 

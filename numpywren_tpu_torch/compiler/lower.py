@@ -49,6 +49,7 @@ from typing import Callable, List, Optional
 import torch
 
 from numpywren_tpu_torch.config import default_config
+from numpywren_tpu_torch.metrics import span
 from numpywren_tpu_torch.ops.common import cdiv, check_precision, default_precision
 from numpywren_tpu_torch.ops.gemm import matmul as kernel_matmul
 from numpywren_tpu_torch.ops.gemm3 import Panel, matmul3
@@ -125,7 +126,11 @@ def _potrf(d: torch.Tensor, infos: List[torch.Tensor]) -> torch.Tensor:
 
 
 def _raise_if_not_spd(infos: List[torch.Tensor], what: str = "cholesky") -> None:
-    if infos and bool((torch.stack(infos) != 0).any()):
+    if not infos:
+        return
+    with span("host_read"):
+        failed = bool((torch.stack(infos) != 0).any())
+    if failed:
         bad = next(p for p, i in enumerate(infos) if int(i) != 0)
         raise torch.linalg.LinAlgError(
             f"{what}: diagonal block of panel {bad} is not positive-definite "
@@ -173,22 +178,25 @@ def _chol_columns(cols: List[torch.Tensor], panel: int, tile: int, precision: st
     for p in range(stop):
         colp = cols[p]
         wp = colp.shape[1]
-        ld = _potrf(colp[:wp], infos)
-        colp[:wp].copy_(ld)  # ld's strict upper is zero: tril(ld)
+        with span("chol.factor"):
+            ld = _potrf(colp[:wp], infos)
+            colp[:wp].copy_(ld)  # ld's strict upper is zero: tril(ld)
         if colp.shape[0] <= wp:
             continue
         b = colp[wp:]
-        _rtrsm(b, ld, tile, precision, inv_panel)
-        # compensated: b is packed once for all of its updates, which write
-        # only into later columns
-        packed = Panel(b) if _use_compensated(b, precision) else None
-        for c in range(p + 1, nb):
-            off, w = (c - p - 1) * panel, cols[c].shape[1]
-            if packed is not None:
-                packed.sub_update(cols[c], off, w, out=cols[c])
-            else:
-                _sub_matmul(cols[c], b[off:], b[off:off + w], tb=True, precision=precision,
-                            out=cols[c])
+        with span("chol.solve"):
+            _rtrsm(b, ld, tile, precision, inv_panel)
+        with span("chol.update"):
+            # compensated: b is packed once for all of its updates, which
+            # write only into later columns
+            packed = Panel(b) if _use_compensated(b, precision) else None
+            for c in range(p + 1, nb):
+                off, w = (c - p - 1) * panel, cols[c].shape[1]
+                if packed is not None:
+                    packed.sub_update(cols[c], off, w, out=cols[c])
+                else:
+                    _sub_matmul(cols[c], b[off:], b[off:off + w], tb=True,
+                                precision=precision, out=cols[c])
     if check:
         _raise_if_not_spd(infos)
 
@@ -361,7 +369,10 @@ def _cholqr_adaptive(p: torch.Tensor, rows: bool = False, max_passes: int = 16,
     Host reads: the library route reads dev2 once (the fold and the
     convergence flag); the chain reads its conv flag once; each extras
     pass reads its Gram's deviation once. CHAIN_PASSES counts the calls
-    and the extras passes.
+    and the extras passes. Spans (metrics.span): the call is `tsqr.chain`,
+    each host read `host_read`, each Gram `chain.gram`, the b x b factors
+    and folds `chain.factor`, each apply `chain.apply`, each extras pass
+    `chain.extra`.
 
     precision routes the applies of the inverse to the tall operand
     (`_tsqr_matmul`); the Grams and the b x b algebra stay true FP32, the
@@ -374,98 +385,111 @@ def _cholqr_adaptive(p: torch.Tensor, rows: bool = False, max_passes: int = 16,
     value of the mesh's first rank (one broadcast), so every rank takes the
     same branches and the same number of extras passes, and so enters the
     same all_reduces, whatever bits the all_reduce gave each rank."""
-    b = p.shape[0] if rows else p.shape[1]
-    m_loc = p.shape[1] if rows else p.shape[0]
-    m = global_m if global_m is not None else m_loc
-    eye = torch.eye(b, dtype=p.dtype, device=p.device)
-    u = torch.finfo(torch.float32).eps
-    shift_c = 4.0 * u * (m * b) ** 0.5
-    conv_gate = min(2.0 * float(conv_tol) ** 0.5, 1e-1)
-    if pallas_chain is None:
-        pallas_chain = _flag("NPW_PALLAS_CHAIN")
-    if gemm_inv is None:
-        gemm_inv = _flag("NPW_GEMM_INV")
+    with span("tsqr.chain"):
+        b = p.shape[0] if rows else p.shape[1]
+        m_loc = p.shape[1] if rows else p.shape[0]
+        m = global_m if global_m is not None else m_loc
+        eye = torch.eye(b, dtype=p.dtype, device=p.device)
+        u = torch.finfo(torch.float32).eps
+        shift_c = 4.0 * u * (m * b) ** 0.5
+        conv_gate = min(2.0 * float(conv_tol) ** 0.5, 1e-1)
+        if pallas_chain is None:
+            pallas_chain = _flag("NPW_PALLAS_CHAIN")
+        if gemm_inv is None:
+            gemm_inv = _flag("NPW_GEMM_INV")
 
-    if psum_mesh is not None:
-        from numpywren_tpu_torch.parallel.mesh import broadcast_flat, sum_over_mesh
-
-    def host(v) -> float:
-        """One host read of the 0-d `v`: over a mesh, the first rank's."""
         if psum_mesh is not None:
-            v = broadcast_flat(v.reshape(1).clone(), 0, psum_mesh)
-        return float(v)
+            from numpywren_tpu_torch.parallel.mesh import broadcast_flat, sum_over_mesh
 
-    def gram_dev(x):
-        g = x @ x.T if rows else x.T @ x
-        if psum_mesh is not None:
-            sum_over_mesh(g, psum_mesh)
-        e = g - eye
-        return g, e, torch.max(torch.abs(e))
+        def host(v) -> float:
+            """One host read of the 0-d `v`: over a mesh, the first rank's."""
+            with span("host_read"):
+                if psum_mesh is not None:
+                    v = broadcast_flat(v.reshape(1).clone(), 0, psum_mesh)
+                return float(v)
 
-    def shifted_linv(g, extra_floor=0.0):
-        """Always-shifted factor and its explicit b x b inverse."""
-        floor = shift_c * torch.max(torch.sum(torch.abs(g), dim=1)) + extra_floor
-        gs = g + floor * eye
-        sym = 0.5 * (gs + gs.T)
-        if _flag("NPW_PALLAS_FACTOR"):
-            return potrf_inv_pallas(sym)
-        l = _cholesky_nan(sym)
-        if gemm_inv:
-            return l, _trtri_gemm(l)
-        return l, torch.linalg.solve_triangular(l, eye, upper=False)
+        def gram_dev(x):
+            with span("chain.gram"):
+                g = x @ x.T if rows else x.T @ x
+                if psum_mesh is not None:
+                    sum_over_mesh(g, psum_mesh)
+                e = g - eye
+                return g, e, torch.max(torch.abs(e))
 
-    def apply_linv(x, linv):
+        def shifted_linv(g, extra_floor=0.0):
+            """Always-shifted factor and its explicit b x b inverse."""
+            floor = shift_c * torch.max(torch.sum(torch.abs(g), dim=1)) + extra_floor
+            gs = g + floor * eye
+            sym = 0.5 * (gs + gs.T)
+            if _flag("NPW_PALLAS_FACTOR"):
+                return potrf_inv_pallas(sym)
+            l = _cholesky_nan(sym)
+            if gemm_inv:
+                return l, _trtri_gemm(l)
+            return l, torch.linalg.solve_triangular(l, eye, upper=False)
+
+        def apply_linv(x, linv):
+            with span("chain.apply"):
+                if rows:
+                    return _tsqr_matmul(linv, x, precision=precision)
+                return _tsqr_matmul(x, linv, tb=True, precision=precision)
+
+        def iterate_pass(x):
+            """Extras pass: cleanup in the near-orthonormal regime, a full
+            shifted factor otherwise; one host read of the deviation."""
+            g, e, dev = gram_dev(x)
+            dev = host(dev)
+            with span("chain.factor"):
+                l, linv = neumann_fold(e) if dev < 1e-1 else shifted_linv(g)
+            return apply_linv(x, linv), l, dev < conv_gate
+
+        # incremental composition of R: rows form p = L1 L2 ... q folds on
+        # the right; column form p = q (Lkᵀ ... L1ᵀ) folds on the left
         if rows:
-            return _tsqr_matmul(linv, x, precision=precision)
-        return _tsqr_matmul(x, linv, tb=True, precision=precision)
+            def fold(total, li):
+                return total @ li
+        else:
+            def fold(total, li):
+                return li.T @ total
 
-    def iterate_pass(x):
-        """Extras pass: cleanup in the near-orthonormal regime, a full
-        shifted factor otherwise; one host read of the deviation."""
-        g, e, dev = gram_dev(x)
-        dev = host(dev)
-        l, linv = neumann_fold(e) if dev < 1e-1 else shifted_linv(g)
-        return apply_linv(x, linv), l, dev < conv_gate
+        CHAIN_PASSES["chains"] += 1
+        g1, _, _ = gram_dev(p)
+        if pallas_chain and psum_mesh is None and chain_supported(m_loc, b, p.dtype):
+            q, total, conv, _ = cholqr2_chain_pallas(
+                g1, p, rows=rows, shift_c=float(shift_c), conv_gate=float(conv_gate),
+                precision=precision)
+        else:
+            with span("chain.factor"):
+                l1, linv1 = shifted_linv(g1)
+                g2 = (linv1 @ g1) @ linv1.T
+                e2 = g2 - eye
+                dev2 = torch.max(torch.abs(e2))
+                # the analytic G2 is not a real Gram: its roundoff can push
+                # a near-singular G2 indefinite, so a shifted pass 2 shifts
+                # past it
+                rb1 = torch.max(torch.sum(torch.abs(linv1), dim=1))
+                err2 = 3.0 * u * rb1 * rb1 * torch.max(torch.sum(torch.abs(g1), dim=1))
+            dev2 = host(dev2)
+            with span("chain.factor"):
+                l2, linv2 = neumann_fold(e2) if dev2 < 1e-1 else shifted_linv(g2, err2)
+                # converged only via the cleanup branch (a shifted pass 2
+                # carries the err2-inflated shift; the extras correct it)
+                conv = dev2 < conv_gate
+                linv = linv2 @ linv1
+                total = fold(l1, l2) if rows else fold(l1.T, l2)
+            q = apply_linv(p, linv)
 
-    # incremental composition of R: rows form p = L1 L2 ... q folds on the
-    # right; column form p = q (Lkᵀ ... L1ᵀ) folds on the left
-    if rows:
-        def fold(total, li):
-            return total @ li
-    else:
-        def fold(total, li):
-            return li.T @ total
-
-    CHAIN_PASSES["chains"] += 1
-    g1, _, _ = gram_dev(p)
-    if pallas_chain and psum_mesh is None and chain_supported(m_loc, b, p.dtype):
-        q, total, conv, _ = cholqr2_chain_pallas(
-            g1, p, rows=rows, shift_c=float(shift_c), conv_gate=float(conv_gate),
-            precision=precision)
-    else:
-        l1, linv1 = shifted_linv(g1)
-        g2 = (linv1 @ g1) @ linv1.T
-        e2 = g2 - eye
-        dev2 = torch.max(torch.abs(e2))
-        # the analytic G2 is not a real Gram: its roundoff can push a
-        # near-singular G2 indefinite, so a shifted pass 2 shifts past it
-        rb1 = torch.max(torch.sum(torch.abs(linv1), dim=1))
-        err2 = 3.0 * u * rb1 * rb1 * torch.max(torch.sum(torch.abs(g1), dim=1))
-        dev2 = host(dev2)
-        l2, linv2 = neumann_fold(e2) if dev2 < 1e-1 else shifted_linv(g2, err2)
-        # converged only via the cleanup branch (a shifted pass 2 carries
-        # the err2-inflated shift; the extras correct it)
-        conv = dev2 < conv_gate
-        q = apply_linv(p, linv2 @ linv1)
-        total = fold(l1, l2) if rows else fold(l1.T, l2)
-
-    for _ in range(max(max_passes - 2, 0)):
-        if bool(conv):
-            break
-        CHAIN_PASSES["extras"] += 1
-        q, li, conv = iterate_pass(q)
-        total = fold(total, li)
-    return q, total
+        for _ in range(max(max_passes - 2, 0)):
+            if isinstance(conv, torch.Tensor):  # the chain kernel's flag, on the device
+                with span("host_read"):
+                    conv = bool(conv)
+            if conv:
+                break
+            CHAIN_PASSES["extras"] += 1
+            with span("chain.extra"):
+                q, li, conv = iterate_pass(q)
+                total = fold(total, li)
+        return q, total
 
 
 # ---------------------------------------------------------------------------
@@ -941,10 +965,10 @@ def fused_tsqr(a: torch.Tensor, tile_rows: int, *, compute_q: bool = False,
 # ---------------------------------------------------------------------------
 
 def lower_fused(program) -> Optional[Callable[[], None]]:
-    """A no-arg callable running `program` through its fused lowering and
-    committing the results into its bound matrices; None when the program's
-    template has no fused specialization (cholesky, gemm, the tsqr family
-    and bdfac have)."""
+    """A no-arg callable running `program` through its fused lowering,
+    committing the results into its bound matrices and marking the program's
+    success (the `run.commit` span); None when the program's template has no
+    fused specialization (cholesky, gemm, the tsqr family and bdfac have)."""
     name = program.dag.template.name
     if name == "cholesky":
         inner = lambda: _run_fused_cholesky(program)  # noqa: E731
@@ -962,15 +986,19 @@ def lower_fused(program) -> Optional[Callable[[], None]]:
         caller's handles must still see the results (the reference's
         semantics: writes land in the store the program was bound to), so
         computed blocks are copied back and the handles restored."""
+        from numpywren_tpu_torch.runtime.executor import _mark_success
+
         originals = {nm: ba.matrix for nm, ba in program.matrices.items()}
         inner()
-        for nm, orig in originals.items():
-            cur = program.matrices[nm].matrix
-            if cur is orig or orig.storage in ("hbm", "trapezoid"):
-                continue
-            for (i, j) in cur.block_idxs_exist:
-                orig.put_block(cur.get_block(i, j), i, j)
-            program.matrices[nm].matrix = orig
+        with span("run.commit"):
+            for nm, orig in originals.items():
+                cur = program.matrices[nm].matrix
+                if cur is orig or orig.storage in ("hbm", "trapezoid"):
+                    continue
+                for (i, j) in cur.block_idxs_exist:
+                    orig.put_block(cur.get_block(i, j), i, j)
+                program.matrices[nm].matrix = orig
+            _mark_success(program)
 
     return run_and_commit
 
@@ -1112,9 +1140,10 @@ def _run_fused_tsqr(program, compute_q: bool):
     if compute_q:
         q_arr, r_final = out
         q_mat = _hbm(program, "Q")
-        pad = torch.zeros(q_mat.padded_shape, dtype=q_mat.dtype, device=q_arr.device)
-        pad[: q_arr.shape[0], : q_arr.shape[1]] = q_arr
-        q_mat.replace_array(pad)
+        with span("tsqr.q_pad"):
+            pad = torch.zeros(q_mat.padded_shape, dtype=q_mat.dtype, device=q_arr.device)
+            pad[: q_arr.shape[0], : q_arr.shape[1]] = q_arr
+            q_mat.replace_array(pad)
     else:
         r_final = out
     # the final R lives at block (0, depth) of R (algs.tsqr layout)

@@ -23,6 +23,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from numpywren_tpu_torch import kernels
 from numpywren_tpu_torch.exceptions import CompilationError
+from numpywren_tpu_torch.metrics import span
 from numpywren_tpu_torch.frontend.ir import (
     BlockRef,
     BoundArg,
@@ -175,16 +176,18 @@ def compile_schedule(template: ProgramTemplate, bindings: Dict[str, Any]):
     if missing:
         raise CompilationError(f"{template.name}: unbound arguments {sorted(missing)}")
 
-    dag = ScheduledDAG(template, matrices, consts)
-    if not _try_native(dag):
-        dag.nodes = []
-        _enumerate(template.body, dict(consts), dag, matrices)
-        _resolve_edges(dag)
-        _level(dag)
+    with span("bind.schedule"):
+        dag = ScheduledDAG(template, matrices, consts)
+        if not _try_native(dag):
+            dag.nodes = []
+            _enumerate(template.body, dict(consts), dag, matrices)
+            _resolve_edges(dag)
+            _level(dag)
 
     from numpywren_tpu_torch.runtime.program import TiledProgram
 
-    return TiledProgram(dag)
+    with span("bind.program"):
+        return TiledProgram(dag)
 
 
 def _try_native(dag) -> bool:

@@ -41,6 +41,7 @@ from numpywren_tpu_torch import kernels
 from numpywren_tpu_torch.compiler.schedule import critical_path_priority, grouped_schedule
 from numpywren_tpu_torch.config import default_config
 from numpywren_tpu_torch.exceptions import TiledProgramExecutionError
+from numpywren_tpu_torch.metrics import span
 from numpywren_tpu_torch.ops import factor
 from numpywren_tpu_torch.ops.common import check_precision, to_numpy
 from numpywren_tpu_torch.runtime.program import NS, PS, TiledProgram
@@ -603,27 +604,29 @@ def run_program(
     resume=True (local and spill) restarts a half-run program from the
     block-existence frontier instead of node 0, the reference's implicit
     checkpoint/resume (scan block_idxs_exist, re-enqueue the frontier).
-    """
-    if resume and executor in ("local", "spill"):
-        if executor == "local":
-            return LocalExecutor(program, num_workers=num_workers, **kw).run(resume=True)
-        return SpillTaskExecutor(program, **kw).run(resume=True)
-    if executor in ("auto", "fused"):
-        from numpywren_tpu_torch.compiler.lower import lower_fused
 
-        fn = lower_fused(program)
-        if fn is not None:
-            fn()
-            _mark_success(program)
-            return PS.SUCCESS
-        name = program.dag.template.name
-        if executor == "fused":
-            raise ValueError(f"no fused lowering for program {name!r}")
-        executor = "jax"
-    if executor == "jax":
-        return TorchTaskExecutor(program, **kw).run()
-    if executor == "spill":
-        return SpillTaskExecutor(program, **kw).run()
-    if executor == "local":
-        return LocalExecutor(program, num_workers=num_workers, **kw).run()
-    raise ValueError(f"unknown executor {executor!r}")
+    The whole call is the `run` span (metrics.span) of the program's trace.
+    """
+    with span("run", trace=getattr(program, "trace_id", None)):
+        if resume and executor in ("local", "spill"):
+            if executor == "local":
+                return LocalExecutor(program, num_workers=num_workers, **kw).run(resume=True)
+            return SpillTaskExecutor(program, **kw).run(resume=True)
+        if executor in ("auto", "fused"):
+            from numpywren_tpu_torch.compiler.lower import lower_fused
+
+            fn = lower_fused(program)
+            if fn is not None:
+                fn()  # commits and marks the program's success
+                return PS.SUCCESS
+            name = program.dag.template.name
+            if executor == "fused":
+                raise ValueError(f"no fused lowering for program {name!r}")
+            executor = "jax"
+        if executor == "jax":
+            return TorchTaskExecutor(program, **kw).run()
+        if executor == "spill":
+            return SpillTaskExecutor(program, **kw).run()
+        if executor == "local":
+            return LocalExecutor(program, num_workers=num_workers, **kw).run()
+        raise ValueError(f"unknown executor {executor!r}")

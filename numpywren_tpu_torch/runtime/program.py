@@ -4,7 +4,9 @@ Parity with numpywren/lambdapack.py :: LambdaPackProgram — node lifecycle
 enum NS (NOT_READY -> READY -> RUNNING -> POST_OP -> FINISHED) with atomic
 compare-and-swap transitions, program enum PS, start()/post_op()/wait()/
 free()/get_node_status(), and per-node profiling counters (start/end time,
-flops — the reference keeps these in Redis, SURVEY §5 tracing).
+flops — the reference keeps these in Redis, SURVEY §5 tracing), which only
+the dynamic executors fill: `profile` holds a node's dict from its first
+record on, so a fused run's program never builds one.
 
 Differences by design: the DAG is fully materialized (static schedule), so
 post_op returns the precomputed children instead of re-solving them with
@@ -53,8 +55,9 @@ class TiledProgram:
         n = dag.num_nodes
         self.node_status = [NS.NOT_READY] * n
         self.dep_count = [0] * n
-        self.profile: List[Dict] = [dict() for _ in range(n)]
+        self.profile: Dict[int, Dict] = {}  # node id -> its record, once it has one
         self._finished_count = 0
+        self.trace_id: Optional[int] = None  # the entry's (metrics.span)
 
     # ------------------------------------------------------------ schedule
     @property
@@ -123,7 +126,7 @@ class TiledProgram:
                 return False
             self.node_status[node_id] = new
             if new == NS.RUNNING:
-                self.profile[node_id]["start"] = time.perf_counter()
+                self.profile.setdefault(node_id, {})["start"] = time.perf_counter()
             return True
 
     def get_node_status(self, node_id: int) -> NS:
@@ -153,8 +156,9 @@ class TiledProgram:
                     self.node_status[c] = NS.READY
                     newly_ready.append(c)
             self.node_status[node_id] = NS.FINISHED
-            self.profile[node_id]["end"] = time.perf_counter()
-            self.profile[node_id]["flops"] = self.node_flops(node_id)
+            p = self.profile.setdefault(node_id, {})
+            p["end"] = time.perf_counter()
+            p["flops"] = self.node_flops(node_id)
             self._finished_count += 1
             if self._finished_count == self.num_nodes:
                 self.program_status = PS.SUCCESS
@@ -180,13 +184,13 @@ class TiledProgram:
             self.program_status = PS.NOT_STARTED
             self.node_status = [NS.NOT_READY] * self.num_nodes
             self.dep_count = [0] * self.num_nodes
-            self.profile = [dict() for _ in range(self.num_nodes)]
+            self.profile = {}
             self._finished_count = 0
             self.exception = None
 
     # ----------------------------------------------------------- reporting
     def profile_summary(self) -> Dict:
-        done = [p for p in self.profile if "end" in p]
+        done = [p for p in self.profile.values() if "end" in p]
         total_flops = sum(p.get("flops", 0) for p in done)
         if not done:
             return {"nodes_done": 0}
