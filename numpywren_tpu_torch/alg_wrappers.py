@@ -12,10 +12,17 @@ parent_fn). `device=None` keeps a tensor where it is and puts an ndarray on
 the current CUDA device (a host without one raises: pass device="cpu"); on
 the host tier it names the device the tiles are computed on.
 
+The templates are the package's own (`_template`), so their binds defer
+the schedule (`ProgramTemplate.defer_schedule`): the fused lowering never
+reads it, and a generic executor, a checkpoint or a report builds it at
+its first read. An input that the schedule would refuse is checked here
+instead (cholesky's `truncate`), so it still raises at bind.
+
 Each entry is a `bind` span (metrics.span) around the compile's
-`bind.schedule` and `bind.program` and, in cholesky and tsqr, `bind.store`
-(wrapping or copying the input) and `bind.alloc` (the outputs); the
-program keeps the span's trace id for run_program's `run` span.
+`bind.program` and, in cholesky and tsqr, `bind.store` (wrapping or copying
+the input) and `bind.alloc` (the outputs); the program keeps the span's
+trace id for run_program's `run` span, under which `bind.schedule` opens
+where a generic executor builds the schedule.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ import numpy as np
 import torch
 
 from numpywren_tpu_torch import algs
-from numpywren_tpu_torch.exceptions import ShapeError
+from numpywren_tpu_torch.exceptions import CompilationError, ShapeError
 from numpywren_tpu_torch.frontend import lpcompile
 from numpywren_tpu_torch.frontend.ir import BoundArg
 from numpywren_tpu_torch.matrix_init import shard_matrix
@@ -43,9 +50,15 @@ MatLike = Union[np.ndarray, torch.Tensor, _TiledBase, TrapezoidMatrix]
 _templates: Dict[str, object] = {}
 
 
+def _own(template):
+    """Mark a template of the package's: its binds defer the schedule."""
+    template.defer_schedule = True
+    return template
+
+
 def _template(name: str):
     if name not in _templates:
-        _templates[name] = lpcompile(getattr(algs, name))
+        _templates[name] = _own(lpcompile(getattr(algs, name)))
     return _templates[name]
 
 
@@ -145,6 +158,11 @@ def cholesky(X: MatLike, tile=None, storage: str = "hbm", truncate: int = 0,
     program = _template("cholesky").bind(
         O=o, S=BoundArg(name="S", matrix=s, versioned=True), N=g, truncate=truncate
     )
+    if truncate < 0:
+        # the schedule's own refusal: step g would factor S[g, g] at version g
+        raise CompilationError(
+            f"cholesky: truncate {truncate} < 0 runs past the {g}-tile grid: "
+            f"S[{g}, {g}] is read at version {g}, which nothing writes")
     meta = {"input": x_t, "scratch": s, "tile": tile, "grid": g}
     return program, o, meta
 
@@ -307,7 +325,7 @@ def _template_tsqr_kary(b_fac: int):
             f"        Q0[i, 0], R[i, 0] = qr_leaf(A[i, 0])\n"
             f"    reducer(R, qr_combine_r, copy, N, L, b_fac={b_fac})\n"
         )
-        _templates[name] = lpcompile(src)
+        _templates[name] = _own(lpcompile(src))
     return _templates[name]
 
 

@@ -1,7 +1,7 @@
 """Enumerate a bound DSL program into a scheduled task DAG.
 
-Pipeline (all at compile/bind time — the reference does step 3 lazily per
-post_op at runtime, see SURVEY §3.4):
+Pipeline (the reference does step 3 lazily per post_op at runtime, see
+SURVEY §3.4):
 
 1. walk the loop nest with concrete bounds, emitting one node per
    KernelCall instance (node id = (stmt_id, loop-var values), exactly the
@@ -14,11 +14,22 @@ post_op at runtime, see SURVEY §3.4):
    after every reader of version v has run;
 4. Kahn-level the DAG: level(n) = 1 + max(level(parents)) — these wavefront
    levels are the static schedule (each level is one SPMD step).
+
+A user's program runs these passes at bind, so its CompilationErrors are
+raised there. A template of the package's own entries (`defer_schedule`,
+set by alg_wrappers) runs them at the schedule's first read instead: the
+fused lowering reads none of it, so a fused run never builds it.
+
+Counters (program counters, as gemm3.LAUNCHES): `BINDS` counts programs
+bound, `SCHEDULES_BUILT` schedules built (native core or Python passes);
+1 - SCHEDULES_BUILT / BINDS is the share of binds that built nothing.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import threading
 from typing import Any, Dict, List, Optional, Tuple
 
 from numpywren_tpu_torch import kernels
@@ -33,6 +44,10 @@ from numpywren_tpu_torch.frontend.ir import (
     KernelCall,
     ProgramTemplate,
 )
+
+BINDS = 0  # programs bound (compile_schedule calls that returned a program)
+SCHEDULES_BUILT = 0  # schedules built, by the native core or the Python passes
+_COUNTERS = threading.Lock()  # both of the above
 
 
 @dataclasses.dataclass
@@ -55,86 +70,106 @@ class Node:
 class ScheduledDAG:
     """The compiled program: nodes + edges + wavefront levels + bindings.
 
-    The native (C++) schedule core fills this lazily: raw int64 tables live
-    in `_native` and the Python-facing Node list/edge lists materialize on
-    first access — the fused lowering never touches them, so giant grids
-    compile without paying for 10^5-10^6 Python objects."""
+    It keeps the template, the bound matrices and the consts, which is all
+    the schedule is made from, and builds the schedule (`build`) once, under
+    a lock, at bind for a user's program and at the first read of `nodes`,
+    `parents`, `children`, `levels`, `node_level`, `initial_reads` or
+    `num_nodes` for a deferred one (LocalExecutor's threads may be the first
+    readers). The build is the `bind.schedule` span wherever it runs: under
+    `bind` at an eager bind, under `run` when a generic executor is the
+    first reader. The native (C++) core leaves raw int64 tables in
+    `_native`; the Python-facing Node list and edge lists materialize from
+    them at first access, so giant grids never pay for 10^5-10^6 Python
+    objects that nothing reads. NPW_NATIVE is read at bind."""
 
     def __init__(self, template, matrices: Dict[str, BoundArg], consts: Dict[str, int]):
         self.template = template
         self.matrices = matrices
         self.consts = consts
+        self._native_mode = os.environ.get("NPW_NATIVE", "auto")
+        self._lock = threading.Lock()
+        self._built = False
         self._nodes: Optional[List[Node]] = None
         self._parents: Optional[List[List[int]]] = None
         self._children: Optional[List[List[int]]] = None
         self._levels: Optional[List[List[int]]] = None
         self._node_level: Optional[List[int]] = None
-        self.initial_reads: set = set()
+        self._initial_reads: set = set()
         self._native = None  # raw tables from the C++ core
 
-    # --- lazily materialized views --------------------------------------
-    def _mat_nodes(self):
+    def build(self) -> None:
+        """Enumerate, resolve the edges and level the DAG, once: the native
+        core where it takes the program, else the Python passes. Raises the
+        program's CompilationError (and raises it again at a later read)."""
+        global SCHEDULES_BUILT
+        if self._built:
+            return
+        with self._lock:
+            if self._built:
+                return
+            with span("bind.schedule"):
+                self._initial_reads = set()
+                if not _try_native(self):
+                    self._nodes = []
+                    _enumerate(self.template.body, dict(self.consts), self, self.matrices)
+                    _resolve_edges(self)
+                    _level(self)
+            with _COUNTERS:
+                SCHEDULES_BUILT += 1
+            self._built = True
+
+    # --- views, built and materialized at first access ------------------
+    @property
+    def nodes(self) -> List[Node]:
+        self.build()
         if self._nodes is None:
             from numpywren_tpu_torch.native.schedule_native import materialize_nodes
 
-            self._nodes = materialize_nodes(self)
+            with self._lock:
+                if self._nodes is None:
+                    self._nodes = materialize_nodes(self)
         return self._nodes
 
-    def _mat_edges(self):
+    def _edges(self) -> None:
+        self.build()
         if self._parents is None:
             from numpywren_tpu_torch.native.schedule_native import materialize_edges
 
-            materialize_edges(self)
-        return self._parents
-
-    @property
-    def nodes(self) -> List[Node]:
-        return self._mat_nodes()
-
-    @nodes.setter
-    def nodes(self, v):
-        self._nodes = v
+            with self._lock:
+                if self._parents is None:
+                    materialize_edges(self)
 
     @property
     def parents(self) -> List[List[int]]:
-        return self._mat_edges()
-
-    @parents.setter
-    def parents(self, v):
-        self._parents = v
+        self._edges()
+        return self._parents
 
     @property
     def children(self) -> List[List[int]]:
-        self._mat_edges()
+        self._edges()
         return self._children
-
-    @children.setter
-    def children(self, v):
-        self._children = v
 
     @property
     def levels(self) -> List[List[int]]:
-        self._mat_edges()
+        self._edges()
         return self._levels
-
-    @levels.setter
-    def levels(self, v):
-        self._levels = v
 
     @property
     def node_level(self) -> List[int]:
-        self._mat_edges()
+        self._edges()
         return self._node_level
 
-    @node_level.setter
-    def node_level(self, v):
-        self._node_level = v
+    @property
+    def initial_reads(self) -> set:
+        self.build()
+        return self._initial_reads
 
     @property
     def num_nodes(self) -> int:
-        if self._nodes is None and self._native is not None:
+        self.build()
+        if self._nodes is None:
             return self._native["n"]
-        return len(self.nodes)
+        return len(self._nodes)
 
     def total_flops(self) -> int:
         total = 0
@@ -157,7 +192,11 @@ class ScheduledDAG:
 
 
 def compile_schedule(template: ProgramTemplate, bindings: Dict[str, Any]):
-    """bind + enumerate + DAG + levels; returns a runtime TiledProgram."""
+    """Bind the arguments and return a runtime TiledProgram: the bindings
+    are checked here, and the schedule (enumerate + DAG + levels) is built
+    here too unless the template defers it to its first read
+    (`template.defer_schedule`, the package's entries)."""
+    global BINDS
     matrices: Dict[str, BoundArg] = {}
     consts: Dict[str, int] = {}
     for name, val in bindings.items():
@@ -176,27 +215,25 @@ def compile_schedule(template: ProgramTemplate, bindings: Dict[str, Any]):
     if missing:
         raise CompilationError(f"{template.name}: unbound arguments {sorted(missing)}")
 
-    with span("bind.schedule"):
-        dag = ScheduledDAG(template, matrices, consts)
-        if not _try_native(dag):
-            dag.nodes = []
-            _enumerate(template.body, dict(consts), dag, matrices)
-            _resolve_edges(dag)
-            _level(dag)
+    dag = ScheduledDAG(template, matrices, consts)
+    if not template.defer_schedule:
+        dag.build()
 
     from numpywren_tpu_torch.runtime.program import TiledProgram
 
     with span("bind.program"):
-        return TiledProgram(dag)
+        program = TiledProgram(dag)
+    with _COUNTERS:
+        BINDS += 1
+    return program
 
 
 def _try_native(dag) -> bool:
     """Run the C++ schedule core (numpywren_tpu_torch/native) when available.
-    NPW_NATIVE=0 disables it, NPW_NATIVE=1 makes unavailability an error;
-    default: use it opportunistically, fall back to the Python passes."""
-    import os
-
-    mode = os.environ.get("NPW_NATIVE", "auto")
+    NPW_NATIVE (as it was at bind) =0 disables it, =1 makes unavailability
+    an error; default: use it opportunistically, fall back to the Python
+    passes."""
+    mode = dag._native_mode
     if mode == "0":
         return False
     try:
@@ -261,7 +298,7 @@ def _enumerate(stmts, env, dag: ScheduledDAG, matrices):
                 writes.append(a)
                 wvers.append(ver)
             node = Node(
-                node_id=len(dag.nodes),
+                node_id=len(dag._nodes),
                 stmt_id=s.stmt_id,
                 op=s.op,
                 var_values=tuple(env[v] for v in s.loop_vars),
@@ -272,7 +309,7 @@ def _enumerate(stmts, env, dag: ScheduledDAG, matrices):
                 read_versions=tuple(rvers),
                 write_versions=tuple(wvers),
             )
-            dag.nodes.append(node)
+            dag._nodes.append(node)
         else:
             raise CompilationError(f"unexpected IR node {s!r}")
 
@@ -285,11 +322,11 @@ def _resolve_edges(dag: ScheduledDAG):
     matrices = dag.matrices
     # write map keyed on (phys addr, version) for versioned, (addr, None) else
     write_map: Dict[Tuple, int] = {}
-    for n in dag.nodes:
+    for n in dag._nodes:
         for a, v in zip(n.writes, n.write_versions):
             key = (a, v)
             if key in write_map:
-                other = dag.nodes[write_map[key]]
+                other = dag._nodes[write_map[key]]
                 raise CompilationError(
                     f"double write to {a} (version {v}) by S{other.stmt_id}{other.var_values} "
                     f"and S{n.stmt_id}{n.var_values}; programs must be single-assignment "
@@ -297,11 +334,11 @@ def _resolve_edges(dag: ScheduledDAG):
                 )
             write_map[key] = n.node_id
 
-    n_nodes = len(dag.nodes)
+    n_nodes = len(dag._nodes)
     parent_sets: List[set] = [set() for _ in range(n_nodes)]
     readers_of: Dict[Tuple, List[int]] = {}
 
-    for n in dag.nodes:
+    for n in dag._nodes:
         for a, v in zip(n.reads, n.read_versions):
             w = write_map.get((a, v))
             if w is None:
@@ -310,7 +347,7 @@ def _resolve_edges(dag: ScheduledDAG):
                     raise CompilationError(
                         f"S{n.stmt_id}{n.var_values} reads {a} version {v}, which nothing writes"
                     )
-                dag.initial_reads.add(a)
+                dag._initial_reads.add(a)
             elif w == n.node_id:
                 raise CompilationError(
                     f"S{n.stmt_id}{n.var_values} reads its own output {a}; use a versioned scratch"
@@ -321,7 +358,7 @@ def _resolve_edges(dag: ScheduledDAG):
                 readers_of.setdefault((a, v), []).append(n.node_id)
 
     # WAR: writer of (addr, v+1) must wait for all readers of (addr, v)
-    for n in dag.nodes:
+    for n in dag._nodes:
         for a, v in zip(n.writes, n.write_versions):
             if v is None or v == 0:
                 continue
@@ -329,11 +366,12 @@ def _resolve_edges(dag: ScheduledDAG):
                 if r != n.node_id:
                     parent_sets[n.node_id].add(r)
 
-    dag.parents = [sorted(s) for s in parent_sets]
-    dag.children = [[] for _ in range(n_nodes)]
-    for nid, ps in enumerate(dag.parents):
+    parents = [sorted(s) for s in parent_sets]
+    children: List[List[int]] = [[] for _ in range(n_nodes)]
+    for nid, ps in enumerate(parents):
         for p in ps:
-            dag.children[p].append(nid)
+            children[p].append(nid)
+    dag._children, dag._parents = children, parents
 
 
 # ---------------------------------------------------------------------------
@@ -438,15 +476,15 @@ def grouped_schedule(dag: ScheduledDAG, policy: str = "wavefront"):
 def _level(dag: ScheduledDAG):
     from collections import deque
 
-    n_nodes = len(dag.nodes)
-    indeg = [len(p) for p in dag.parents]
+    n_nodes = len(dag._nodes)
+    indeg = [len(p) for p in dag._parents]
     level = [0] * n_nodes
     q = deque(i for i in range(n_nodes) if indeg[i] == 0)
     seen = 0
     while q:
         nid = q.popleft()
         seen += 1
-        for c in dag.children[nid]:
+        for c in dag._children[nid]:
             if level[nid] + 1 > level[c]:
                 level[c] = level[nid] + 1
             indeg[c] -= 1
@@ -458,5 +496,5 @@ def _level(dag: ScheduledDAG):
     levels: List[List[int]] = [[] for _ in range(n_levels)]
     for nid, lv in enumerate(level):
         levels[lv].append(nid)
-    dag.node_level = level
-    dag.levels = levels
+    dag._node_level = level
+    dag._levels = levels

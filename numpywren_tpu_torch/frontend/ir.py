@@ -164,7 +164,11 @@ class BoundArg:
 
 
 class ProgramTemplate:
-    """Parsed DSL program: arg names + loop-nest body + flat statement list."""
+    """Parsed DSL program: arg names + loop-nest body + flat statement list.
+
+    `defer_schedule` is False for a template from lpcompile: its bind builds
+    the schedule. The package's entries (alg_wrappers) set it on the
+    templates they own, whose binds leave the schedule to its first read."""
 
     def __init__(self, name: str, arg_names: Sequence[str], body: List[Stmt], source: str):
         self.name = name
@@ -172,6 +176,7 @@ class ProgramTemplate:
         self.body = body
         self.source = source
         self.statements: List[KernelCall] = []
+        self.defer_schedule = False
         self._collect(body)
 
     def _collect(self, stmts: List[Stmt]):
@@ -186,7 +191,9 @@ class ProgramTemplate:
 
     def bind(self, **bindings):
         """Bind matrices (TiledMatrix / BoundArg) and integer constants;
-        returns a compiled TiledProgram with its static schedule."""
+        returns a compiled TiledProgram with its static schedule, built here
+        (the program's CompilationErrors are raised here) unless
+        `defer_schedule` leaves it to the schedule's first read."""
         from numpywren_tpu_torch.compiler.schedule import compile_schedule
 
         return compile_schedule(self, bindings)

@@ -87,8 +87,8 @@ def compile_native(dag) -> Optional[bool]:
     finally:
         lib.npw_free(h)
 
-    # Stash the raw tables; Node objects / edge lists materialize lazily
-    # (ScheduledDAG properties) — the fused lowering never touches them.
+    # Stash the raw tables; Node objects / edge lists materialize at first
+    # access (ScheduledDAG's views).
     names = matrix_order
     dag._native = {
         "n": int(n),
@@ -102,7 +102,7 @@ def compile_native(dag) -> Optional[bool]:
         "names": names,
     }
     init_l = init.tolist()
-    dag.initial_reads = {
+    dag._initial_reads = {
         (names[init_l[3 * i]], init_l[3 * i + 1], init_l[3 * i + 2])
         for i in range(n_init)
     }
@@ -162,19 +162,22 @@ def materialize_nodes(dag):
 
 
 def materialize_edges(dag):
+    """The edge lists and levels from the native tables; `_parents` is set
+    last, so a reader that sees it sees the rest."""
     nat = dag._native
     if nat is None:
         raise RuntimeError("no native tables and no Python enumeration ran")
     n = nat["n"]
     par_l, par_off_l = nat["par"].tolist(), nat["par_off"].tolist()
-    dag._parents = [par_l[par_off_l[i]:par_off_l[i + 1]] for i in range(n)]
+    parents = [par_l[par_off_l[i]:par_off_l[i + 1]] for i in range(n)]
     children = [[] for _ in range(n)]
-    for nid, ps in enumerate(dag._parents):
+    for nid, ps in enumerate(parents):
         for p in ps:
             children[p].append(nid)
-    dag._children = children
-    dag._node_level = nat["level_of"].tolist()
-    n_levels = (max(dag._node_level) + 1) if n else 0
-    dag._levels = [[] for _ in range(n_levels)]
-    for nid, lv in enumerate(dag._node_level):
-        dag._levels[lv].append(nid)
+    node_level = nat["level_of"].tolist()
+    n_levels = (max(node_level) + 1) if n else 0
+    levels = [[] for _ in range(n_levels)]
+    for nid, lv in enumerate(node_level):
+        levels[lv].append(nid)
+    dag._children, dag._node_level, dag._levels = children, node_level, levels
+    dag._parents = parents

@@ -6,7 +6,11 @@ compare-and-swap transitions, program enum PS, start()/post_op()/wait()/
 free()/get_node_status(), and per-node profiling counters (start/end time,
 flops — the reference keeps these in Redis, SURVEY §5 tracing), which only
 the dynamic executors fill: `profile` holds a node's dict from its first
-record on, so a fused run's program never builds one.
+record on, so a fused run's program never builds one. The per-node state
+(`node_status`, `dep_count`) comes into being at start(), or at its first
+read: a program that completed without start() (a fused run) then reads
+every node FINISHED. Neither the constructor nor a fused run reads the
+node count, so neither builds a deferred schedule.
 
 Differences by design: the DAG is fully materialized (static schedule), so
 post_op returns the precomputed children instead of re-solving them with
@@ -44,6 +48,10 @@ class PS(enum.IntEnum):
 
 
 class TiledProgram:
+    """A bound program: its schedule (`dag`, built at its first read where
+    the bind deferred it), its bindings, and the state machine the dynamic
+    executors drive."""
+
     def __init__(self, dag: ScheduledDAG):
         self.dag = dag
         self.matrices = dag.matrices
@@ -52,12 +60,41 @@ class TiledProgram:
         self._cv = threading.Condition(self._lock)
         self.program_status = PS.NOT_STARTED
         self.exception: Optional[BaseException] = None
-        n = dag.num_nodes
-        self.node_status = [NS.NOT_READY] * n
-        self.dep_count = [0] * n
+        self._node_status: Optional[List[NS]] = None  # made by start() or at first read
+        self._dep_count: Optional[List[int]] = None
+        self._done = 0
         self.profile: Dict[int, Dict] = {}  # node id -> its record, once it has one
-        self._finished_count = 0
         self.trace_id: Optional[int] = None  # the entry's (metrics.span)
+
+    # ------------------------------------------------------ per-node state
+    def _node_state(self) -> List[NS]:
+        """The per-node lists, made here where start() did not make them:
+        every node FINISHED once the program succeeded, else NOT_READY."""
+        if self._node_status is None:
+            n = self.dag.num_nodes
+            done = self.program_status == PS.SUCCESS
+            self._dep_count = [0] * n
+            self._done = n if done else 0
+            self._node_status = [NS.FINISHED if done else NS.NOT_READY] * n
+        return self._node_status
+
+    @property
+    def node_status(self) -> List[NS]:
+        return self._node_state()
+
+    @property
+    def dep_count(self) -> List[int]:
+        self._node_state()
+        return self._dep_count
+
+    @property
+    def _finished_count(self) -> int:
+        self._node_state()
+        return self._done
+
+    @_finished_count.setter
+    def _finished_count(self, value: int):
+        self._done = value
 
     # ------------------------------------------------------------ schedule
     @property
@@ -98,20 +135,21 @@ class TiledProgram:
         with self._lock:
             if self.program_status != PS.NOT_STARTED:
                 raise RuntimeError("program already started")
+            n = self.num_nodes
+            status = self._node_status = [NS.NOT_READY] * n
+            deps = self._dep_count = [0] * n
+            parents = self.dag.parents
             roots = []
-            for nid in range(self.num_nodes):
+            for nid in range(n):
                 if nid in done_set:
-                    self.node_status[nid] = NS.FINISHED
-                    self.dep_count[nid] = 0
+                    status[nid] = NS.FINISHED
                     continue
-                self.dep_count[nid] = sum(
-                    1 for p in self.dag.parents[nid] if p not in done_set
-                )
-                if self.dep_count[nid] == 0:
-                    self.node_status[nid] = NS.READY
+                deps[nid] = sum(1 for p in parents[nid] if p not in done_set)
+                if deps[nid] == 0:
+                    status[nid] = NS.READY
                     roots.append(nid)
-            self._finished_count = len(done_set)
-            if self._finished_count == self.num_nodes:
+            self._done = len(done_set)
+            if self._done == n:
                 self.program_status = PS.SUCCESS
                 self._cv.notify_all()
             else:
@@ -182,10 +220,9 @@ class TiledProgram:
         tears down queues/Redis keys)."""
         with self._lock:
             self.program_status = PS.NOT_STARTED
-            self.node_status = [NS.NOT_READY] * self.num_nodes
-            self.dep_count = [0] * self.num_nodes
+            self._node_status = self._dep_count = None
+            self._done = 0
             self.profile = {}
-            self._finished_count = 0
             self.exception = None
 
     # ----------------------------------------------------------- reporting

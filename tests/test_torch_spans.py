@@ -1,8 +1,9 @@
 """The port's spans (numpywren_tpu_torch.metrics.span / spans / trace) on
 the CPU: the no-op when no recorder is open, nested recorders and parent
 links, errors, the spans of the Cholesky and TSQR entries and of
-run_program, the profiler's trace, and TiledProgram's node profiles,
-which only a dynamic run fills.
+run_program (an entry's bind builds no schedule: `bind.schedule` opens
+under `run` where a generic executor builds it), the profiler's trace,
+and TiledProgram's node profiles, which only a dynamic run fills.
 
 Small sizes (n 256, panel 64; 2048 x 32); each case takes seconds."""
 
@@ -20,7 +21,7 @@ from numpywren_tpu_torch import metrics
 from numpywren_tpu_torch.compiler import lower
 from numpywren_tpu_torch.matrix_init import random_spd
 
-BIND_CHILDREN = ["bind.store", "bind.alloc", "bind.schedule", "bind.program"]
+BIND_CHILDREN = ["bind.store", "bind.alloc", "bind.program"]
 
 
 def tree(rec):
@@ -286,10 +287,29 @@ def test_trace_carries_the_span_names(tmp_path):
     with metrics.trace(str(out)) as rec:
         _, (prog, _, _) = _trapezoid_cholesky(128, 64)
         npw.run_program(prog)
-    assert {"bind", "bind.schedule", "run", "chol.update", "host_read"} <= {s.name for s in rec}
+    assert {"bind", "bind.program", "run", "chol.update", "host_read"} <= {s.name for s in rec}
+    assert "bind.schedule" not in {s.name for s in rec}
     (f,) = out.glob("*.pt.trace.json")
     names = {e.get("name") for e in json.loads(f.read_text())["traceEvents"]}
-    assert {"bind", "bind.schedule", "run", "chol.factor", "chol.update", "host_read"} <= names
+    assert {"bind", "bind.program", "run", "chol.factor", "chol.update", "host_read"} <= names
+    assert "bind.schedule" not in names
+
+
+@pytest.mark.parametrize("executor", ["jax", "local", "spill"])
+def test_a_generic_run_builds_the_schedule_under_run(executor):
+    a = random_spd(96, seed=6)
+    with metrics.spans() as rec:
+        prog, o, _ = npw.cholesky(a, tile=(32, 32), storage="host", device="cpu")
+        npw.run_program(prog, executor=executor)
+    kids, roots = tree(rec)
+    assert [rec[i].name for i in roots] == ["bind", "run"]
+    bind, run = roots
+    assert kids[bind] == BIND_CHILDREN
+    assert kids[run][0] == "bind.schedule" and kids[run].count("bind.schedule") == 1
+    assert [s.name for s in rec].count("bind.schedule") == 1
+    assert {s.trace for s in rec} == {prog.trace_id}
+    l = o.numpy()
+    assert np.linalg.norm(a - l @ l.T) / np.linalg.norm(a) < 1e-5
 
 
 def test_the_plain_recorder_does_not_annotate_the_profiler(monkeypatch):
